@@ -1,0 +1,18 @@
+"""MultimodalGame on PyTorch and CUDA: the port of ``multimodalgame_tpu``
+to one NVIDIA H100 (Hopper, ``sm_90a``).
+
+The layout mirrors the JAX package module by module, so each counterpart
+sits at the same path. This package imports ``torch``, ``numpy`` and the
+standard library only; ``h5py`` and ``nltk`` are imported lazily by the
+functions that read HDF5 files or tokenize text.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no GPU and no explicit CPU request they raise
+(:func:`multimodalgame_tpu_torch.utils.device.resolve_device`).
+
+Covered so far: the non-attention eval conversation and serving
+(``serve.py``), with the whole conversation in one hand-written CUDA
+kernel (``ops/cuda_exchange.py``, ``csrc/fused_exchange.cu``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,34 @@
+"""English stopword list.
+
+The reference filters description tokens through NLTK's English stopword
+corpus (reference misc.py:223-224). NLTK's corpus download requires network
+access, so the standard English list is vendored here verbatim; when an NLTK
+data installation is present it is preferred so behavior tracks the user's
+NLTK version.
+"""
+
+_ENGLISH = """
+i me my myself we our ours ourselves you you're you've you'll you'd your
+yours yourself yourselves he him his himself she she's her hers herself it
+it's its itself they them their theirs themselves what which who whom this
+that that'll these those am is are was were be been being have has had
+having do does did doing a an the and but if or because as until while of
+at by for with about against between into through during before after
+above below to from up down in out on off over under again further then
+once here there when where why how all any both each few more most other
+some such no nor not only own same so than too very s t can will just don
+don't should should've now d ll m o re ve y ain aren aren't couldn
+couldn't didn didn't doesn doesn't hadn hadn't hasn hasn't haven haven't
+isn isn't ma mightn mightn't mustn mustn't needn needn't shan shan't
+shouldn shouldn't wasn wasn't weren weren't won won't wouldn wouldn't
+""".split()
+
+
+def english_stopwords():
+    """Return the English stopword list (NLTK corpus if available, else the
+    vendored copy)."""
+    try:
+        from nltk.corpus import stopwords
+        return list(stopwords.words("english"))
+    except Exception:
+        return list(_ENGLISH)

@@ -1,0 +1,148 @@
+"""The CUDA kernels of the port against their plain PyTorch versions, on
+the card.
+
+Every test here needs an NVIDIA GPU and ``nvcc`` (marker ``cuda``) and
+skips without one. This file imports no JAX, so on a machine without it
+run it past the JAX conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+Tolerances and the rule for a bit that rounds at 0.5 are those of
+``ops.cuda_exchange.compare_outputs``: bits and masks exact,
+probabilities at atol 1e-5, class scores at 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
+from multimodalgame_tpu_torch.game.agents import AgentModules, init_params
+from multimodalgame_tpu_torch.game.config import GameConfig
+from multimodalgame_tpu_torch.game.masks import build_mask
+from multimodalgame_tpu_torch.ops.cuda_exchange import (
+    compare_outputs, fused_eval_exchange, fused_eval_exchange_reference,
+    kernel_params)
+from multimodalgame_tpu_torch.serve import Predictor
+
+pytestmark = pytest.mark.cuda
+
+SMALL = dict(img_feat_dim=64, img_h_dim=32, sender_out_dim=16, rec_w_dim=16,
+             rec_hidden=32, wv_dim=24, max_exchange=4, fixed_exchange=False)
+CANON = dict(img_feat_dim=512, img_h_dim=256, sender_out_dim=32,
+             rec_w_dim=32, rec_hidden=64, wv_dim=100, max_exchange=10,
+             fixed_exchange=False)
+VARIANTS = {"adaptive": {}, "fixed": dict(fixed_exchange=True),
+            "prod": dict(sender_mix="prod"),
+            "ignore_code": dict(ignore_code=True),
+            "ignore_receiver": dict(ignore_receiver=True),
+            "no_s_prob_prod": dict(s_prob_prod=False),
+            "first_rec_1": dict(first_rec=1.0), "corrupt": {}}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _agents(cfg, seed, stop_bias):
+    """Random agents; the stop bias keeps Adaptive conversations going
+    past turn 0 (random weights stop every row there)."""
+    mods = init_params(AgentModules(cfg), seed=seed, device="cuda")
+    with torch.no_grad():
+        mods.receiver.s.bias.fill_(stop_bias)
+    return mods
+
+
+def _case(dims, batch, num_desc, seed=0, stop_bias=1.5, **kw):
+    cfg = GameConfig(**{**dims, **kw})
+    mods = _agents(cfg, seed, stop_bias)
+    rng = np.random.RandomState(seed)
+    data = torch.from_numpy(
+        rng.randn(batch, cfg.img_feat_dim).astype(np.float32)).cuda()
+    desc = torch.from_numpy(
+        rng.randn(num_desc, cfg.wv_dim).astype(np.float32)).cuda()
+    return cfg, mods, data, desc
+
+
+def _check(cfg, params, data, desc, corrupt=None):
+    with torch.inference_mode():
+        got = fused_eval_exchange(cfg, params, data, desc, corrupt)
+        want = fused_eval_exchange_reference(cfg, params, data, desc,
+                                             corrupt)
+    torch.cuda.synchronize()
+    rep = compare_outputs(cfg, got, want)
+    assert rep["ok"], rep
+    return got
+
+
+@pytest.mark.parametrize("batch", [1, 8, 13])
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_kernel_matches_plain_version(cuda, name, batch):
+    cfg, mods, data, desc = _case(SMALL, batch, 5, **VARIANTS[name])
+    corrupt = (torch.from_numpy(build_mask("0:3,7", cfg.rec_w_dim)).cuda()
+               if name == "corrupt" else None)
+    _check(cfg, kernel_params(mods), data, desc, corrupt)
+
+
+@pytest.mark.parametrize("batch", [1, 100])
+def test_kernel_matches_plain_version_canonical_width(cuda, batch):
+    cfg, mods, data, desc = _case(CANON, batch, 30, seed=1, stop_bias=2.5)
+    got = _check(cfg, kernel_params(mods), data, desc)
+    assert got.y.shape == (10, batch, 30)
+
+
+def test_kernel_above_48k_shared_memory_and_many_classes(cuda):
+    """The default img_feat_dim 4096 needs more than 48 KB of shared
+    memory a block (the opt-in path); 70 classes take more than one warp
+    pass in the softmax."""
+    cfg, mods, data, desc = _case({**SMALL, "img_feat_dim": 4096}, 9, 70)
+    _check(cfg, kernel_params(mods), data, desc)
+
+
+def test_each_call_is_one_launch(cuda):
+    cfg, mods, data, desc = _case(SMALL, 8, 5)
+    params = kernel_params(mods)
+    before = fused_eval_exchange.launches
+    for _ in range(3):
+        fused_eval_exchange(cfg, params, data, desc)
+    assert fused_eval_exchange.launches == before + 3
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    cfg, mods, data, desc = _case(SMALL, 8, 5)
+    params = kernel_params(mods)
+    bad = [
+        (data.double(), desc, params),
+        (data.t().contiguous().t(), desc, params),
+        (data[:0], desc, params),
+        (data, desc[:, :3].contiguous(), params),
+        (data, desc, {**params, "wbin": params["wbin"].cpu()}),
+    ]
+    for d, ds, p in bad:
+        with pytest.raises(ValueError):
+            fused_eval_exchange(cfg, p, d, ds)
+
+
+def test_predictor_serves_through_the_kernel(cuda):
+    cfg = GameConfig(**CANON)
+    desc = np.random.RandomState(2).randn(30, 100).astype(np.float32)
+    pack = DescriptionPack(desc, desc, [1] * 30)
+    mods = _agents(cfg, 2, 2.5)
+    kernel = Predictor(cfg, mods, pack, device="cuda")
+    plain = Predictor(cfg, mods, pack, device="cuda", use_kernel=False)
+    x = np.abs(np.random.RandomState(3).randn(64, 512)).astype(np.float32)
+    before = fused_eval_exchange.launches
+    got = kernel.predict(x)
+    assert fused_eval_exchange.launches == before + 1
+    want = plain.predict(x)
+    assert fused_eval_exchange.launches == before + 1
+    assert got["n_steps"] == want["n_steps"] > 1
+    np.testing.assert_array_equal(got["prediction"], want["prediction"])
+    np.testing.assert_array_equal(got["sender_messages"],
+                                  want["sender_messages"])
+    np.testing.assert_allclose(got["log_probs"], want["log_probs"],
+                               atol=1e-5)
