@@ -17,17 +17,39 @@ result line):
              512, sender hidden 256, 32-bit messages, receiver hidden 64,
              wv 100, 30 classes, 10 turns) for batches 1, 7, 64, 100 and
              the variants fixed, prod, ignore_code and corruption "0:3,7";
-4. serve   — random canonical-width weights (stop bias STOP_BIAS) saved
-             as a reference .pt,
-             loaded by ``Predictor.from_checkpoint`` on cuda, four request
+4. train_kernels — the train-mode kernel (``fused_train_forward``)
+             against its plain version at the canonical width, for
+             batches 1, 7, 64, 100 and the variants adaptive, fixed, prod,
+             ignore_code, ignore_receiver and flipout (0.1 on both
+             channels), in both of its random modes: uniforms drawn by
+             numpy and handed in, and Philox keyed by (seed, step) with the
+             plain version fed ``ops/philox.py``'s numbers for the same
+             key. Tie rows (a probability within 1e-5 of its uniform) are
+             counted; any other difference is fatal;
+5. serve   — random canonical-width weights (stop bias STOP_BIAS) saved
+             as a reference .pt, loaded by ``Predictor.from_checkpoint``
+             on cuda, four request
              batches (1, 7, 64, 100) answered through the kernel (its
              launch count must grow by exactly 4) and held against a
              plain ``Predictor(use_kernel=False)`` on the same card;
-5. timing  — CUDA-event medians of the kernel and its plain version, and
-             host-clock medians of ``Predictor.predict`` end to end, at
-             batches 1, 64 and 100; at batch 64 also the kernel with one
-             turn, which splits its time into the once-per-conversation
-             part and the cost of a turn.
+6. train   — the training main path: ``make_multistep_train_step_indexed
+             (fast="kernel")`` on cuda at the canonical width and
+             hyper-parameters (RMSprop, lr 1e-4, entropies 0.08 / 0.01 /
+             0.01, batch 64), over an in-memory synthetic set of 30
+             classes x 100 train and 20 dev examples, for the demo's 30
+             epochs in chunks of 5 epochs. The train kernel's launch count
+             must equal the number of steps and every loss must be
+             finite; dev top-1 and top-6 are read through the eval kernel
+             (top-6 must reach 0.5, chance is 0.2); the four agents are
+             saved as a reference .pt and loaded back;
+7. timing  — CUDA-event medians of both kernels and their plain versions,
+             and host-clock medians of ``Predictor.predict`` end to end,
+             at batches 1, 64 and 100; at batch 64 also the eval kernel
+             with one turn, which splits its time into the
+             once-per-conversation part and the cost of a turn; the train
+             kernel in both random modes; the whole training step and its
+             phase A at batch 64 (steps/s, and the share of the step that
+             phase A takes).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -56,6 +78,18 @@ VARIANTS = {"adaptive": {}, "fixed": {"fixed_exchange": True},
             "prod": {"sender_mix": "prod"}, "ignore_code": {"ignore_code": True},
             "corrupt_0:3,7": {}}
 TIMED_BATCHES = (1, 64, 100)
+TRAIN_VARIANTS = {"adaptive": {}, "fixed": {"fixed_exchange": True},
+                  "prod": {"sender_mix": "prod"},
+                  "ignore_code": {"ignore_code": True},
+                  "ignore_receiver": {"ignore_receiver": True},
+                  "flipout": {"flipout_sen": 0.1, "flipout_rec": 0.1}}
+# Canonical training hyper-parameters (bench.py:40-52, tools/demo.sh:21-29).
+TRAIN_HP = dict(entropy_s=0.08, entropy_sen=0.01, entropy_rec=0.01,
+                learning_rate=1e-4, optim_type="RMSprop",
+                baseline_hid_dim=500)
+TRAIN_BATCH, TRAIN_PER_CLASS, DEV_PER_CLASS = 64, 100, 20
+EPOCHS, CHUNK_EPOCHS = 30, 5
+MIN_DEV_TOP6 = 0.5
 # Random weights stop every conversation after turn 0; this bias on the
 # stop unit makes them run 5-7 of the 10 turns, so the served answers
 # depend on the stop-mask chain.
@@ -118,6 +152,16 @@ def features(batch: int, seed: int) -> np.ndarray:
     return np.abs(proto[cls] + 0.3 * rng.randn(batch, 512)).astype(np.float32)
 
 
+def synthetic_set(per_class: int, seed: int):
+    """``per_class`` examples of each class, features made as
+    ``features`` makes them: ``(feats (N, 512) float32, labels (N,))``."""
+    rng = np.random.RandomState(seed)
+    proto = np.random.RandomState(1234).randn(NUM_CLASSES, 512)
+    labels = np.repeat(np.arange(NUM_CLASSES), per_class)
+    feats = np.abs(proto[labels] + 0.3 * rng.randn(len(labels), 512))
+    return feats.astype(np.float32), labels
+
+
 def descriptions() -> np.ndarray:
     return np.random.RandomState(7).randn(NUM_CLASSES, 100).astype(np.float32)
 
@@ -162,6 +206,164 @@ def check_kernels(device):
             worst["tie_rows"] += rep["tie_rows"]
             worst["cases"] += 1
     return worst
+
+
+def numpy_uniforms(cfg, batch: int, seed: int, device):
+    import torch
+    from multimodalgame_tpu_torch.ops.sampling import uniform_widths
+    rng = np.random.RandomState(seed)
+    return {k: torch.from_numpy(rng.rand(cfg.max_exchange, batch, n)
+                                .astype(np.float32)).to(device)
+            for k, n in uniform_widths(cfg, train=True).items()}
+
+
+def check_train_kernels(device):
+    import torch
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        compare_outputs, fused_train_forward, fused_train_forward_reference,
+        kernel_params)
+    from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+    desc = torch.from_numpy(descriptions()).to(device)
+    worst = {"max_abs_err": 0.0, "tie_rows": 0, "cases": 0, "largest": []}
+    for name, kw in TRAIN_VARIANTS.items():
+        cfg = canonical_cfg(**TRAIN_HP, **kw)
+        params = kernel_params(make_agents(cfg, device))
+        for batch in BATCHES:
+            data = torch.from_numpy(features(batch, seed=batch)).to(device)
+            for mode in ("uniforms", "philox"):
+                with torch.inference_mode():
+                    if mode == "uniforms":
+                        u = numpy_uniforms(cfg, batch, 300 + batch, device)
+                        got = fused_train_forward(cfg, params, data, desc,
+                                                  uniforms=u)
+                    else:
+                        u = philox_uniforms(cfg, batch, seed=batch, step=7,
+                                            device=device)
+                        got = fused_train_forward(cfg, params, data, desc,
+                                                  seed=batch, step=7)
+                    want = fused_train_forward_reference(cfg, params, data,
+                                                         desc, u)
+                torch.cuda.synchronize()
+                rep = compare_outputs(cfg, got, want, uniforms=u)
+                log({"phase": "train_kernels",
+                     "kernel": "fused_train_forward", "variant": name,
+                     "batch": batch, "rng": mode, **rep})
+                if not rep["ok"]:
+                    raise SystemExit(
+                        f"train kernel disagrees with its plain version: "
+                        f"{name} batch {batch} {mode}")
+                worst["max_abs_err"] = max(worst["max_abs_err"],
+                                           rep["max_abs_err"])
+                worst["tie_rows"] += rep["tie_rows"]
+                worst["cases"] += 1
+                worst["largest"].append((rep["max_abs_err"], name, batch,
+                                         mode))
+    worst["largest"] = sorted(worst["largest"], reverse=True)[:3]
+    log({"phase": "train_kernels", "cases": worst["cases"],
+         "tie_rows": worst["tie_rows"], "max_abs_err": worst["max_abs_err"],
+         "largest_differences": worst["largest"]})
+    return worst
+
+
+def dev_accuracy(mods, feats: np.ndarray, labels: np.ndarray, desc,
+                 device):
+    """Dev top-1 and top-6 through the eval kernel, in batches of 100:
+    the y-mask selection (Adaptive), log-softmax, rank-counted top-k."""
+    import torch
+    from multimodalgame_tpu_torch.game.losses import (get_rec_outp,
+                                                      topk_accuracy)
+    from multimodalgame_tpu_torch.game.masks import assemble_loss_masks
+    from multimodalgame_tpu_torch.game.train import make_eval_exchange
+    run = make_eval_exchange(mods)
+    hits = {1: 0.0, 6: 0.0}
+    with torch.inference_mode():
+        for s in range(0, len(labels), 100):
+            ex = run(torch.from_numpy(feats[s:s + 100]).to(device), desc)
+            y_masks = (None if mods.cfg.fixed_exchange
+                       else assemble_loss_masks(ex.stop_masks).y)
+            outp, _ = get_rec_outp(ex.y, y_masks)
+            dist = torch.log_softmax(outp, dim=-1)
+            target = torch.from_numpy(labels[s:s + 100]).to(device)
+            for k in hits:
+                hits[k] += float(topk_accuracy(dist, target, k, 1))
+    return hits[1] / len(labels), hits[6] / len(labels)
+
+
+def train_game(device, workdir):
+    """The training main path; returns the trained agents, their
+    optimizer states, the staged set and the counts."""
+    import torch
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES,
+                                                      AgentModules,
+                                                      init_params)
+    from multimodalgame_tpu_torch.game.train import (
+        init_opt_states, make_multistep_train_step_indexed)
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.utils.torch_interop import (
+        load_reference_checkpoint, save_reference_checkpoint)
+
+    cfg = canonical_cfg(**TRAIN_HP)
+    mods = init_params(AgentModules(cfg), seed=0, device=device)
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    dev_feats, dev_labels = synthetic_set(DEV_PER_CLASS, seed=2)
+    desc = torch.from_numpy(descriptions()).to(device)
+    chunk = make_multistep_train_step_indexed(
+        mods, top_k=6, batch_denom=TRAIN_BATCH, fast="kernel", seed=0,
+        device=device)
+    opts = init_opt_states(cfg, mods)
+    steps_per_epoch = train.size // TRAIN_BATCH
+
+    # The main path, counted alone.
+    fused_train_forward.launches = 0
+    t0 = time.perf_counter()
+    step0, rows = 0, []
+    for e0 in range(0, EPOCHS, CHUNK_EPOCHS):
+        plan = np.concatenate([train.epoch_indices(e, True, TRAIN_BATCH)
+                               for e in range(e0, e0 + CHUNK_EPOCHS)])
+        m = chunk(opts, train.feats, train.targets, plan, desc, step0)
+        step0 += len(plan)
+        rows.append(m)
+        log({"phase": "train", "steps": step0,
+             "epoch": e0 + CHUNK_EPOCHS,
+             "loss_rec": float(m.loss_rec.mean()),
+             "loss_sen": float(m.loss_sen.mean()),
+             "nll_loss": float(m.nll_loss.mean()),
+             "train_top6": float(m.accuracy.mean())})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fused_train_forward.launches
+    if launches != step0:
+        raise SystemExit(f"expected {step0} train-kernel launches, counted "
+                         f"{launches}")
+    every = torch.cat([torch.stack(list(m)) for m in rows], dim=1)
+    if not torch.isfinite(every).all():
+        raise SystemExit("a training loss is not finite")
+
+    fused_eval_exchange.launches = 0
+    top1, top6 = dev_accuracy(mods, dev_feats, dev_labels, desc, device)
+    log({"phase": "train", "steps": step0, "epochs": EPOCHS,
+         "steps_per_epoch": steps_per_epoch, "seconds": secs,
+         "steps_per_s": step0 / secs, "train_kernel_launches": launches,
+         "dev_top1": top1, "dev_top6": top6, "chance_top6": 6 / NUM_CLASSES,
+         "dev_eval_kernel_launches": fused_eval_exchange.launches})
+    if top6 < MIN_DEV_TOP6:
+        raise SystemExit(f"dev top-6 {top6} is below {MIN_DEV_TOP6}")
+
+    ckpt = os.path.join(workdir, "trained.pt")
+    save_reference_checkpoint(ckpt, {"step": step0}, mods)
+    _, back = load_reference_checkpoint(ckpt, cfg, device=device)
+    for agent in AGENT_NAMES:
+        a, b = getattr(mods, agent).state_dict(), \
+            getattr(back, agent).state_dict()
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            raise SystemExit(f"{agent} did not survive the .pt round trip")
+    log({"phase": "train", "checkpoint": "four agents saved and loaded"})
+    return {"launches": launches, "steps": step0, "mods": mods,
+            "opts": opts, "train": train, "desc": desc, "chunk": chunk,
+            "top1": top1, "top6": top6, "steps_per_s": step0 / secs}
 
 
 def serve_requests(device, workdir):
@@ -237,10 +439,11 @@ def serve_requests(device, workdir):
     return {"launches": launches, "tie_rows": ties, "pred": pred}
 
 
-def work(cfg, batch: int):
+def work(cfg, batch: int, uniform_floats: int = 0):
     """Operations and bytes one call needs at these shapes: every product
-    of _kernel's eval mode, each input read once, each output written
-    once."""
+    of _kernel, each input read once (``uniform_floats`` counts the train
+    mode's uniforms where they are read), each output written once.
+    Only f32 operations count: Philox's integer work is left out."""
     from multimodalgame_tpu_torch.ops.cuda_exchange import param_shapes
     F, H, W = cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim
     R, V, D, T, B = cfg.rec_hidden, cfg.wv_dim, NUM_CLASSES, cfg.max_exchange, batch
@@ -253,8 +456,8 @@ def work(cfg, batch: int):
                 + 2 * B * V * R                   # w_d
                 + 2 * B * R * W)                  # w
     flops += T * per_turn + (T - 1) * 2 * B * W * H   # code layer, t > 0
-    n_in = B * F + D * V + W + sum(int(np.prod(s))
-                                   for s in param_shapes(cfg).values())
+    n_in = B * F + D * V + W + uniform_floats + sum(
+        int(np.prod(s)) for s in param_shapes(cfg).values())
     n_out = T * B * (3 + 4 * W + D)
     nbytes = 4 * (n_in + n_out)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -322,16 +525,128 @@ def timing(device, pred):
     return rows
 
 
+def train_timing(device, trained):
+    """Both random modes of the train kernel and its plain version at
+    batches 1, 64, 100; then, at batch 64, the whole training step and its
+    phase A (weights packed plus the kernel), on the trained agents."""
+    import torch
+    from multimodalgame_tpu_torch.game.fast_train import sample_conversation
+    from multimodalgame_tpu_torch.game.fast_train import compute_losses_fast
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward,
+        fused_train_forward_reference, kernel_params)
+    from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+    from multimodalgame_tpu_torch.ops.sampling import uniform_widths
+    mods, desc, train = trained["mods"], trained["desc"], trained["train"]
+    cfg = mods.cfg
+    params = kernel_params(mods)
+    rows = {}
+    for batch in TIMED_BATCHES:
+        data = train.feats[:batch].contiguous()
+        u = philox_uniforms(cfg, batch, 0, 1, device=device)
+        with torch.inference_mode():
+            k_ms = event_median_ms(lambda: fused_train_forward(
+                cfg, params, data, desc, seed=0, step=1))
+            ku_ms = event_median_ms(lambda: fused_train_forward(
+                cfg, params, data, desc, uniforms=u))
+            p_ms = event_median_ms(lambda: fused_train_forward_reference(
+                cfg, params, data, desc, u))
+            # The eval mode on the same weights and data, for comparison.
+            e_ms = event_median_ms(lambda: fused_eval_exchange(
+                cfg, params, data, desc))
+        n_u = cfg.max_exchange * batch * sum(
+            uniform_widths(cfg, train=True).values())
+        with_u = work(cfg, batch, uniform_floats=n_u)
+        row = {"phase": "timing", "kernel": "fused_train_forward",
+               "batch": batch, "kernel_ms": k_ms,
+               "kernel_ms_given_uniforms": ku_ms, "plain_ms": p_ms,
+               "eval_kernel_ms_same_inputs": e_ms,
+               "bound_ms_given_uniforms": with_u["bound_ms"],
+               "bound_by_given_uniforms": with_u["bound_by"],
+               **work(cfg, batch)}
+        log(row)
+        rows[batch] = row
+
+    # The step and phase A at batch 64, host clock around work that ends
+    # in a synchronize; the steps go on training the same agents.
+    chunk, opts = trained["chunk"], trained["opts"]
+    plan = train.epoch_indices(EPOCHS, True, TRAIN_BATCH)
+    counter = {"step": trained["steps"]}
+
+    def one_step():
+        i = counter["step"]
+        chunk(opts, train.feats, train.targets,
+              plan[i % len(plan)][None], desc, i)
+        counter["step"] += 1
+        torch.cuda.synchronize()
+
+    batch_idx = torch.from_numpy(plan[0]).to(device)
+    data, target = train.feats[batch_idx], train.targets[batch_idx]
+
+    def phase_a():
+        sample_conversation(mods, data, desc, "kernel", seed=0, step=1)
+        torch.cuda.synchronize()
+
+    def forward(backward: bool):
+        mods.zero_grad(set_to_none=True)
+        total, _ = compute_losses_fast(mods, data, target, desc, 6,
+                                       TRAIN_BATCH, sampler="kernel",
+                                       seed=0, step=1)
+        if backward:
+            total.backward()
+        torch.cuda.synchronize()
+
+    step_ms = host_median_ms(one_step)
+    a_ms = host_median_ms(phase_a)
+    fwd_ms = host_median_ms(lambda: forward(False))
+    fwd_bwd_ms = host_median_ms(lambda: forward(True))
+
+    # Device busy share and kernel count over a few steps (the profiler
+    # adds its own host overhead to the window).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            one_step()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device_events = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in device_events)
+    launches = sum(e.count for e in device_events)
+    top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:5]
+    row = {"phase": "timing", "batch": TRAIN_BATCH, "train_step_ms": step_ms,
+           "steps_per_s": 1e3 / step_ms, "phase_a_ms": a_ms,
+           "phase_a_share": a_ms / step_ms,
+           "forward_ms": fwd_ms, "backward_ms": fwd_bwd_ms - fwd_ms,
+           "optimizer_and_rest_ms": step_ms - fwd_bwd_ms,
+           "train_kernel_ms": rows[TRAIN_BATCH]["kernel_ms"],
+           "profiled_steps": n_prof,
+           "device_kernels_per_step": launches / n_prof,
+           "device_busy_share": (device_us / wall_us) if device_us else None,
+           "top_device_kernels_us_per_step": [
+               [e.key[:60], e.self_device_time_total / n_prof] for e in top]}
+    log(row)
+    rows["step"] = row
+    return rows
+
+
 def main() -> int:
     import torch
     smi = probe()
     build()
     worst = check_kernels("cuda")
+    worst_train = check_train_kernels("cuda")
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as workdir:
         served = serve_requests("cuda", workdir)
+        trained = train_game("cuda", workdir)
     rows = timing("cuda", served["pred"])
+    train_rows = train_timing("cuda", trained)
     at = rows[64]
+    tat = train_rows[TRAIN_BATCH]
     log({"kernels": [{
         "name": "fused_eval_exchange",
         "route": "cuda",
@@ -347,6 +662,26 @@ def main() -> int:
         "bound_by": at["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
+        "card": smi,
+    }, {
+        "name": "fused_train_forward",
+        "route": "cuda",
+        "source": "multimodalgame_tpu_torch/csrc/fused_exchange.cu",
+        "replaces": "multimodalgame_tpu/ops/pallas_exchange.py:278",
+        "launches": trained["launches"],
+        "max_abs_err": worst_train["max_abs_err"],
+        "tie_rows": worst_train["tie_rows"],
+        "batch": TRAIN_BATCH,
+        "rng": "philox",
+        "ms": tat["kernel_ms"],
+        "plain_ms": tat["plain_ms"],
+        "bound_ms": tat["bound_ms"],
+        "bound_by": tat["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this function",
+        "steps_per_s": train_rows["step"]["steps_per_s"],
+        "phase_a_share": train_rows["step"]["phase_a_share"],
+        "dev_top6": trained["top6"],
         "card": smi,
     }]})
     log({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,29 @@
-// Whole eval conversation of the MultimodalGame in one CUDA kernel.
+// Whole conversation of the MultimodalGame in one CUDA kernel, in its two
+// modes, as multimodalgame_tpu/ops/pallas_exchange.py:_kernel shares one
+// body between them through `train` (here the template parameter TRAIN).
 //
-// Replaces multimodalgame_tpu/ops/pallas_exchange.py:_kernel in eval mode
-// (train=False, reached through fused_eval_exchange): every turn rounds the
-// sender's bits with floor(p + 0.5), flips the corrupt bits, steps the
-// receiver's GRU, rounds the (cumulative) stop probability, scores every
-// class, mixes the descriptions by the softmax of the scores and rounds
-// the receiver's query. The once-per-conversation products (h_x = data W_img
-// + b, desc_proj = desc y1_d and the first turn's code) are computed here
-// too, as in _kernel.
+// Eval mode replaces _kernel with train=False (reached through
+// fused_eval_exchange): every turn rounds the sender's bits with
+// floor(p + 0.5), flips the corrupt bits, steps the receiver's GRU, rounds
+// the (cumulative) stop probability, scores every class, mixes the
+// descriptions by the softmax of the scores and rounds the receiver's
+// query.
+//
+// Train mode replaces _kernel with train=True (reached through
+// fused_train_forward, phase A of every training step): the same products,
+// with Bernoulli bits u < p for the message, the stop bit and the query,
+// flipout (|bit - (u' < p_flip)|) on both channels when configured,
+// ignore_receiver after flipout, and no cumulative stop product. The TPU
+// kernel draws u from the core's own generator (_uniform01); this one takes
+// u either as pre-drawn input streams (the tests' bit-exact parity with the
+// plain exchange) or from Philox4x32-10 keyed by (seed, step), with the
+// counter (column / 4, global row, turn, stream) and word column % 4, so
+// the numbers depend neither on the row tiling nor on the batch size
+// (ops/philox.py is its plain version).
+//
+// The once-per-conversation products (h_x = data W_img + b,
+// desc_proj = desc y1_d and the first turn's code) are computed here too,
+// as in _kernel.
 //
 // What bounds it on an H100: not bytes and not FLOPs. At the canonical
 // Adaptive dims (feat 512, sender hidden 256, 32-bit messages, receiver
@@ -17,7 +33,7 @@
 // bits to the next), so it is bound by the latency of that chain.
 //
 // What this design does about it: nothing beyond one launch per
-// conversation. Batch rows are independent in eval mode, so one block owns
+// conversation. Batch rows are independent in both modes, so one block owns
 // a tile of ROWS rows and runs all T turns; per-row state lives in shared
 // memory, threads spread over the output columns of each product (each
 // thread keeps all ROWS rows of its column, so a weight is read once per
@@ -35,7 +51,8 @@ constexpr int THREADS = 256;
 enum Mix { MIX_SUM = 0, MIX_PROD = 1, MIX_IGNORE_CODE = 2 };
 
 // Order of the pointer table handed over by the Python wrapper
-// (ops/cuda_exchange.py: data, desc, corrupt, PARAM_ORDER, the outputs).
+// (ops/cuda_exchange.py: data, desc, corrupt, PARAM_ORDER, the outputs,
+// and in train mode the five uniform streams, null where absent).
 enum Ptr {
   P_DATA, P_DESC, P_CORRUPT,
   P_WIMG, P_BIMG, P_WCODE, P_BCODE, P_CBIAS, P_WBIN, P_BBIN,
@@ -44,17 +61,29 @@ enum Ptr {
   P_SK, P_SB, P_WHK, P_WHB, P_WDK, P_WK, P_WB,
   P_O_SFEAT, P_O_SPROB, P_O_ZFEAT, P_O_ZPROB, P_O_WFEAT, P_O_WPROB,
   P_O_Y, P_O_MASK,
-  P_COUNT
+  P_COUNT,
+  P_U_FIRST = P_COUNT,
+  P_TRAIN_COUNT = P_U_FIRST + 5
 };
 
-// Order of the int table: sizes, then flags.
+// Uniform streams, numbered as the JAX exchange orders its per-turn keys
+// (game/exchange.py:155-180) and as ops/philox.py numbers them.
+enum Stream { S_Z = 0, S_FZ = 1, S_S = 2, S_W = 3, S_FW = 4, S_COUNT = 5 };
+
+// Order of the int table: sizes, flags, then the train mode's entries.
 enum Dim { D_B, D_F, D_H, D_W, D_R, D_D, D_V, D_T,
-           D_MIX, D_IGNORE_RECEIVER, D_S_PROB_PROD, D_COUNT };
+           D_MIX, D_IGNORE_RECEIVER, D_S_PROB_PROD, D_COUNT,
+           D_PHILOX = D_COUNT, D_SEED, D_STEP, D_FLIP_SEN, D_FLIP_REC,
+           D_TRAIN_COUNT };
 
 struct Args {
   const float* in[P_O_SFEAT];
   float* out[P_COUNT - P_O_SFEAT];
+  const float* u[S_COUNT];     // train mode, pre-drawn uniforms (T, B, dim)
   int B, F, H, W, R, D, V, T, mix, ignore_receiver, s_prob_prod;
+  int philox, flip_sen, flip_rec;
+  unsigned seed, step;
+  float p_flip_sen, p_flip_rec;
 };
 
 // Shared-memory carve, in floats. Used by the kernel and by the host to
@@ -118,6 +147,35 @@ __device__ __forceinline__ void rows_matmul(
   }
 }
 
+// Philox4x32 with 10 rounds (Salmon et al., SC'11; Random123's constants).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const unsigned lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const unsigned lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// The uniform of (stream, turn t, global row, column) in [0, 1): read
+// from the pre-drawn stream, or drawn from Philox with 24 bits, exact in
+// f32 (as _uniform01 makes them).
+__device__ __forceinline__ float uniform01(const Args& a, int stream, int t,
+                                           int row, int col, int width) {
+  if (!a.philox)
+    return __ldg(a.u[stream] + (static_cast<size_t>(t) * a.B + row) * width +
+                 col);
+  const uint4 x = philox4x32_10(
+      make_uint4(static_cast<unsigned>(col) >> 2, row, t, stream),
+      make_uint2(a.seed, a.step));
+  const int w = col & 3;
+  const unsigned bits = w == 0 ? x.x : w == 1 ? x.y : w == 2 ? x.z : x.w;
+  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -128,8 +186,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
-fused_eval_exchange_kernel(Args a) {
+fused_exchange_kernel(Args a) {
   extern __shared__ float smem[];
   const Layout L = make_layout(a);
   float* s_x = smem + L.x;
@@ -204,7 +263,7 @@ fused_eval_exchange_kernel(Args a) {
   for (int t = 0; t < a.T; ++t) {
     const size_t out_row = static_cast<size_t>(t) * B + row0;
 
-    // ---- Sender: mix -> tanh -> binary layer -> round -> corrupt ----
+    // ---- Sender: mix -> tanh -> binary layer -> bits -> corrupt ----
     if (a.mix != MIX_IGNORE_CODE && t > 0) {
       rows_matmul(s_w, W, W, a.in[P_WCODE], a.in[P_BCODE], H, s_hw, H);
       __syncthreads();
@@ -226,7 +285,19 @@ fused_eval_exchange_kernel(Args a) {
     for (int i = tid; i < ROWS * W; i += nthreads) {
       const int r = i / W, j = i % W;
       const float prob = sigmoid_f(s_z[i]);
-      const float bit = fabsf(floorf(prob + 0.5f) - __ldg(corrupt + j));
+      float bit;
+      if (TRAIN) {
+        bit = 0.f;    // padded rows of the last tile
+        if (r < nrows) {
+          bit = uniform01(a, S_Z, t, row0 + r, j, W) < prob ? 1.f : 0.f;
+          if (a.flip_sen)
+            bit = fabsf(bit - (uniform01(a, S_FZ, t, row0 + r, j, W) <
+                                       a.p_flip_sen ? 1.f : 0.f));
+        }
+      } else {
+        bit = floorf(prob + 0.5f);
+      }
+      bit = fabsf(bit - __ldg(corrupt + j));
       s_z[i] = bit;
       if (r < nrows) {
         o_zprob[out_row * W + i] = prob;
@@ -256,13 +327,19 @@ fused_eval_exchange_kernel(Args a) {
     rows_matmul(s_h, R, R, a.in[P_WHK], a.in[P_WHB], R, s_head + R, 2 * R);
     __syncthreads();
 
-    // Stop bit: the (cumulative) stop probability rounded, then the
-    // running mask min(mask, s).
+    // Stop bit: sampled in train mode; in eval mode the (cumulative) stop
+    // probability rounded. Then the running mask min(mask, s).
     for (int r = tid; r < ROWS; r += nthreads) {
       const float sp = sigmoid_f(s_s[r]);
-      const float sprod = a.s_prob_prod ? s_sprod[r] * sp : sp;
-      s_sprod[r] = sprod;
-      const float sbit = floorf(sprod + 0.5f);
+      float sbit;
+      if (TRAIN) {
+        sbit = r < nrows && uniform01(a, S_S, t, row0 + r, 0, 1) < sp
+                   ? 1.f : 0.f;
+      } else {
+        const float sprod = a.s_prob_prod ? s_sprod[r] * sp : sp;
+        s_sprod[r] = sprod;
+        sbit = floorf(sprod + 0.5f);
+      }
       const float mask = fminf(s_mask[r], sbit);
       s_mask[r] = mask;
       if (r < nrows) {
@@ -323,9 +400,21 @@ fused_eval_exchange_kernel(Args a) {
     rows_matmul(s_hq, R, R, a.in[P_WK], a.in[P_WB], W, s_w, W);
     __syncthreads();
     for (int i = tid; i < ROWS * W; i += nthreads) {
-      const int r = i / W;
+      const int r = i / W, j = i % W;
       const float prob = sigmoid_f(s_w[i]);
-      const float bit = a.ignore_receiver ? 0.f : floorf(prob + 0.5f);
+      float bit;
+      if (TRAIN) {
+        bit = 0.f;
+        if (r < nrows) {
+          bit = uniform01(a, S_W, t, row0 + r, j, W) < prob ? 1.f : 0.f;
+          if (a.flip_rec)
+            bit = fabsf(bit - (uniform01(a, S_FW, t, row0 + r, j, W) <
+                                       a.p_flip_rec ? 1.f : 0.f));
+        }
+      } else {
+        bit = floorf(prob + 0.5f);
+      }
+      if (a.ignore_receiver) bit = 0.f;
       s_w[i] = bit;
       if (r < nrows) {
         o_wprob[out_row * W + i] = prob;
@@ -334,6 +423,38 @@ fused_eval_exchange_kernel(Args a) {
     }
     __syncthreads();
   }
+}
+
+// Fill the fields shared by both modes from the pointer and int tables.
+void fill_args(Args& a, void* const* ptrs, const int* dims) {
+  for (int i = 0; i < P_O_SFEAT; ++i) a.in[i] = static_cast<const float*>(ptrs[i]);
+  for (int i = P_O_SFEAT; i < P_COUNT; ++i)
+    a.out[i - P_O_SFEAT] = static_cast<float*>(ptrs[i]);
+  for (int i = 0; i < S_COUNT; ++i) a.u[i] = nullptr;
+  a.B = dims[D_B]; a.F = dims[D_F]; a.H = dims[D_H]; a.W = dims[D_W];
+  a.R = dims[D_R]; a.D = dims[D_D]; a.V = dims[D_V]; a.T = dims[D_T];
+  a.mix = dims[D_MIX];
+  a.ignore_receiver = dims[D_IGNORE_RECEIVER];
+  a.s_prob_prod = dims[D_S_PROB_PROD];
+  a.philox = a.flip_sen = a.flip_rec = 0;
+  a.seed = a.step = 0u;
+  a.p_flip_sen = a.p_flip_rec = 0.f;
+}
+
+template <bool TRAIN>
+int launch(const Args& a, void* stream) {
+  if (a.B <= 0) return 0;
+  const size_t smem = sizeof(float) * static_cast<size_t>(make_layout(a).total);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_exchange_kernel<TRAIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (a.B + ROWS - 1) / ROWS;
+  fused_exchange_kernel<TRAIN><<<blocks, THREADS, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -348,27 +469,41 @@ int mmg_fused_eval_exchange(void* const* ptrs, int n_ptrs, const int* dims,
   if (n_ptrs != P_COUNT || n_dims != D_COUNT)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
-  for (int i = 0; i < P_O_SFEAT; ++i) a.in[i] = static_cast<const float*>(ptrs[i]);
-  for (int i = P_O_SFEAT; i < P_COUNT; ++i)
-    a.out[i - P_O_SFEAT] = static_cast<float*>(ptrs[i]);
-  a.B = dims[D_B]; a.F = dims[D_F]; a.H = dims[D_H]; a.W = dims[D_W];
-  a.R = dims[D_R]; a.D = dims[D_D]; a.V = dims[D_V]; a.T = dims[D_T];
-  a.mix = dims[D_MIX];
-  a.ignore_receiver = dims[D_IGNORE_RECEIVER];
-  a.s_prob_prod = dims[D_S_PROB_PROD];
-  if (a.B <= 0) return 0;
+  fill_args(a, ptrs, dims);
+  return launch<false>(a, stream);
+}
 
-  const size_t smem = sizeof(float) * static_cast<size_t>(make_layout(a).total);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_eval_exchange_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// Launch the whole sampled (train-mode) conversation on `stream`. `ptrs`
+// holds P_TRAIN_COUNT pointers: the eval table, then the uniform streams
+// z, fz, s, w, fw. `dims` holds D_TRAIN_COUNT ints; `probs` the two
+// flipout probabilities (sender, receiver). With dims[D_PHILOX] == 0 the
+// streams s, z, w (and fz, fw where flipout is on) must be given; with 1
+// every stream must be null and Philox keyed by (D_SEED, D_STEP) draws the
+// numbers. Returns 0 or a cudaError_t code.
+int mmg_fused_train_forward(void* const* ptrs, int n_ptrs, const int* dims,
+                            int n_dims, const float* probs, int n_probs,
+                            void* stream) {
+  if (n_ptrs != P_TRAIN_COUNT || n_dims != D_TRAIN_COUNT || n_probs != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  fill_args(a, ptrs, dims);
+  for (int i = 0; i < S_COUNT; ++i)
+    a.u[i] = static_cast<const float*>(ptrs[P_U_FIRST + i]);
+  a.philox = dims[D_PHILOX] != 0;
+  a.seed = static_cast<unsigned>(dims[D_SEED]);
+  a.step = static_cast<unsigned>(dims[D_STEP]);
+  a.flip_sen = dims[D_FLIP_SEN] != 0;
+  a.flip_rec = dims[D_FLIP_REC] != 0;
+  a.p_flip_sen = probs[0];
+  a.p_flip_rec = probs[1];
+  const bool need[S_COUNT] = {true, static_cast<bool>(a.flip_sen), true, true,
+                              static_cast<bool>(a.flip_rec)};
+  for (int i = 0; i < S_COUNT; ++i) {
+    const bool given = a.u[i] != nullptr;
+    if (a.philox ? given : (need[i] && !given))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (a.B + ROWS - 1) / ROWS;
-  fused_eval_exchange_kernel<<<blocks, THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(a, stream);
 }
 
 const char* mmg_error_string(int code) {

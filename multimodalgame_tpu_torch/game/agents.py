@@ -1,8 +1,8 @@
 """Agent construction and parameter initialization.
 
-The Sender and Receiver of the reference's four-model build
-(model.py:1013-1064). The two Baseline value networks take part only in
-training and are not ported yet.
+The four-model build of the reference (model.py:1013-1064): Sender,
+Receiver and the two Baseline value networks, each a submodule of its own
+so that each keeps its own optimizer (model.py:1307-1330).
 """
 
 from __future__ import annotations
@@ -13,12 +13,15 @@ import torch
 from torch import nn
 
 from multimodalgame_tpu_torch.game.config import GameConfig
+from multimodalgame_tpu_torch.models.baseline import Baseline
 from multimodalgame_tpu_torch.models.receiver import Receiver
 from multimodalgame_tpu_torch.models.sender import Sender
 
+AGENT_NAMES = ("sender", "receiver", "baseline_sen", "baseline_rec")
+
 
 class AgentModules(nn.Module):
-    """The Sender and Receiver of one game, with their parameters."""
+    """The four agents of one game, with their parameters."""
 
     def __init__(self, cfg: GameConfig):
         super().__init__()
@@ -39,17 +42,25 @@ class AgentModules(nn.Module):
             w_dim=cfg.rec_w_dim,
             s_dim=cfg.rec_s_dim,
             desc_attn=cfg.desc_attn)
+        # Sender baseline sees (h_x, z_r); Receiver baseline (z_s, h_z)
+        # (model.py:1031-1034, 1056-1059).
+        self.baseline_sen = Baseline(
+            hid_dim=cfg.baseline_hid_dim, x_dim=cfg.img_h_dim,
+            binary_dim=cfg.rec_w_dim, inp_dim=0)
+        self.baseline_rec = Baseline(
+            hid_dim=cfg.baseline_hid_dim, x_dim=0,
+            binary_dim=cfg.rec_w_dim, inp_dim=cfg.rec_hidden)
 
 
 def init_params(modules: AgentModules, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> AgentModules:
-    """Initialize the agents in place with the reference's schemes
-    (models/init.py) from a ``torch.Generator`` seeded with ``seed``, and
-    move them to ``device`` when given. Returns ``modules``."""
+    """Initialize the four agents in place with the reference's schemes
+    (models/init.py) from one ``torch.Generator`` seeded with ``seed``,
+    and move them to ``device`` when given. Returns ``modules``."""
     gen = torch.Generator().manual_seed(seed)
-    modules.sender.reset_parameters(gen)
-    modules.receiver.reset_parameters(gen)
+    for name in AGENT_NAMES:
+        getattr(modules, name).reset_parameters(gen)
     if device is not None:
         modules.to(device)
     return modules

@@ -1,27 +1,39 @@
-"""The multi-turn Sender/Receiver conversation, eval mode.
+"""The multi-turn Sender/Receiver conversation.
 
-Parity target: reference ``exchange()`` (model.py:725-876) in eval mode,
-as ``multimodalgame_tpu/game/exchange.py`` runs it with ``train=False``:
-rounded messages, the (optionally cumulative) stop product, optional
-bit-flip corruption of every sender message. The conversation always
+Parity target: reference ``exchange()`` (model.py:725-876), as
+``multimodalgame_tpu/game/exchange.py`` runs it. The conversation always
 runs ``max_exchange`` turns; termination is carried by the masks, and
 ``n_steps`` reports how many turns the reference's ``break_early`` loop
 would have run.
 
+* Eval mode: rounded messages, the (optionally cumulative) stop product,
+  optional bit-flip corruption of every sender message.
+* Train mode: Bernoulli bits ``u < p`` for the message, the stop bit and
+  the query, flipout on both channels, and the two baselines scored on
+  detached inputs. The uniforms ``u`` come from the caller, in the JAX
+  exchange's layout (exchange.py:164-180): a dict with ``s``, ``z``,
+  ``w`` and, with flipout, ``fz`` and ``fw``, each ``(T, B, dim)``.
+
+Every channel crossing is detached (model.py:807-811, 826-829, 836, 843),
+so the four agents' autograd graphs stay apart.
+
 This is the plain PyTorch path for every config the port supports, and
 the reference that the fused CUDA kernel (ops/cuda_exchange.py) is held
-to. Training mode (sampled bits, baselines) is not ported yet.
+to.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from multimodalgame_tpu_torch.game.agents import AgentModules
 from multimodalgame_tpu_torch.game.masks import corrupt_message
-from multimodalgame_tpu_torch.ops.sampling import hard_round
+from multimodalgame_tpu_torch.ops.sampling import (bernoulli_from_uniform,
+                                                   flipout_from_uniform,
+                                                   hard_round,
+                                                   uniform_widths)
 
 
 class ExchangeOutputs(NamedTuple):
@@ -31,11 +43,11 @@ class ExchangeOutputs(NamedTuple):
     stop_probs: torch.Tensor   # (T, B, 1)
     sen_feats: torch.Tensor    # (T, B, sender_out_dim) — post-corruption
     sen_probs: torch.Tensor    # (T, B, sender_out_dim)
-    rec_feats: torch.Tensor    # (T, B, rec_w_dim) — post-ignore
+    rec_feats: torch.Tensor    # (T, B, rec_w_dim) — post-flipout/ignore
     rec_probs: torch.Tensor    # (T, B, rec_w_dim)
     y: torch.Tensor            # (T, B, D)
-    bs: torch.Tensor           # (T, B, 1) sender-baseline scores (zeros)
-    br: torch.Tensor           # (T, B, 1) receiver-baseline scores (zeros)
+    bs: torch.Tensor           # (T, B, 1) sender-baseline scores (train)
+    br: torch.Tensor           # (T, B, 1) receiver-baseline scores (train)
     n_steps: torch.Tensor      # () int32
     attn_scores: Optional[torch.Tensor]
 
@@ -63,27 +75,39 @@ def finalize_stop_masks(masks: torch.Tensor, fixed_exchange: bool
 
 
 def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
-             corrupt_mask: Optional[torch.Tensor] = None) -> ExchangeOutputs:
-    """Run a batched eval conversation.
+             corrupt_mask: Optional[torch.Tensor] = None, *,
+             train: bool = False,
+             uniforms: Optional[Dict[str, torch.Tensor]] = None,
+             score_baselines: bool = True) -> ExchangeOutputs:
+    """Run a batched conversation.
 
     Args:
-        modules: the Sender and Receiver (carry the :class:`GameConfig`).
+        modules: the four agents (carry the :class:`GameConfig`).
         data: image features ``(B, feat_dim)``.
         desc: class-description CBOW matrix ``(D, wv_dim)``.
         corrupt_mask: optional ``(w_dim,)`` bit-flip mask applied to every
             sender message (model.py:814-820).
+        train: sampled bits and scored baselines (model.py:222-229,
+            414-429) instead of rounding.
+        uniforms: the pre-drawn uniforms, needed in train mode and for
+            eval-time flipout (``flipout_dev``); see
+            ``ops/sampling.py:uniform_widths``.
+        score_baselines: in train mode, score the baselines; when False
+            ``bs``/``br`` are zeros (the fast path scores them batched).
     """
     cfg = modules.cfg
-    if cfg.flipout_dev and (cfg.flipout_sen is not None
-                            or cfg.flipout_rec is not None):
-        raise NotImplementedError(
-            "eval-time flipout needs the sampling path of training, which "
-            "is not ported to PyTorch yet")
+    need = tuple(uniform_widths(cfg, train))
+    missing = [k for k in need if uniforms is None or k not in uniforms]
+    if missing:
+        raise ValueError(f"this conversation needs the uniforms {missing}")
     sender, receiver = modules.sender, modules.receiver
     batch = data.shape[0]
     T = cfg.max_exchange
+    flip_sen = "fz" in need
+    flip_rec = "fw" in need
     sen_cache = sender.precompute(data)
     rec_cache = receiver.precompute(desc)
+    h_x = sen_cache["h_x"]
 
     # The Receiver opens with a query of ``first_rec``s (model.py:786-787).
     w_prev = torch.full((batch, cfg.rec_w_dim), cfg.first_rec,
@@ -92,53 +116,72 @@ def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
                       device=data.device)
     mask = torch.ones((batch, 1), dtype=data.dtype, device=data.device)
     sprod = torch.ones((batch, 1), dtype=data.dtype, device=data.device)
+    zeros = torch.zeros((batch, 1), dtype=data.dtype, device=data.device)
 
     outs = {k: [] for k in ("mask", "s_feat", "s_prob", "z", "z_prob",
-                            "w", "w_prob", "y")}
+                            "w", "w_prob", "y", "bs", "br")}
     for t in range(T):
+        u = {k: uniforms[k][t] for k in need}
         # --- Sender turn (model.py:806-811) ---
-        sen_logits = sender.step(w_prev.detach(), t, sen_cache)
+        z_r = w_prev.detach()
+        sen_logits = sender.step(z_r, t, sen_cache)
         if cfg.use_binary:
             z_probs = torch.sigmoid(sen_logits)
-            z = hard_round(z_probs)
+            z = (bernoulli_from_uniform(u["z"], z_probs) if train
+                 else hard_round(z_probs))
+            if flip_sen:
+                z = flipout_from_uniform(u["fz"], z, cfg.flipout_sen)
         else:
             z = sen_logits
             z_probs = torch.zeros_like(sen_logits)
         z = corrupt_message(z, corrupt_mask)
 
         # --- Receiver turn (model.py:826-829) ---
-        h_z, s_logits, y, w_logits = receiver.step(z.detach(), h_z,
-                                                   rec_cache)
+        z_s = z.detach()
+        h_z, s_logits, y, w_logits = receiver.step(z_s, h_z, rec_cache)
 
-        # Eval STOP rule: round the (cumulative) stop probability
-        # (model.py:414-429). sprod starts at ones, so 1.0 * x is exact
-        # at t == 0.
+        # STOP bit: sampled in training; in eval the (cumulative) stop
+        # probability rounded (model.py:414-429). sprod starts at ones, so
+        # 1.0 * x is exact at t == 0.
         s_prob = torch.sigmoid(s_logits)
-        sprod = sprod * s_prob if cfg.s_prob_prod else s_prob
-        s_bit = hard_round(sprod)
+        if train:
+            s_bit = bernoulli_from_uniform(u["s"], s_prob)
+        else:
+            sprod = sprod * s_prob if cfg.s_prob_prod else s_prob
+            s_bit = hard_round(sprod)
 
         # Receiver query back to the Sender (model.py:452-468).
         if cfg.use_binary:
             w_probs = torch.sigmoid(w_logits)
-            w_feats = hard_round(w_probs)
+            w_feats = (bernoulli_from_uniform(u["w"], w_probs) if train
+                       else hard_round(w_probs))
+            if flip_rec:
+                w_feats = flipout_from_uniform(u["fw"], w_feats,
+                                               cfg.flipout_rec)
             if cfg.ignore_receiver:
                 w_feats = torch.zeros_like(w_feats)
         else:
             w_feats = w_logits
             w_probs = torch.zeros_like(w_logits)
 
+        # --- Baselines, train only, on detached inputs (model.py:831-843)
+        if train and score_baselines:
+            bs = modules.baseline_sen(h_x.detach(), z_r, None)
+            br = modules.baseline_rec(None, z_s, h_z.detach())
+        else:
+            bs = br = zeros
+
         mask = torch.minimum(mask, s_bit)                 # model.py:852
         for k, v in (("mask", mask), ("s_feat", s_bit), ("s_prob", s_prob),
                      ("z", z), ("z_prob", z_probs), ("w", w_feats),
-                     ("w_prob", w_probs), ("y", y)):
+                     ("w_prob", w_probs), ("y", y), ("bs", bs), ("br", br)):
             outs[k].append(v)
         w_prev = w_feats
 
     st = {k: torch.stack(v) for k, v in outs.items()}
     stop_masks, n_steps = finalize_stop_masks(st["mask"], cfg.fixed_exchange)
-    zeros = torch.zeros((T, batch, 1), dtype=data.dtype, device=data.device)
     return ExchangeOutputs(
         stop_masks=stop_masks, stop_feats=st["s_feat"],
         stop_probs=st["s_prob"], sen_feats=st["z"], sen_probs=st["z_prob"],
         rec_feats=st["w"], rec_probs=st["w_prob"], y=st["y"],
-        bs=zeros, br=zeros, n_steps=n_steps, attn_scores=None)
+        bs=st["bs"], br=st["br"], n_steps=n_steps, attn_scores=None)

@@ -1,0 +1,126 @@
+"""Fast training path: sequential sampling, batched differentiation.
+
+Port of ``multimodalgame_tpu/game/fast_train.py``. Every tensor that
+crosses between the agents is a detached sample, so the only dependency
+through time that the backward pass needs is the Receiver's GRU chain:
+
+1. **Phase A (sample)** runs the conversation under ``torch.no_grad``:
+   with ``sampler="kernel"`` as one launch of the train-mode CUDA kernel
+   (``ops/cuda_exchange.py:fused_train_forward``), else through the plain
+   ``exchange(train=True, score_baselines=False)``. It keeps the sampled
+   bits ``z``, ``w``, ``s`` and the stop-mask chain.
+2. **Phase B (recompute)** rebuilds every loss-bearing quantity from
+   those bits with autograd on: the sender's logits for all T turns in
+   one batch, a GRU-only loop for the hidden chain, the heads and both
+   baselines batched over T. It is plain PyTorch.
+
+The losses see the same values as the scan path's: the recomputed
+probabilities are the same functions of the same inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from multimodalgame_tpu_torch.game.agents import AgentModules
+from multimodalgame_tpu_torch.game.exchange import (ExchangeOutputs,
+                                                    exchange,
+                                                    finalize_stop_masks)
+from multimodalgame_tpu_torch.game.train import (TrainMetrics,
+                                                 losses_from_exchange)
+from multimodalgame_tpu_torch.ops.cuda_exchange import (fused_train_forward,
+                                                        kernel_params)
+
+SAMPLERS = ("plain", "kernel")
+
+
+@torch.no_grad()
+def sample_conversation(modules: AgentModules, data: torch.Tensor,
+                        desc: torch.Tensor, sampler: str = "plain",
+                        uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                        seed: Optional[int] = None,
+                        step: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor, torch.Tensor]:
+    """Phase A: ``(z_bits, w_bits, s_bits, stop_masks, n_steps)``.
+
+    The kernel sampler takes either ``uniforms`` or ``(seed, step)``; the
+    plain sampler takes ``uniforms``. The kernel-layout weights are packed
+    from the modules on every call, so a step always samples with the
+    weights that the previous update left."""
+    cfg = modules.cfg
+    if sampler == "kernel":
+        f = fused_train_forward(cfg, kernel_params(modules), data, desc,
+                                uniforms=uniforms, seed=seed, step=step)
+        stop_masks, n_steps = finalize_stop_masks(f.masks,
+                                                  cfg.fixed_exchange)
+        return f.sen_feats, f.rec_feats, f.stop_feats, stop_masks, n_steps
+    if sampler != "plain":
+        raise ValueError(f"sampler must be one of {SAMPLERS}")
+    ex = exchange(modules, data, desc, train=True, uniforms=uniforms,
+                  score_baselines=False)
+    return ex.sen_feats, ex.rec_feats, ex.stop_feats, ex.stop_masks, \
+        ex.n_steps
+
+
+def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
+                        target: torch.Tensor, desc: torch.Tensor,
+                        top_k: int, batch_denom: int,
+                        sampler: str = "plain",
+                        uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                        seed: Optional[int] = None,
+                        step: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, TrainMetrics]:
+    """The summed loss and the metrics of one training step, by the
+    sample-then-recompute path (fast_train.py:73-172)."""
+    cfg = modules.cfg
+    T = cfg.max_exchange
+    batch = data.shape[0]
+    z_bits, w_bits, s_bits, stop_masks, n_steps = sample_conversation(
+        modules, data, desc, sampler, uniforms, seed, step)
+
+    # The query each sender turn saw (model.py:786-787, 803).
+    w_prev = torch.cat(
+        [torch.full((1, batch, cfg.rec_w_dim), cfg.first_rec,
+                    dtype=w_bits.dtype, device=w_bits.device),
+         w_bits[:-1]], dim=0)
+
+    sender, receiver = modules.sender, modules.receiver
+    sen_cache = sender.precompute(data)
+    rec_cache = receiver.precompute(desc)
+
+    # Sender turns, batched over T.
+    z_logits = sender.step_all(w_prev, sen_cache)
+    z_probs = (torch.sigmoid(z_logits) if cfg.use_binary
+               else torch.zeros_like(z_logits))
+
+    # GRU-only hidden chain over the recorded messages.
+    h = torch.zeros((batch, cfg.rec_hidden), dtype=data.dtype,
+                    device=data.device)
+    hs = []
+    for t in range(T):
+        h = receiver.rnn(z_bits[t], h)
+        hs.append(h)
+    h_stack = torch.stack(hs)                                 # (T, B, R)
+
+    # Every head batched over T.
+    s_logits, y, w_logits = receiver.heads(
+        h_stack.reshape(T * batch, -1), rec_cache)
+    s_probs = torch.sigmoid(s_logits).reshape(T, batch, -1)
+    y = y.reshape(T, batch, -1)
+    w_probs = (torch.sigmoid(w_logits).reshape(T, batch, -1)
+               if cfg.use_binary else torch.zeros_like(w_bits))
+
+    # Baselines batched over T, on detached inputs (model.py:831-843).
+    h_x = sen_cache["h_x"].detach()
+    bs = modules.baseline_sen(h_x.expand(T, *h_x.shape), w_prev, None)
+    br = modules.baseline_rec(None, z_bits, h_stack.detach())
+
+    ex = ExchangeOutputs(
+        stop_masks=stop_masks, stop_feats=s_bits, stop_probs=s_probs,
+        sen_feats=z_bits, sen_probs=z_probs, rec_feats=w_bits,
+        rec_probs=w_probs, y=y, bs=bs, br=br, n_steps=n_steps,
+        attn_scores=None)
+    return losses_from_exchange(cfg, ex, target, top_k, batch_denom)

@@ -1,21 +1,379 @@
-"""The eval-mode exchange used by serving (``game/train.py``'s
-``make_eval_exchange`` in the JAX package). Training is not ported yet.
+"""Training steps, the four per-agent optimizers, and the eval-mode
+exchange used by serving.
+
+Port of ``multimodalgame_tpu/game/train.py``. The reference runs one
+forward ``exchange`` per batch and then four separate backward/clip/step
+updates: receiver, sender and the two baselines (model.py:1307-1330).
+Every tensor that crosses between the agents is detached, so one
+``backward()`` of the summed loss gives each agent exactly its own
+gradient. Each agent then takes its own clip-by-global-norm(1.0) and
+optimizer step, written out by hand with optax's conventions
+(train.py:42-62): RMSprop with ``alpha = 0.99`` and ``eps`` outside the
+square root, Adam with bias correction, plain SGD.
+
+The steps update the modules and the optimizer states in place and
+return the metrics. Randomness is pluggable: by default the uniforms of
+global step ``s`` are Philox4x32-10 keyed by ``(seed, s)``
+(``ops/philox.py``; the train-mode kernel draws the same numbers itself),
+so how steps are split into chunks cannot change a run. A caller may
+instead pass ``uniforms``, a function ``step -> {s, z, w[, fz, fw]}``;
+the tests pass one that replays the JAX package's draws.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 
-from multimodalgame_tpu_torch.game.agents import AgentModules
+from multimodalgame_tpu_torch.game.agents import AGENT_NAMES, AgentModules
+from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.game.exchange import (ExchangeOutputs,
                                                     exchange,
                                                     finalize_stop_masks)
+from multimodalgame_tpu_torch.game.losses import (get_rec_outp, loglikelihood,
+                                                  multistep_loss_bas,
+                                                  multistep_loss_binary,
+                                                  nll_loss, topk_accuracy)
+from multimodalgame_tpu_torch.game.masks import assemble_loss_masks
 from multimodalgame_tpu_torch.ops.cuda_exchange import (fused_eval_exchange,
                                                         kernel_params,
                                                         supports_config)
+from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+from multimodalgame_tpu_torch.utils.device import resolve_device
 
+UniformSource = Callable[[int], Dict[str, torch.Tensor]]
+FAST_MODES = (True, False, "auto", "kernel")
+
+# optax's constants (train.py:48-53).
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+RMS_DECAY, RMS_EPS = 0.99, 1e-8
+CLIP_NORM = 1.0
+
+
+# ---------------------------------------------------------------- optimizers
+
+def init_opt_states(cfg: GameConfig, modules: AgentModules
+                    ) -> Dict[str, Dict[str, Any]]:
+    """Per-agent optimizer slots, zeros beside each parameter: RMSprop
+    ``nu``, Adam ``mu``/``nu``/``count``, nothing for SGD."""
+    if cfg.optim_type not in ("SGD", "Adam", "RMSprop"):
+        raise NotImplementedError(cfg.optim_type)
+    states = {}
+    for name in AGENT_NAMES:
+        params = list(getattr(modules, name).parameters())
+        state: Dict[str, Any] = {}
+        if cfg.optim_type in ("Adam", "RMSprop"):
+            state["nu"] = [torch.zeros_like(p) for p in params]
+        if cfg.optim_type == "Adam":
+            state["mu"] = [torch.zeros_like(p) for p in params]
+            state["count"] = 0
+        states[name] = state
+    return states
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: List[torch.Tensor],
+                        max_norm: float = CLIP_NORM) -> List[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: ``g`` when ``‖g‖ < max_norm``,
+    else ``(g / ‖g‖) · max_norm``. Not torch's ``clip_grad_norm_``, which
+    divides by ``‖g‖ + 1e-6``."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+
+
+@torch.no_grad()
+def apply_agent_updates(cfg: GameConfig, update_names, modules: AgentModules,
+                        opt_states: Dict[str, Dict[str, Any]]) -> None:
+    """One clip + optimizer step per trained agent, in place, from the
+    parameters' ``.grad`` (a parameter without one counts as zero)
+    (train.py:293-304)."""
+    lr = cfg.learning_rate
+    for name in update_names:
+        params = list(getattr(modules, name).parameters())
+        grads = clip_by_global_norm(
+            [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params])
+        state = opt_states[name]
+        if cfg.optim_type == "SGD":
+            updates = grads
+        elif cfg.optim_type == "RMSprop":
+            updates = []
+            for g, nu in zip(grads, state["nu"]):
+                nu.copy_((1 - RMS_DECAY) * g ** 2 + RMS_DECAY * nu)
+                updates.append((1 / (torch.sqrt(nu) + RMS_EPS)) * g)
+        elif cfg.optim_type == "Adam":
+            state["count"] += 1
+            c1 = 1 - ADAM_B1 ** state["count"]
+            c2 = 1 - ADAM_B2 ** state["count"]
+            updates = []
+            for g, mu, nu in zip(grads, state["mu"], state["nu"]):
+                mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
+                nu.copy_((1 - ADAM_B2) * g ** 2 + ADAM_B2 * nu)
+                updates.append((mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS))
+        else:
+            raise NotImplementedError(cfg.optim_type)
+        for p, u in zip(params, updates):
+            p.add_(-lr * u)
+
+
+# -------------------------------------------------------------------- losses
+
+class TrainMetrics(NamedTuple):
+    """What the driver's interval logging needs (model.py:1341-1542)."""
+    loss_rec: torch.Tensor
+    loss_sen: torch.Tensor
+    nll_loss: torch.Tensor
+    loss_binary_rec: torch.Tensor
+    loss_binary_s: torch.Tensor
+    loss_bas_rec: torch.Tensor
+    loss_bas_sen: torch.Tensor
+    ent_binary_sen: torch.Tensor   # (T,)  per-turn negentropies
+    ent_binary_rec: torch.Tensor   # (T-1,) (empty when max_exchange == 1)
+    ent_y_rec: torch.Tensor        # (T,)
+    accuracy: torch.Tensor
+    dist: torch.Tensor             # (B, D) log-softmax scores
+    argmax: torch.Tensor           # (B,)
+    exchange: ExchangeOutputs
+
+
+class ScanMetrics(NamedTuple):
+    """Per-step scalars of the multi-step trainer, each ``(K,)``."""
+    loss_rec: torch.Tensor
+    loss_sen: torch.Tensor
+    nll_loss: torch.Tensor
+    loss_bas_rec: torch.Tensor
+    loss_bas_sen: torch.Tensor
+    accuracy: torch.Tensor
+
+
+def losses_from_exchange(cfg: GameConfig, ex: ExchangeOutputs,
+                         target: torch.Tensor, top_k: int, batch_denom: int
+                         ) -> Tuple[torch.Tensor, TrainMetrics]:
+    """Every loss term from a (differentiable) conversation record, and
+    their sum (train.py:123-186, model.py:1264-1305)."""
+    T = cfg.max_exchange
+    masks = None if cfg.fixed_exchange else assemble_loss_masks(ex.stop_masks)
+
+    outp, ent_y = get_rec_outp(ex.y, None if masks is None else masks.y)
+    dist = torch.log_softmax(outp, dim=-1)
+    argmax = dist.argmax(dim=-1)
+    nll = nll_loss(dist, target)
+    logs = loglikelihood(dist, target).detach()     # reward (model.py:1274)
+
+    zero = dist.new_zeros(())
+    loss_binary_s = loss_binary_rec = loss_binary_sen = zero
+    loss_bas_rec = loss_bas_sen = zero
+    ent_s = dist.new_zeros((T,))
+    ent_rec = dist.new_zeros((max(T - 1, 0),))
+    ent_sen = dist.new_zeros((T,))
+
+    if cfg.use_binary:
+        if not cfg.fixed_exchange:
+            loss_binary_s, ent_s = multistep_loss_binary(
+                ex.stop_feats, ex.stop_probs, logs, ex.br,
+                masks.binary_s, cfg.entropy_s)
+        if T > 1:
+            # No receiver z-loss when the conversation stops after the
+            # first sender message (model.py:1284-1289).
+            loss_binary_rec, ent_rec = multistep_loss_binary(
+                ex.rec_feats[:-1], ex.rec_probs[:-1], logs, ex.br[:-1],
+                None if masks is None else masks.binary_rec,
+                cfg.entropy_rec)
+        loss_binary_sen, ent_sen = multistep_loss_binary(
+            ex.sen_feats, ex.sen_probs, logs, ex.bs,
+            None if masks is None else masks.binary_sen, cfg.entropy_sen)
+        loss_bas_rec = multistep_loss_bas(
+            ex.br, logs, None if masks is None else masks.bas_rec)
+        loss_bas_sen = multistep_loss_bas(
+            ex.bs, logs, None if masks is None else masks.bas_sen)
+
+    loss_rec = nll
+    if cfg.use_binary:
+        loss_rec = loss_rec + loss_binary_rec
+        if not cfg.fixed_exchange:
+            loss_rec = loss_rec + loss_binary_s
+    loss_sen = loss_binary_sen
+    total = loss_rec + loss_sen + loss_bas_rec + loss_bas_sen
+
+    accuracy = topk_accuracy(dist, target, top_k, batch_denom)
+    metrics = TrainMetrics(
+        loss_rec=loss_rec, loss_sen=loss_sen, nll_loss=nll,
+        loss_binary_rec=loss_binary_rec, loss_binary_s=loss_binary_s,
+        loss_bas_rec=loss_bas_rec, loss_bas_sen=loss_bas_sen,
+        ent_binary_sen=ent_sen, ent_binary_rec=ent_rec, ent_y_rec=ent_y,
+        accuracy=accuracy, dist=dist, argmax=argmax, exchange=ex)
+    return total, metrics
+
+
+def compute_losses(modules: AgentModules, data: torch.Tensor,
+                   target: torch.Tensor, desc: torch.Tensor, top_k: int,
+                   batch_denom: int, uniforms: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, TrainMetrics]:
+    """One training forward pass through the plain train-mode exchange,
+    baselines scored turn by turn, and every loss term
+    (train.py:94-120)."""
+    ex = exchange(modules, data, desc, train=True, uniforms=uniforms)
+    return losses_from_exchange(modules.cfg, ex, target, top_k, batch_denom)
+
+
+# ------------------------------------------------------------------- trainers
+
+def _detach(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, tuple):
+        return type(x)(*(_detach(v) for v in x)) if hasattr(x, "_fields") \
+            else tuple(_detach(v) for v in x)
+    return x
+
+
+class _Trainer:
+    """The state every factory shares: the loss function for ``fast``,
+    the device, the uniform source and the agents to update."""
+
+    def __init__(self, modules: AgentModules, top_k: int, batch_denom: int,
+                 fast: Union[bool, str], seed: int,
+                 uniforms: Optional[UniformSource],
+                 device: Optional[Union[str, torch.device]]):
+        cfg = modules.cfg
+        if not (fast is True or fast is False or fast in ("auto", "kernel")):
+            raise ValueError(f"fast must be one of {FAST_MODES}, got "
+                             f"{fast!r}")
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={cfg.compute_dtype!r} training is not "
+                "ported to PyTorch yet")
+        if fast == "kernel" and not supports_config(cfg):
+            raise ValueError(
+                "fast='kernel' needs a config the fused kernel supports "
+                "(binary channel, no attention, sum or prod mix)")
+        self.modules = modules
+        self.cfg = cfg
+        self.top_k, self.batch_denom = top_k, batch_denom
+        self.fast = fast is not False
+        self.sampler = "kernel" if fast == "kernel" else "plain"
+        self.seed, self.uniforms = int(seed), uniforms
+        self.device = resolve_device(device)
+        modules.to(self.device)
+        self.dtype = next(modules.parameters()).dtype
+        self.update_names = AGENT_NAMES if cfg.use_binary else ("receiver",)
+
+    def tensor(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype or self.dtype,
+                               device=self.device)
+
+    def randomness(self, step: int, batch: int) -> Dict[str, Any]:
+        """The uniforms of global step ``step``, or ``(seed, step)`` for
+        the kernel to draw them itself."""
+        if self.uniforms is not None:
+            return {"uniforms": {k: v.to(self.device)
+                                 for k, v in self.uniforms(step).items()}}
+        if self.sampler == "kernel":
+            return {"seed": self.seed, "step": int(step)}
+        return {"uniforms": philox_uniforms(self.cfg, batch, self.seed,
+                                            int(step), self.device)}
+
+    def step(self, opt_states, data: torch.Tensor, target: torch.Tensor,
+             desc: torch.Tensor, step: int) -> TrainMetrics:
+        from multimodalgame_tpu_torch.game.fast_train import (
+            compute_losses_fast)
+        rand = self.randomness(step, data.shape[0])
+        self.modules.zero_grad(set_to_none=True)
+        if self.fast:
+            total, metrics = compute_losses_fast(
+                self.modules, data, target, desc, self.top_k,
+                self.batch_denom, sampler=self.sampler, **rand)
+        else:
+            total, metrics = compute_losses(
+                self.modules, data, target, desc, self.top_k,
+                self.batch_denom, rand["uniforms"])
+        total.backward()
+        apply_agent_updates(self.cfg, self.update_names, self.modules,
+                            opt_states)
+        return _detach(metrics)
+
+
+def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
+                    fast: Union[bool, str] = "auto", *, seed: int = 0,
+                    uniforms: Optional[UniformSource] = None,
+                    device: Optional[Union[str, torch.device]] = None):
+    """Build ``step(opt_states, data, target, desc, step) -> TrainMetrics``
+    (train.py:216-248), which updates ``modules`` and ``opt_states`` in
+    place. ``step`` is the global step index that keys the randomness.
+
+    ``fast``: False runs the plain exchange with gradients through every
+    turn; True or "auto" the sample-then-recompute path
+    (game/fast_train.py); "kernel" that path with phase A in the
+    train-mode CUDA kernel (for CUDA tensors; its plain version for CPU
+    ones). ``device`` defaults to ``cuda``; the modules are moved there.
+    Make the optimizer states (:func:`init_opt_states`) after this call.
+    """
+    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
+
+    def step(opt_states, data, target, desc, step: int) -> TrainMetrics:
+        return tr.step(opt_states, tr.tensor(data), tr.tensor(target,
+                                                              torch.long),
+                       tr.tensor(desc), step)
+
+    return step
+
+
+def make_train_step_indexed(modules: AgentModules, top_k: int,
+                            batch_denom: int,
+                            fast: Union[bool, str] = "auto", *,
+                            seed: int = 0,
+                            uniforms: Optional[UniformSource] = None,
+                            device: Optional[Union[str,
+                                                   torch.device]] = None):
+    """Build ``step(opt_states, feats, targets, idx, desc, step0) ->
+    TrainMetrics`` over a dataset already on the device
+    (data/device_dataset.py): the batch is ``feats[idx]``
+    (train.py:412-467). Randomness is keyed by ``step0`` as in
+    :func:`make_multistep_train_step_indexed`, so a step run alone equals
+    the same step inside a chunk."""
+    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
+
+    def step(opt_states, feats, targets, idx, desc, step0: int
+             ) -> TrainMetrics:
+        idx = tr.tensor(idx, torch.long)
+        return tr.step(opt_states, feats[idx], targets[idx].long(), desc,
+                       step0)
+
+    return step
+
+
+def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
+                                      batch_denom: int,
+                                      fast: Union[bool, str] = "auto", *,
+                                      seed: int = 0,
+                                      uniforms: Optional[UniformSource] = None,
+                                      device: Optional[Union[
+                                          str, torch.device]] = None):
+    """Build ``chunk(opt_states, feats, targets, idx (K, B), desc,
+    step0=0) -> ScanMetrics``: K training steps over a dataset already on
+    the device, step ``i`` on batch ``feats[idx[i]]`` with the randomness
+    of global step ``step0 + i`` (train.py:470-542). The metrics stay on
+    the device until the caller reads them."""
+    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
+
+    def chunk(opt_states, feats, targets, idx, desc, step0: int = 0
+              ) -> ScanMetrics:
+        idx = tr.tensor(idx, torch.long)
+        rows = []
+        for i in range(idx.shape[0]):
+            m = tr.step(opt_states, feats[idx[i]], targets[idx[i]].long(),
+                        desc, int(step0) + i)
+            rows.append((m.loss_rec, m.loss_sen, m.nll_loss, m.loss_bas_rec,
+                         m.loss_bas_sen, m.accuracy))
+        return ScanMetrics(*(torch.stack(v) for v in zip(*rows)))
+
+    return chunk
+
+
+# ----------------------------------------------------------------- serving
 
 def make_eval_exchange(modules: AgentModules, use_kernel: bool = True
                        ) -> Callable[..., ExchangeOutputs]:

@@ -4,7 +4,9 @@ The reference applies Xavier-normal (misc.py:349-385) to every
 Linear/GRU weight matrix with zero biases (model.py:90-97, 275-288) and
 draws the Sender's ``code_bias`` from a standard normal (model.py:97).
 The stacked GRU matrices take their fan over the whole ``[r|z|n]`` stack
-(model.py:281-288).
+(model.py:281-288). The Baseline networks are never reset, so they keep
+PyTorch's default Linear init, ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for
+weight and bias alike (model.py:480-516).
 
 Tensors here are in torch layout: a Linear ``weight`` is ``(out, in)``,
 so ``fan_in = shape[1]`` and ``fan_out = shape[0]``. Randomness comes
@@ -53,3 +55,25 @@ def init_linear_(layer: torch.nn.Linear,
     xavier_normal_(layer.weight, generator)
     if layer.bias is not None:
         layer.bias.zero_()
+
+
+@torch.no_grad()
+def torch_default_linear(weight: torch.Tensor,
+                         generator: torch.Generator) -> torch.Tensor:
+    """In place ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` on a ``(out, in)``
+    Linear weight: PyTorch's default, drawn from ``generator``."""
+    return _uniform_(weight, 1.0 / math.sqrt(weight.shape[1]), generator)
+
+
+@torch.no_grad()
+def torch_default_bias(bias: torch.Tensor, fan_in: int,
+                       generator: torch.Generator) -> torch.Tensor:
+    """In place ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` on a Linear bias."""
+    return _uniform_(bias, 1.0 / math.sqrt(fan_in), generator)
+
+
+def _uniform_(tensor: torch.Tensor, bound: float,
+              generator: torch.Generator) -> torch.Tensor:
+    sample = torch.rand(tensor.shape, generator=generator,
+                        dtype=tensor.dtype, device=generator.device)
+    return tensor.copy_(sample.mul_(2.0 * bound).sub_(bound))

@@ -77,3 +77,22 @@ class Sender(nn.Module):
             else:
                 mixed = torch.tanh(h_x + h_w)
         return self.binary_layer(mixed)
+
+    def step_all(self, w_prev: torch.Tensor,
+                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Every turn at once, given the query each turn saw,
+        ``w_prev`` ``(T, B, w_dim)`` (turn 0's is not read): the message
+        logits ``(T, B, bin_dim_out)``. The training fast path's batched
+        recompute (game/fast_train.py)."""
+        h_x = cache["h_x"]
+        turns = w_prev.shape[0]
+        if self.ignore_code:
+            mixed = torch.tanh(h_x).expand(turns, *h_x.shape)
+        else:
+            h_w = torch.cat([cache["h_w_first"].expand_as(h_x)[None],
+                             self.code_layer(w_prev[1:])], dim=0)
+            if self.sender_mix == "prod":
+                mixed = torch.tanh(h_x * h_w)
+            else:
+                mixed = torch.tanh(h_x + h_w)
+        return self.binary_layer(mixed)

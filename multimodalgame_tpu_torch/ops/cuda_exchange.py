@@ -1,19 +1,27 @@
-"""The whole eval conversation in one CUDA kernel.
+"""The whole conversation in one CUDA kernel, in eval and train mode.
 
-Port of ``multimodalgame_tpu/ops/pallas_exchange.py``'s eval mode
-(``_kernel`` with ``train=False``, reached through ``fused_eval_exchange``).
-The kernel source is ``csrc/fused_exchange.cu``; it is compiled for
-``sm_90a`` at first use and called through ``ctypes``
-(``ops/cuda_build.py``).
+Port of ``multimodalgame_tpu/ops/pallas_exchange.py``: ``_kernel`` with
+``train=False`` (reached through ``fused_eval_exchange``, serving) and
+with ``train=True`` (reached through ``fused_train_forward``, phase A of
+every training step). The kernel source is ``csrc/fused_exchange.cu``,
+one body for both modes; it is compiled for ``sm_90a`` at first use and
+called through ``ctypes`` (``ops/cuda_build.py``).
 
-* :func:`fused_eval_exchange` is the wrapper. A CUDA tensor always goes to
-  the kernel (a failed build or launch raises); a CPU tensor goes to the
-  plain version. Each launch adds one to ``fused_eval_exchange.launches``.
-* :func:`fused_eval_exchange_reference` is the plain PyTorch version: a
+* :func:`fused_eval_exchange` and :func:`fused_train_forward` are the
+  wrappers. A CUDA tensor always goes to the kernel (a failed build or
+  launch raises); a CPU tensor goes to the plain version. Each launch
+  adds one to the wrapper's ``launches``.
+* :func:`fused_eval_exchange_reference` and
+  :func:`fused_train_forward_reference` are the plain PyTorch versions: a
   loop over the same math in the kernel's order.
 * :func:`kernel_params` lays the agents' weights out as the kernel reads
   them: each Linear weight as its ``(in, out)`` transpose, ``y1`` split
   into its ``h_z`` and description blocks.
+
+The train mode samples ``u < p``. Its uniforms are either given, in the
+JAX exchange's layout (``{s, z, w[, fz, fw]}``, each ``(T, B, dim)``
+float32), or drawn in the kernel by Philox4x32-10 keyed by
+``(seed, step)``; ``ops/philox.py`` computes the same numbers on the CPU.
 
 Unlike the JAX kernel, every batch size is served, 1 and 100 included:
 the batch is tiled over thread blocks and the last tile is masked.
@@ -29,7 +37,11 @@ import torch
 
 from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.ops import cuda_build
-from multimodalgame_tpu_torch.ops.sampling import hard_round
+from multimodalgame_tpu_torch.ops.philox import STREAMS, philox_uniforms
+from multimodalgame_tpu_torch.ops.sampling import (bernoulli_from_uniform,
+                                                   flipout_from_uniform,
+                                                   hard_round,
+                                                   uniform_widths)
 
 SOURCE = "fused_exchange.cu"
 
@@ -56,9 +68,9 @@ class FusedEvalOutputs(NamedTuple):
 
 
 def supports_config(cfg: GameConfig) -> bool:
-    """The kernel covers the non-attention binary-channel eval path
-    without stochastic eval-time corruption (the JAX kernel's predicate,
-    pallas_exchange.py:65-72)."""
+    """The kernel covers the non-attention binary-channel game with the
+    sum or prod mix, without stochastic eval-time corruption (the JAX
+    kernel's predicate for both modes, pallas_exchange.py:65-72)."""
     return (cfg.use_binary and not cfg.visual_attn and not cfg.desc_attn
             and cfg.rec_s_dim == 1 and cfg.rec_out_dim == 1
             and cfg.sender_mix in ("sum", "prod")
@@ -120,16 +132,14 @@ def _corrupt_vector(cfg: GameConfig, corrupt_mask: Optional[torch.Tensor],
                                cfg.rec_w_dim).contiguous()
 
 
-def fused_eval_exchange_reference(cfg: GameConfig,
-                                  params: Dict[str, torch.Tensor],
-                                  data: torch.Tensor, desc: torch.Tensor,
-                                  corrupt_mask: Optional[torch.Tensor] = None
-                                  ) -> FusedEvalOutputs:
-    """Plain PyTorch version of the kernel: the same math, in the same
-    order, one turn per loop iteration."""
+def _reference(cfg: GameConfig, params: Dict[str, torch.Tensor],
+               data: torch.Tensor, desc: torch.Tensor, corrupt: torch.Tensor,
+               uniforms: Optional[Dict[str, torch.Tensor]]
+               ) -> FusedEvalOutputs:
+    """Both modes' plain version: eval when ``uniforms`` is None."""
     p = params
+    train = uniforms is not None
     batch = data.shape[0]
-    corrupt = _corrupt_vector(cfg, corrupt_mask, data)
 
     # Once per conversation.
     h_x = data @ p["wimg"] + p["bimg"]                          # (B, H)
@@ -142,7 +152,7 @@ def fused_eval_exchange_reference(cfg: GameConfig,
     sprod = data.new_ones((batch, 1))
     outs = []
     for t in range(cfg.max_exchange):
-        # Sender: mix -> tanh -> binary layer -> round -> corrupt.
+        # Sender: mix -> tanh -> binary layer -> bits -> corrupt.
         if cfg.ignore_code:
             mixed = torch.tanh(h_x)
         else:
@@ -151,7 +161,14 @@ def fused_eval_exchange_reference(cfg: GameConfig,
             mixed = (torch.tanh(h_x * h_w) if cfg.sender_mix == "prod"
                      else torch.tanh(h_x + h_w))
         z_probs = torch.sigmoid(mixed @ p["wbin"] + p["bbin"])
-        z = torch.abs(hard_round(z_probs) - corrupt)
+        if train:
+            z = bernoulli_from_uniform(uniforms["z"][t], z_probs)
+            if cfg.flipout_sen is not None:
+                z = flipout_from_uniform(uniforms["fz"][t], z,
+                                         cfg.flipout_sen)
+        else:
+            z = hard_round(z_probs)
+        z = torch.abs(z - corrupt)
 
         # Receiver GRU, torch gate order [r | z | n].
         gi = z @ p["wih"] + p["bih"]
@@ -163,10 +180,13 @@ def fused_eval_exchange_reference(cfg: GameConfig,
         ng = torch.tanh(i_n + rg * h_n)
         h_z = (1.0 - zg) * ng + zg * h_z
 
-        # Stop bit from the (cumulative) stop probability.
+        # Stop bit: sampled, or the (cumulative) stop probability rounded.
         s_prob = torch.sigmoid(h_z @ p["sk"] + p["sb"])
-        sprod = sprod * s_prob if cfg.s_prob_prod else s_prob
-        s_bit = hard_round(sprod)
+        if train:
+            s_bit = bernoulli_from_uniform(uniforms["s"][t], s_prob)
+        else:
+            sprod = sprod * s_prob if cfg.s_prob_prod else s_prob
+            s_bit = hard_round(sprod)
 
         # Class scores, then the query back to the Sender.
         y_hid = torch.relu((h_z @ p["y1h"] + p["y1b"])[:, None, :]
@@ -175,8 +195,15 @@ def fused_eval_exchange_reference(cfg: GameConfig,
         wd = torch.softmax(y, dim=-1) @ desc                    # (B, V)
         h_wq = torch.tanh(h_z @ p["whk"] + p["whb"] + wd @ p["wdk"])
         w_probs = torch.sigmoid(h_wq @ p["wk"] + p["wb"])
-        w_bits = (torch.zeros_like(w_probs) if cfg.ignore_receiver
-                  else hard_round(w_probs))
+        if train:
+            w_bits = bernoulli_from_uniform(uniforms["w"][t], w_probs)
+            if cfg.flipout_rec is not None:
+                w_bits = flipout_from_uniform(uniforms["fw"][t], w_bits,
+                                              cfg.flipout_rec)
+        else:
+            w_bits = hard_round(w_probs)
+        if cfg.ignore_receiver:
+            w_bits = torch.zeros_like(w_probs)
 
         mask = torch.minimum(mask, s_bit)
         outs.append((s_bit, s_prob, z, z_probs, w_bits, w_probs, y, mask))
@@ -184,20 +211,47 @@ def fused_eval_exchange_reference(cfg: GameConfig,
     return FusedEvalOutputs(*(torch.stack(v) for v in zip(*outs)))
 
 
+def fused_eval_exchange_reference(cfg: GameConfig,
+                                  params: Dict[str, torch.Tensor],
+                                  data: torch.Tensor, desc: torch.Tensor,
+                                  corrupt_mask: Optional[torch.Tensor] = None
+                                  ) -> FusedEvalOutputs:
+    """Plain PyTorch version of the eval mode: the same math, in the same
+    order, one turn per loop iteration."""
+    return _reference(cfg, params, data, desc,
+                      _corrupt_vector(cfg, corrupt_mask, data), None)
+
+
+def fused_train_forward_reference(cfg: GameConfig,
+                                  params: Dict[str, torch.Tensor],
+                                  data: torch.Tensor, desc: torch.Tensor,
+                                  uniforms: Dict[str, torch.Tensor]
+                                  ) -> FusedEvalOutputs:
+    """Plain PyTorch version of the train mode, given the uniforms
+    ``{s, z, w[, fz, fw]}`` (for Philox, ``ops/philox.py``'s draw). The
+    outputs' ``masks`` is the post-turn stop-mask chain; no corruption."""
+    _check_uniforms(cfg, uniforms, data.shape[0], data.device, strict=False)
+    return _reference(cfg, params, data, desc,
+                      _corrupt_vector(cfg, None, data), uniforms)
+
+
 def compare_outputs(cfg: GameConfig, got, want, tie: float = 1e-5,
-                    prob_atol: float = 1e-5, y_atol: float = 1e-4
+                    prob_atol: float = 1e-5, y_atol: float = 1e-4,
+                    uniforms: Optional[Dict[str, torch.Tensor]] = None
                     ) -> Dict[str, float]:
-    """Hold one eval conversation against another (kernel against plain
+    """Hold one conversation against another (kernel against plain
     version, or two paths of serving), row by row.
 
     Bits (and masks, where both carry them) must be equal. Two f32 paths
-    that sum in different orders may still round a probability that lies
-    on 0.5 differently, and the flipped bit then feeds every later turn
-    (pallas_exchange.py:17-23). So a row whose first differing turn has a
-    rounded probability (sender, receiver, or the stop product) within
-    ``tie`` of 0.5 in either path counts as a tie: its turns from there on
-    are not compared. Every other turn holds probabilities to
-    ``prob_atol`` and ``y`` to ``y_atol``.
+    that sum in different orders may still put a probability on the other
+    side of its threshold, and the flipped bit then feeds every later turn
+    (pallas_exchange.py:17-23). The threshold is 0.5 in eval mode (for the
+    sender, the receiver and the stop product) and, in train mode (given
+    the ``uniforms`` both paths drew from), the uniform ``u`` of each
+    ``u < p``. A row whose first differing turn has a probability within
+    ``tie`` of its threshold in either path counts as a tie: its turns
+    from there on are not compared. Every other turn holds probabilities
+    to ``prob_atol`` and ``y`` to ``y_atol``.
 
     Returns ``ok`` plus the counts of tie rows and failing rows and the
     largest differences seen.
@@ -216,14 +270,23 @@ def compare_outputs(cfg: GameConfig, got, want, tie: float = 1e-5,
     for k in bit_keys:
         differ |= (g[k] != w[k]).any(-1)
 
-    def near_half(o):
-        sprod = (np.cumprod(o["stop_probs"], axis=0) if cfg.s_prob_prod
-                 else o["stop_probs"])[..., 0]
-        return ((np.abs(o["sen_probs"] - 0.5) < tie).any(-1)
-                | (np.abs(o["rec_probs"] - 0.5) < tie).any(-1)
-                | (np.abs(sprod - 0.5) < tie))
+    if uniforms is None:
+        def near_threshold(o):
+            sprod = (np.cumprod(o["stop_probs"], axis=0) if cfg.s_prob_prod
+                     else o["stop_probs"])[..., 0]
+            return ((np.abs(o["sen_probs"] - 0.5) < tie).any(-1)
+                    | (np.abs(o["rec_probs"] - 0.5) < tie).any(-1)
+                    | (np.abs(sprod - 0.5) < tie))
+    else:
+        u = {k: v.detach().cpu().double().numpy()
+             for k, v in uniforms.items()}
 
-    near = near_half(g) | near_half(w)
+        def near_threshold(o):
+            return ((np.abs(o["sen_probs"] - u["z"]) < tie).any(-1)
+                    | (np.abs(o["rec_probs"] - u["w"]) < tie).any(-1)
+                    | (np.abs(o["stop_probs"] - u["s"]) < tie).any(-1))
+
+    near = near_threshold(g) | near_threshold(w)
     diverged = differ.any(0)
     first = np.where(diverged, differ.argmax(0), T)        # (B,)
     rows = np.arange(batch)
@@ -247,6 +310,12 @@ def _library() -> ctypes.CDLL:
                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mmg_fused_train_forward
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     lib.mmg_error_string.argtypes = [ctypes.c_int]
     lib.mmg_error_string.restype = ctypes.c_char_p
     return lib
@@ -262,6 +331,67 @@ def _check(name: str, x: torch.Tensor, shape, device: torch.device) -> None:
                          f"{tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _check_uniforms(cfg: GameConfig, uniforms: Dict[str, torch.Tensor],
+                    batch: int, device: torch.device, strict: bool) -> None:
+    """The uniform sets of a training conversation, each
+    ``(T, batch, dim)`` on ``device``; ``strict`` (the kernel) also needs
+    float32 and contiguity."""
+    widths = uniform_widths(cfg, train=True)
+    if set(uniforms) != set(widths):
+        raise ValueError(f"uniforms must hold exactly {sorted(widths)}, got "
+                         f"{sorted(uniforms)}")
+    for name, width in widths.items():
+        u = uniforms[name]
+        shape = (cfg.max_exchange, batch, width)
+        if strict:
+            _check(f"uniforms[{name!r}]", u, shape, device)
+        elif tuple(u.shape) != shape or u.device != device:
+            raise ValueError(f"uniforms[{name!r}] is {tuple(u.shape)} on "
+                             f"{u.device}, expected {shape} on {device}")
+
+
+def _check_inputs(cfg: GameConfig, params: Dict[str, torch.Tensor],
+                  data: torch.Tensor, desc: torch.Tensor) -> None:
+    dev = data.device
+    if data.shape[0] == 0:
+        raise ValueError("empty batch")
+    _check("data", data, (data.shape[0], cfg.img_feat_dim), dev)
+    _check("desc", desc, (desc.shape[0], cfg.wv_dim), dev)
+    for name, shape in param_shapes(cfg).items():
+        _check(name, params[name], shape, dev)
+
+
+def _dims(cfg: GameConfig, batch: int, num_desc: int) -> list:
+    mix = _MIX_IGNORE_CODE if cfg.ignore_code else _MIX[cfg.sender_mix]
+    return [batch, cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim,
+            cfg.rec_hidden, num_desc, cfg.wv_dim, cfg.max_exchange, mix,
+            int(cfg.ignore_receiver), int(cfg.s_prob_prod)]
+
+
+def _launch(fn_name: str, tensors, dims, *extra, device: torch.device
+            ) -> None:
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if x is None else x.data_ptr() for x in tensors])
+    dims = (ctypes.c_int * len(dims))(*dims)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(ptrs, len(tensors), dims, len(dims),
+                                   *extra, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: "
+                           + lib.mmg_error_string(rc).decode())
+
+
+def _empty_outputs(cfg: GameConfig, batch: int, num_desc: int,
+                   device: torch.device) -> FusedEvalOutputs:
+    W = cfg.rec_w_dim
+    return FusedEvalOutputs(*(
+        torch.empty((cfg.max_exchange, batch, n), dtype=torch.float32,
+                    device=device)
+        for n in (1, 1, W, W, W, W, num_desc, 1)))
 
 
 def fused_eval_exchange(cfg: GameConfig, params: Dict[str, torch.Tensor],
@@ -284,37 +414,73 @@ def fused_eval_exchange(cfg: GameConfig, params: Dict[str, torch.Tensor],
         raise ValueError(f"no kernel for device {data.device}")
 
     dev = data.device
-    batch, num_desc = data.shape[0], desc.shape[0]
-    T, W = cfg.max_exchange, cfg.rec_w_dim
-    if batch == 0:
-        raise ValueError("empty batch")
-    _check("data", data, (batch, cfg.img_feat_dim), dev)
-    _check("desc", desc, (num_desc, cfg.wv_dim), dev)
-    for name, shape in param_shapes(cfg).items():
-        _check(name, params[name], shape, dev)
+    _check_inputs(cfg, params, data, desc)
     corrupt = _corrupt_vector(cfg, corrupt_mask, data)
-
-    outs = FusedEvalOutputs(*(
-        torch.empty((T, batch, n), dtype=torch.float32, device=dev)
-        for n in (1, 1, W, W, W, W, num_desc, 1)))
-    tensors = ([data, desc, corrupt] + [params[k] for k in PARAM_ORDER]
-               + list(outs))
-    ptrs = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
-    mix = _MIX_IGNORE_CODE if cfg.ignore_code else _MIX[cfg.sender_mix]
-    dims = (ctypes.c_int * 11)(batch, cfg.img_feat_dim, cfg.img_h_dim, W,
-                               cfg.rec_hidden, num_desc, cfg.wv_dim, T, mix,
-                               int(cfg.ignore_receiver),
-                               int(cfg.s_prob_prod))
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mmg_fused_eval_exchange(ptrs, len(tensors), dims,
-                                         len(dims), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("fused eval-exchange kernel launch failed: "
-                           + lib.mmg_error_string(rc).decode())
+    outs = _empty_outputs(cfg, data.shape[0], desc.shape[0], dev)
+    _launch("mmg_fused_eval_exchange",
+            [data, desc, corrupt] + [params[k] for k in PARAM_ORDER]
+            + list(outs), _dims(cfg, data.shape[0], desc.shape[0]),
+            device=dev)
     fused_eval_exchange.launches += 1
     return outs
 
 
 fused_eval_exchange.launches = 0
+
+
+def fused_train_forward(cfg: GameConfig, params: Dict[str, torch.Tensor],
+                        data: torch.Tensor, desc: torch.Tensor, *,
+                        uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                        seed: Optional[int] = None,
+                        step: Optional[int] = None) -> FusedEvalOutputs:
+    """Run the whole sampled (train-mode) conversation, without
+    gradients: in one kernel launch for CUDA tensors, through
+    :func:`fused_train_forward_reference` for CPU ones.
+
+    The randomness is either ``uniforms`` (``{s, z, w[, fz, fw]}``, each
+    ``(T, B, dim)`` float32 on the data's device) or ``seed`` and
+    ``step`` (each in ``[0, 2**32)``) for Philox, never both.
+    """
+    if not supports_config(cfg):
+        raise ValueError("config not supported by the fused kernel")
+    if (uniforms is None) == (seed is None):
+        raise ValueError("give either uniforms or seed (with step)")
+    if seed is not None and (step is None or not 0 <= seed < 2 ** 32
+                             or not 0 <= step < 2 ** 32):
+        raise ValueError("Philox needs a seed and a step in [0, 2**32)")
+    if data.device.type == "cpu":
+        if uniforms is None:
+            uniforms = philox_uniforms(cfg, data.shape[0], seed, step)
+        return fused_train_forward_reference(cfg, params, data, desc,
+                                             uniforms)
+    if data.device.type != "cuda":
+        raise ValueError(f"no kernel for device {data.device}")
+
+    dev = data.device
+    _check_inputs(cfg, params, data, desc)
+    batch = data.shape[0]
+    if uniforms is not None:
+        _check_uniforms(cfg, uniforms, batch, dev, strict=True)
+    streams = [None] * len(STREAMS)
+    for name, index in STREAMS.items():
+        if uniforms is not None and name in uniforms:
+            streams[index] = uniforms[name]
+    outs = _empty_outputs(cfg, batch, desc.shape[0], dev)
+    philox = uniforms is None
+    as_int = lambda v: v - 2 ** 32 if v >= 2 ** 31 else v   # noqa: E731
+    dims = _dims(cfg, batch, desc.shape[0]) + [
+        int(philox), as_int(seed) if philox else 0,
+        as_int(step) if philox else 0,
+        int(cfg.flipout_sen is not None), int(cfg.flipout_rec is not None)]
+    probs = (ctypes.c_float * 2)(
+        0.0 if cfg.flipout_sen is None else cfg.flipout_sen,
+        0.0 if cfg.flipout_rec is None else cfg.flipout_rec)
+    _launch("mmg_fused_train_forward",
+            [data, desc, _corrupt_vector(cfg, None, data)]
+            + [params[k] for k in PARAM_ORDER] + list(outs) + streams,
+            dims, probs, 2, device=dev)
+    fused_train_forward.launches += 1
+    return outs
+
+
+fused_train_forward.launches = 0

@@ -3,16 +3,16 @@ JAX package's parameter trees.
 
 The reference checkpoints four torch ``state_dict``s plus metadata into
 one ``.pt`` file (misc.py:58-92): ``{"data", "models", "optimizers"}``.
-The port's modules use the reference's parameter names, so its Sender and
-Receiver load those state dicts with ``strict=True``.
+The port's modules use the reference's parameter names, so its four
+agents load those state dicts with ``strict=True``.
 
 * :func:`params_to_torch_state` — the JAX package's parameter trees (any
   arrays numpy can read) to torch-layout numpy state dicts: a Linear
   ``weight`` is the transpose of a flax ``kernel``, GRU matrices are the
   transposed ``[r|z|n]`` stacks, ``y1`` is the reference's single matrix.
 * :func:`load_reference_checkpoint` / :func:`save_reference_checkpoint` —
-  read and write ``.pt`` files. Model weights of the Sender and Receiver
-  only; baselines and optimizer slots come with training.
+  read and write ``.pt`` files with the weights of all four agents. The
+  optimizer entries are written empty; their slots are not carried yet.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from multimodalgame_tpu_torch.game.agents import AgentModules
+from multimodalgame_tpu_torch.game.agents import AGENT_NAMES, AgentModules
 from multimodalgame_tpu_torch.game.config import GameConfig
 
 _DENSE_KEYS = {
@@ -35,9 +35,9 @@ _DENSE_KEYS = {
     "baseline_rec": ["linear1", "linear2"],
 }
 
-# The agents the port's serving path holds (names as in the file,
-# model.py:1141-1142).
-AGENTS = ("sender", "receiver")
+# Agents a checkpoint must hold: serving needs no baselines, so a file
+# without them loads too (names as in the file, model.py:1141-1142).
+REQUIRED_AGENTS = ("sender", "receiver")
 
 
 def params_to_torch_state(params: Dict[str, Any]) -> Dict[str, Dict]:
@@ -70,9 +70,13 @@ def params_to_torch_state(params: Dict[str, Any]) -> Dict[str, Dict]:
 def load_torch_state(modules: AgentModules,
                      state: Dict[str, Dict[str, Any]]) -> AgentModules:
     """Load torch-layout state dicts (numpy arrays or tensors) into the
-    Sender and Receiver, strictly; other agents in ``state`` are
-    ignored."""
-    for agent in AGENTS:
+    agents, each strictly. The Sender and Receiver must be in ``state``;
+    a baseline that is absent keeps its weights."""
+    for agent in AGENT_NAMES:
+        if agent not in state:
+            if agent in REQUIRED_AGENTS:
+                raise KeyError(f"no {agent!r} weights in the state")
+            continue
         getattr(modules, agent).load_state_dict(
             {k: v if isinstance(v, torch.Tensor)
              else torch.from_numpy(np.array(v, dtype=np.float32))
@@ -85,8 +89,8 @@ def load_reference_checkpoint(
         device: Optional[Union[str, torch.device]] = None
 ) -> Tuple[Dict[str, Any], AgentModules]:
     """Read a reference-layout ``.pt`` into new agents for ``cfg``.
-    Returns ``(data, modules)``: the file's metadata dict and the Sender
-    and Receiver, on ``device`` when given.
+    Returns ``(data, modules)``: the file's metadata dict and the agents,
+    on ``device`` when given.
 
     Only torch's zip format is read. The JAX package's own checkpoints
     (msgpack files, Orbax directories) raise ``ValueError``: convert them
@@ -111,12 +115,12 @@ def load_reference_checkpoint(
 
 def save_reference_checkpoint(path: str, data: Dict[str, Any],
                               modules: AgentModules) -> None:
-    """Write the Sender's and Receiver's weights as a reference-layout
-    ``.pt`` (``{data, models, optimizers}``, misc.py:58-76), with empty
-    optimizer entries."""
-    models = {agent: {k: v.detach().cpu().clone()
+    """Write the four agents' weights as a reference-layout ``.pt``
+    (``{data, models, optimizers}``, misc.py:58-76), in float32, with
+    empty optimizer entries."""
+    models = {agent: {k: v.detach().cpu().float().clone()
                       for k, v in getattr(modules, agent).state_dict()
                       .items()}
-              for agent in AGENTS}
+              for agent in AGENT_NAMES}
     torch.save({"data": dict(data), "models": models,
-                "optimizers": {agent: {} for agent in AGENTS}}, path)
+                "optimizers": {agent: {} for agent in AGENT_NAMES}}, path)

@@ -1,11 +1,13 @@
-"""The port's eval conversation and the plain version of its CUDA kernel
-against the JAX package, on the CPU.
+"""The port's conversation, in eval and train mode, and the plain
+versions of its CUDA kernel against the JAX package, on the CPU.
 
 Inputs come from a seeded ``np.random.RandomState``; weights from the JAX
 ``init_params``, carried across with the port's ``params_to_torch_state``.
 Bits, masks and ``n_steps`` must be equal; probabilities are held at atol
 1e-5 and the class scores ``y`` at 1e-4 (f32, sums in another order).
 The JAX kernel runs in Pallas interpret mode, as its own tests run it.
+In train mode the port is handed the uniforms JAX's exchange draws
+(tests/jax_uniforms.py), so its sampled bits equal JAX's.
 """
 
 import jax
@@ -30,10 +32,11 @@ from multimodalgame_tpu_torch.game.masks import build_mask
 from multimodalgame_tpu_torch.game.train import make_eval_exchange
 from multimodalgame_tpu_torch.ops.cuda_exchange import (
     FusedEvalOutputs, compare_outputs, fused_eval_exchange,
-    fused_eval_exchange_reference, kernel_params, param_shapes,
-    supports_config)
+    fused_eval_exchange_reference, fused_train_forward_reference,
+    kernel_params, param_shapes, supports_config)
 from multimodalgame_tpu_torch.utils.torch_interop import (
     load_torch_state, params_to_torch_state)
+from tests.jax_uniforms import jax_uniforms
 
 B, D, FEAT, W, HID, WV, T = 8, 5, 64, 16, 32, 24, 4
 PROB_ATOL, Y_ATOL = 1e-5, 1e-4
@@ -273,3 +276,124 @@ def test_compare_outputs_tie_rule():
     e.y[0, 0, 0] += 2e-4
     rep = compare_outputs(cfg, a, e)
     assert not rep["ok"] and rep["max_y_err"] == pytest.approx(2e-4, rel=1e-2)
+
+
+# ---- Train mode: sampled bits from JAX's own uniforms --------------------
+
+TRAIN_VARIANTS = {
+    "adaptive": {},
+    "fixed": dict(fixed_exchange=True),
+    "prod": dict(sender_mix="prod"),
+    "ignore_code": dict(ignore_code=True),
+    "ignore_receiver": dict(ignore_receiver=True),
+    "flipout": dict(flipout_sen=0.1, flipout_rec=0.2),
+    "continuous": dict(use_binary=False),
+}
+
+
+def _train_case(name, batch=B, seed=0):
+    jm, jp, mods, data, desc = _setup(batch=batch, seed=seed,
+                                      **TRAIN_VARIANTS[name])
+    key = jax.random.PRNGKey(10 + seed)
+    want = jax_exchange(jm, jp, jnp.asarray(data), jnp.asarray(desc), key,
+                        train=True)
+    uniforms = jax_uniforms(jm.cfg, key, batch)
+    return mods, torch.from_numpy(data), torch.from_numpy(desc), want, \
+        uniforms
+
+
+@pytest.mark.parametrize("name", list(TRAIN_VARIANTS))
+def test_train_exchange_matches_jax(name):
+    """Bits, masks and n_steps equal; probabilities at 1e-5, y at 1e-4,
+    the baselines' scores at 1e-5."""
+    mods, x, d, want, u = _train_case(name)
+    with torch.no_grad():
+        got = exchange(mods, x, d, train=True, uniforms=u)
+    _assert_same(got, want, got.stop_masks, want.stop_masks,
+                 binary=mods.cfg.use_binary)
+    assert int(got.n_steps) == int(want.n_steps)
+    for k in ("bs", "br"):
+        np.testing.assert_allclose(_np(getattr(got, k)),
+                                   _np(getattr(want, k)), atol=PROB_ATOL,
+                                   err_msg=k)
+    assert got.bs.abs().sum() > 0
+    with torch.no_grad():
+        unscored = exchange(mods, x, d, train=True, uniforms=u,
+                            score_baselines=False)
+    assert not unscored.bs.any() and not unscored.br.any()
+    assert torch.equal(unscored.sen_feats, got.sen_feats)
+
+
+@pytest.mark.parametrize("batch", [1, 13])
+def test_train_exchange_any_batch_size(batch):
+    mods, x, d, want, u = _train_case("adaptive", batch=batch, seed=batch)
+    with torch.no_grad():
+        got = exchange(mods, x, d, train=True, uniforms=u)
+    _assert_same(got, want, got.stop_masks, want.stop_masks)
+    assert int(got.n_steps) == int(want.n_steps)
+
+
+@pytest.mark.parametrize("name", [n for n in TRAIN_VARIANTS
+                                  if n != "continuous"])
+def test_train_kernel_plain_version_matches_jax(name):
+    """The plain version of the train-mode kernel, fed JAX's uniforms,
+    samples JAX's bits."""
+    mods, x, d, want, u = _train_case(name, seed=1)
+    with torch.no_grad():
+        got = fused_train_forward_reference(mods.cfg, kernel_params(mods),
+                                            x, d, u)
+    stop_masks, n_steps = finalize_stop_masks(got.masks,
+                                              mods.cfg.fixed_exchange)
+    _assert_same(got, want, stop_masks, want.stop_masks)
+    assert int(n_steps) == int(want.n_steps)
+
+
+def test_train_exchange_needs_its_uniforms():
+    mods, x, d, _, u = _train_case("flipout")
+    with pytest.raises(ValueError, match="fw"):
+        exchange(mods, x, d, train=True,
+                 uniforms={k: v for k, v in u.items() if k != "fw"})
+    with pytest.raises(ValueError):
+        exchange(mods, x, d, train=True)
+
+
+def test_eval_time_flipout_matches_jax():
+    """``flipout_dev``: eval-mode rounding, then flipout from the fz/fw
+    uniforms, as the JAX exchange does it."""
+    jm, jp, mods, data, desc = _setup(flipout_sen=0.2, flipout_rec=0.3,
+                                      flipout_dev=True)
+    key = jax.random.PRNGKey(4)
+    want = jax_exchange(jm, jp, jnp.asarray(data), jnp.asarray(desc), key,
+                        train=False)
+    u = jax_uniforms(jm.cfg, key, B, train=False)
+    assert set(u) == {"fz", "fw"}
+    with torch.no_grad():
+        got = exchange(mods, torch.from_numpy(data), torch.from_numpy(desc),
+                       uniforms=u)
+        plain = exchange(mods, torch.from_numpy(data),
+                         torch.from_numpy(desc),
+                         uniforms={k: torch.ones_like(v)
+                                   for k, v in u.items()})
+    _assert_same(got, want, got.stop_masks, want.stop_masks)
+    assert not torch.equal(got.sen_feats, plain.sen_feats)
+
+
+def test_compare_outputs_tie_rule_in_train_mode():
+    """In train mode the threshold of a bit is its uniform: a flip where
+    ``p`` lies within 1e-5 of ``u`` is a tie, one far from it fails."""
+    cfg = GameConfig(sender_out_dim=W, rec_w_dim=W, max_exchange=T)
+    a = _outputs(T, B, 1)
+    rng = np.random.RandomState(2)
+    u = {k: torch.from_numpy(rng.rand(T, B, n).astype(np.float32) * 0.5)
+         for k, n in (("z", W), ("w", W), ("s", 1))}
+    assert compare_outputs(cfg, a, a, uniforms=u)["ok"]
+    b = FusedEvalOutputs(*(x.clone() for x in a))
+    u["z"][1, 2, 4] = b.sen_probs[1, 2, 4] = a.sen_probs[1, 2, 4]
+    b.sen_feats[1, 2, 4] = 1.0 - a.sen_feats[1, 2, 4]
+    b.y[2, 2] += 1.0
+    rep = compare_outputs(cfg, a, b, uniforms=u)
+    assert rep["ok"] and rep["tie_rows"] == 1
+    c = FusedEvalOutputs(*(x.clone() for x in a))
+    c.stop_feats[0, 5] = 1.0 - a.stop_feats[0, 5]
+    rep = compare_outputs(cfg, a, c, uniforms=u)
+    assert not rep["ok"] and rep["bad_rows"] == 1

@@ -7,7 +7,8 @@ run it past the JAX conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-Tolerances and the rule for a bit that rounds at 0.5 are those of
+Tolerances and the rule for a bit whose probability lies on its
+threshold (0.5 in eval mode, the uniform in train mode) are those of
 ``ops.cuda_exchange.compare_outputs``: bits and masks exact,
 probabilities at atol 1e-5, class scores at 1e-4.
 """
@@ -20,9 +21,13 @@ from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
 from multimodalgame_tpu_torch.game.agents import AgentModules, init_params
 from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.game.masks import build_mask
+from multimodalgame_tpu_torch.game.train import (
+    init_opt_states, make_multistep_train_step_indexed)
 from multimodalgame_tpu_torch.ops.cuda_exchange import (
     compare_outputs, fused_eval_exchange, fused_eval_exchange_reference,
-    kernel_params)
+    fused_train_forward, fused_train_forward_reference, kernel_params)
+from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+from multimodalgame_tpu_torch.ops.sampling import uniform_widths
 from multimodalgame_tpu_torch.serve import Predictor
 
 pytestmark = pytest.mark.cuda
@@ -146,3 +151,106 @@ def test_predictor_serves_through_the_kernel(cuda):
                                   want["sender_messages"])
     np.testing.assert_allclose(got["log_probs"], want["log_probs"],
                                atol=1e-5)
+
+
+# ---- Train mode ---------------------------------------------------------
+
+TRAIN_VARIANTS = {"adaptive": {}, "fixed": dict(fixed_exchange=True),
+                  "prod": dict(sender_mix="prod"),
+                  "ignore_code": dict(ignore_code=True),
+                  "ignore_receiver": dict(ignore_receiver=True),
+                  "flipout": dict(flipout_sen=0.1, flipout_rec=0.1)}
+
+
+def _numpy_uniforms(cfg, batch, seed):
+    rng = np.random.RandomState(seed)
+    return {k: torch.from_numpy(rng.rand(cfg.max_exchange, batch, n)
+                                .astype(np.float32)).cuda()
+            for k, n in uniform_widths(cfg, train=True).items()}
+
+
+def _check_train(cfg, params, data, desc, mode):
+    batch = data.shape[0]
+    with torch.inference_mode():
+        if mode == "uniforms":
+            u = _numpy_uniforms(cfg, batch, batch)
+            got = fused_train_forward(cfg, params, data, desc, uniforms=u)
+        else:
+            u = philox_uniforms(cfg, batch, 7, 3, device="cuda")
+            got = fused_train_forward(cfg, params, data, desc, seed=7,
+                                      step=3)
+        want = fused_train_forward_reference(cfg, params, data, desc, u)
+    torch.cuda.synchronize()
+    rep = compare_outputs(cfg, got, want, uniforms=u)
+    assert rep["ok"], rep
+    return got
+
+
+@pytest.mark.parametrize("mode", ["uniforms", "philox"])
+@pytest.mark.parametrize("batch", [1, 8, 13])
+@pytest.mark.parametrize("name", list(TRAIN_VARIANTS))
+def test_train_kernel_matches_plain_version(cuda, name, batch, mode):
+    cfg, mods, data, desc = _case(SMALL, batch, 5, stop_bias=0.0,
+                                  **TRAIN_VARIANTS[name])
+    _check_train(cfg, kernel_params(mods), data, desc, mode)
+
+
+@pytest.mark.parametrize("mode", ["uniforms", "philox"])
+def test_train_kernel_matches_plain_version_canonical_width(cuda, mode):
+    cfg, mods, data, desc = _case(CANON, 64, 30, seed=1, stop_bias=0.0)
+    got = _check_train(cfg, kernel_params(mods), data, desc, mode)
+    assert got.y.shape == (10, 64, 30)
+    # Sampled, not rounded: some bits disagree with rounding.
+    assert (got.sen_feats != torch.floor(got.sen_probs + 0.5)).any()
+
+
+def test_train_kernel_each_call_is_one_launch(cuda):
+    cfg, mods, data, desc = _case(SMALL, 8, 5)
+    params = kernel_params(mods)
+    u = _numpy_uniforms(cfg, 8, 0)
+    before = fused_train_forward.launches
+    fused_train_forward(cfg, params, data, desc, uniforms=u)
+    fused_train_forward(cfg, params, data, desc, seed=1, step=2)
+    assert fused_train_forward.launches == before + 2
+
+
+def test_train_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    cfg, mods, data, desc = _case(SMALL, 8, 5)
+    params = kernel_params(mods)
+    u = _numpy_uniforms(cfg, 8, 0)
+    bad = [
+        dict(uniforms={**u, "z": u["z"][:, :4].contiguous()}),
+        dict(uniforms={**u, "w": u["w"].double()}),
+        dict(uniforms={**u, "s": u["s"].cpu()}),
+        dict(uniforms={k: v for k, v in u.items() if k != "s"}),
+        dict(uniforms={**u, "fz": u["z"]}),
+        dict(uniforms=u, seed=1, step=0),
+        dict(),
+        dict(seed=1),
+        dict(seed=2 ** 32, step=0),
+    ]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            fused_train_forward(cfg, params, data, desc, **kw)
+    continuous = GameConfig(**{**SMALL, "use_binary": False})
+    with pytest.raises(ValueError):
+        fused_train_forward(continuous, params, data, desc, seed=1, step=0)
+
+
+def test_training_steps_launch_the_kernel_once_each(cuda):
+    cfg = GameConfig(**SMALL, entropy_s=0.08, entropy_sen=0.01,
+                     entropy_rec=0.01, baseline_hid_dim=16)
+    mods = init_params(AgentModules(cfg), seed=0, device="cuda")
+    chunk = make_multistep_train_step_indexed(mods, 2, 8, fast="kernel",
+                                              seed=3, device="cuda")
+    opts = init_opt_states(cfg, mods)
+    rng = np.random.RandomState(0)
+    feats = torch.from_numpy(rng.randn(40, 64).astype(np.float32)).cuda()
+    targets = torch.from_numpy(rng.randint(0, 5, 40)).cuda()
+    desc = torch.from_numpy(rng.randn(5, 24).astype(np.float32)).cuda()
+    idx = np.stack([rng.permutation(40)[:8] for _ in range(5)])
+    before = fused_train_forward.launches
+    m = chunk(opts, feats, targets, idx, desc, 0)
+    torch.cuda.synchronize()
+    assert fused_train_forward.launches == before + 5
+    assert torch.isfinite(m.loss_rec).all() and m.loss_rec.shape == (5,)
