@@ -10,13 +10,17 @@ result line):
 
 1. probe   — torch/CUDA/nvcc versions and the card's name and power limit;
              exits non-zero when no CUDA device is available;
-2. build   — compiles every CUDA source of the port (one nvcc each, all
-             started together) and prints ptxas's report;
+2. build   — compiles every CUDA source of the port, plain and with the
+             per-phase clock stamps (one nvcc each, all started
+             together), and prints ptxas's report;
 3. kernels — the fused eval-exchange kernel against its plain PyTorch
              version on the card, at the canonical Adaptive width (feat
              512, sender hidden 256, 32-bit messages, receiver hidden 64,
              wv 100, 30 classes, 10 turns) for batches 1, 7, 64, 100 and
-             the variants fixed, prod, ignore_code and corruption "0:3,7";
+             the variants fixed, prod, ignore_code and corruption "0:3,7",
+             plus two launch-plan shapes (PLAN_CASES: the flags'
+             defaults with 100 classes at batch 37, and weights too large
+             for the shared memory of 8 CTAs);
 4. train_kernels — the train-mode kernel (``fused_train_forward``)
              against its plain version at the canonical width, for
              batches 1, 7, 64, 100 and the variants adaptive, fixed, prod,
@@ -24,8 +28,9 @@ result line):
              channels), in both of its random modes: uniforms drawn by
              numpy and handed in, and Philox keyed by (seed, step) with the
              plain version fed ``ops/philox.py``'s numbers for the same
-             key. Tie rows (a probability within 1e-5 of its uniform) are
-             counted; any other difference is fatal;
+             key, and the two PLAN_CASES in both modes. Tie rows (a
+             probability within 1e-5 of its uniform) are counted; any
+             other difference is fatal;
 5. serve   — random canonical-width weights (stop bias STOP_BIAS) saved
              as a reference .pt, loaded by ``Predictor.from_checkpoint``
              on cuda, four request
@@ -42,14 +47,24 @@ result line):
              finite; dev top-1 and top-6 are read through the eval kernel
              (top-6 must reach 0.5, chance is 0.2); the four agents are
              saved as a reference .pt and loaded back;
-7. timing  — CUDA-event medians of both kernels and their plain versions,
-             and host-clock medians of ``Predictor.predict`` end to end,
-             at batches 1, 64 and 100; at batch 64 also the eval kernel
-             with one turn, which splits its time into the
-             once-per-conversation part and the cost of a turn; the train
-             kernel in both random modes; the whole training step and its
-             phase A at batch 64 (steps/s, and the share of the step that
-             phase A takes).
+7. timing  — CUDA-event medians of both kernels and their plain
+             versions around the wrapper call (``ms``: the host's launch
+             work included, as every earlier chip_smoke timed it) and, for
+             the kernels, of the device's work alone (``device_ms``: the
+             card sleeps first while the host enqueues the call) and of
+             the host's launch work alone (``kernel_host_ms``), and
+             host-clock medians of ``Predictor.predict`` end to end, at
+             batches 1, 64 and 100; at batch 64 also both kernels with one
+             turn (the once-per-conversation part against the cost of a
+             turn), the per-phase cycle split of both instances (stamped
+             build), the latency floor; the train kernel in both random
+             modes; the whole training step and its phase A at batch 64
+             (steps/s, and the share of the step that phase A takes).
+
+``python3 chip_smoke.py --times`` runs only the probe and the batch-64
+times of both kernels (both rulers) and of ``Predictor.predict``, through
+entry points that every tree of the port has, so that two trees can be
+timed in one call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -95,6 +110,8 @@ MIN_DEV_TOP6 = 0.5
 # depend on the stop-mask chain.
 STOP_BIAS = 2.5
 REPS = 50
+# About 1 ms of device sleep before each call device_median_ms times.
+SLEEP_CYCLES = 2_000_000
 # Published H100 SXM peaks: f32 outside the
 # tensor cores, and HBM bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -129,10 +146,17 @@ def probe():
 
 
 def build():
+    """Every source, plain and with the per-phase clock stamps: one nvcc
+    process each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from multimodalgame_tpu_torch.ops import cuda_build
+    from multimodalgame_tpu_torch.ops.cuda_exchange import PHASE_CLOCK_FLAGS
     sources = sorted(p.name for p in cuda_build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    results = cuda_build.build(sources)
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(cuda_build.build, sources, flags)
+                for flags in ((), PHASE_CLOCK_FLAGS)]
+        results = [r for job in jobs for r in job.result()]
     secs = time.perf_counter() - t0
     for path, text in results:
         log(f"built {path.name}\n{text.strip()}")
@@ -175,6 +199,41 @@ def make_agents(cfg, device):
     return mods
 
 
+# Shapes that exercise the launch plan (as tests/test_torch_kernels.py):
+# the flags' defaults with 100 classes at batch 37 (a cluster of 4, a
+# ragged tile, widths 50/100/128), and weights too large for the shared
+# memory of 8 CTAs (some read from device memory).
+PLAN_CASES = {
+    "defaults_100_classes": (dict(
+        img_feat_dim=4096, img_h_dim=100, sender_out_dim=50, rec_w_dim=50,
+        rec_hidden=128, wv_dim=100, max_exchange=3), 37, 100),
+    "too_large_for_8": (dict(
+        img_feat_dim=512, img_h_dim=512, sender_out_dim=128, rec_w_dim=128,
+        rec_hidden=512, wv_dim=100, max_exchange=4), 37, 30),
+}
+
+
+def plan_case(name, device, **kw):
+    """Config, kernel weights, data and descriptions of a PLAN_CASES
+    entry, made from seed 5; its launch plan is logged."""
+    import torch
+    from multimodalgame_tpu_torch.game.config import GameConfig
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (ROWS,
+                                                            kernel_params,
+                                                            plan_for)
+    dims, batch, num_desc = PLAN_CASES[name]
+    cfg = GameConfig(fixed_exchange=False, **dims, **kw)
+    rng = np.random.RandomState(5)
+    data = torch.from_numpy(rng.randn(batch, cfg.img_feat_dim)
+                            .astype(np.float32)).to(device)
+    desc = torch.from_numpy(rng.randn(num_desc, cfg.wv_dim)
+                            .astype(np.float32)).to(device)
+    plan = plan_for(cfg, batch, num_desc)
+    return cfg, kernel_params(make_agents(cfg, device)), data, desc, {
+        "cluster": plan.cluster, "rows_per_tile": ROWS,
+        "in_device_memory": list(plan.in_device_memory)}
+
+
 def check_kernels(device):
     import torch
     from multimodalgame_tpu_torch.game.masks import build_mask
@@ -205,6 +264,23 @@ def check_kernels(device):
                                        rep["max_abs_err"])
             worst["tie_rows"] += rep["tie_rows"]
             worst["cases"] += 1
+    for name in PLAN_CASES:
+        cfg, params, data, desc, plan = plan_case(name, device)
+        with torch.inference_mode():
+            got = fused_eval_exchange(cfg, params, data, desc)
+            want = fused_eval_exchange_reference(cfg, params, data, desc)
+        torch.cuda.synchronize()
+        rep = compare_outputs(cfg, got, want)
+        log({"phase": "kernels", "kernel": "fused_eval_exchange",
+             "variant": name, "batch": data.shape[0], **plan, **rep})
+        if not rep["ok"]:
+            raise SystemExit(f"kernel disagrees with its plain version: "
+                             f"{name}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], rep["max_abs_err"])
+        worst["tie_rows"] += rep["tie_rows"]
+        worst["cases"] += 1
+    log({"phase": "kernels", "cases": worst["cases"],
+         "tie_rows": worst["tie_rows"], "max_abs_err": worst["max_abs_err"]})
     return worst
 
 
@@ -258,6 +334,35 @@ def check_train_kernels(device):
                 worst["cases"] += 1
                 worst["largest"].append((rep["max_abs_err"], name, batch,
                                          mode))
+    for name in PLAN_CASES:
+        cfg, params, data, desc, plan = plan_case(name, device, **TRAIN_HP)
+        batch = data.shape[0]
+        for mode in ("uniforms", "philox"):
+            with torch.inference_mode():
+                if mode == "uniforms":
+                    u = numpy_uniforms(cfg, batch, 300 + batch, device)
+                    got = fused_train_forward(cfg, params, data, desc,
+                                              uniforms=u)
+                else:
+                    u = philox_uniforms(cfg, batch, seed=batch, step=7,
+                                        device=device)
+                    got = fused_train_forward(cfg, params, data, desc,
+                                              seed=batch, step=7)
+                want = fused_train_forward_reference(cfg, params, data,
+                                                     desc, u)
+            torch.cuda.synchronize()
+            rep = compare_outputs(cfg, got, want, uniforms=u)
+            log({"phase": "train_kernels", "kernel": "fused_train_forward",
+                 "variant": name, "batch": batch, "rng": mode, **plan,
+                 **rep})
+            if not rep["ok"]:
+                raise SystemExit(f"train kernel disagrees with its plain "
+                                 f"version: {name} {mode}")
+            worst["max_abs_err"] = max(worst["max_abs_err"],
+                                       rep["max_abs_err"])
+            worst["tie_rows"] += rep["tie_rows"]
+            worst["cases"] += 1
+            worst["largest"].append((rep["max_abs_err"], name, batch, mode))
     worst["largest"] = sorted(worst["largest"], reverse=True)[:3]
     log({"phase": "train_kernels", "cases": worst["cases"],
          "tie_rows": worst["tie_rows"], "max_abs_err": worst["max_abs_err"],
@@ -466,7 +571,12 @@ def work(cfg, batch: int, uniform_floats: int = 0):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def event_median_ms(fn) -> float:
+def event_median_ms(fn, sleep: bool = False) -> float:
+    """Median CUDA-event time around one call of ``fn`` on an idle card:
+    the host's launch work (the wrapper, ctypes, the launch call) and the
+    device's work. With ``sleep`` the card first sleeps SLEEP_CYCLES
+    while the host enqueues the events and the call, so the events time
+    the device's work alone."""
     import torch
     for _ in range(10):
         fn()
@@ -474,11 +584,34 @@ def event_median_ms(fn) -> float:
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_median_ms(fn) -> float:
+    return event_median_ms(fn, sleep=True)
+
+
+def host_launch_ms(fn) -> float:
+    """Median host time of one call of ``fn`` that only launches work (the
+    wrapper's checks, allocations, ctypes and the launch call); the card is
+    synchronized after each call, outside the timed span."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -491,6 +624,67 @@ def host_median_ms(fn) -> float:
         fn()
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
+
+
+def sm_clocks() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_split(cfg, params, data, desc):
+    """Block 0's SM cycles per phase of one conversation, summed over the
+    turns, from the stamped build: the eval instance, then the train
+    instance with Philox and with given uniforms, on the same inputs."""
+    import torch
+    from multimodalgame_tpu_torch.ops.cuda_exchange import phase_clocks
+    from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+    u = philox_uniforms(cfg, data.shape[0], 0, 1, device=data.device)
+    runs = {"eval": dict(),
+            "train_philox": dict(train=True, seed=0, step=1),
+            "train_uniforms": dict(train=True, uniforms=u)}
+    out = {}
+    with torch.inference_mode():
+        for name, kw in runs.items():
+            reps = [phase_clocks(cfg, params, data, desc, **kw)
+                    for _ in range(5)]
+            split = {k: statistics.median(r[k] for r in reps)
+                     for k in reps[0]}
+            slowest = split.pop("slowest_cta")
+            total = sum(split.values())
+            out[name] = dict(split, slowest_cta=slowest)
+            log({"phase": "timing", "phase_cycles": name,
+                 "batch": data.shape[0], "turns": cfg.max_exchange,
+                 "total_cycles": total, "slowest_cta_cycles": slowest,
+                 "cycles": split,
+                 "share": {k: v / total for k, v in split.items()},
+                 "sm_clocks": sm_clocks()})
+    return out
+
+
+def latency_floor(cfg, batch: int, num_desc: int):
+    """The least time the conversation's dependence chain allows on this
+    card: T x (exchanges x one measured exchange link + CTA barriers x one
+    measured CTA link), a link being a dependent shared-memory load, a
+    warp reduction and the barrier or push-and-wait (the stamped build's
+    probe kernel), at the SM clock nvidia-smi reports."""
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        CTA_BARRIERS, EXCHANGES, link_cycles, plan_for)
+    plan = plan_for(cfg, batch, num_desc)
+    cta = link_cycles(1)
+    exchange = link_cycles(plan.cluster)
+    per_turn = EXCHANGES * exchange + CTA_BARRIERS * cta
+    clocks = sm_clocks()
+    mhz = float(clocks.split(",")[0].split()[0])
+    row = {"phase": "timing", "latency_floor_ms":
+           cfg.max_exchange * per_turn / (mhz * 1e3),
+           "cta_link_cycles": cta, "exchange_link_cycles": exchange,
+           "cluster": plan.cluster, "links_a_turn": [EXCHANGES,
+                                                     CTA_BARRIERS],
+           "sm_clocks": clocks}
+    log(row)
+    return row
 
 
 def timing(device, pred):
@@ -506,22 +700,31 @@ def timing(device, pred):
         with torch.inference_mode():
             k_ms = event_median_ms(lambda: fused_eval_exchange(
                 cfg, params, data, pred._desc))
+            kd_ms = device_median_ms(lambda: fused_eval_exchange(
+                cfg, params, data, pred._desc))
+            kh_ms = host_launch_ms(lambda: fused_eval_exchange(
+                cfg, params, data, pred._desc))
             p_ms = event_median_ms(lambda: fused_eval_exchange_reference(
                 cfg, params, data, pred._desc))
         e2e_ms = host_median_ms(lambda: pred.predict(x))
         row = {"phase": "timing", "batch": batch, "kernel_ms": k_ms,
-               "plain_ms": p_ms, "predict_ms": e2e_ms, **work(cfg, batch)}
+               "kernel_device_ms": kd_ms, "kernel_host_ms": kh_ms,
+               "plain_ms": p_ms,
+               "predict_ms": e2e_ms, **work(cfg, batch)}
         log(row)
         rows[batch] = row
-    # One turn instead of ten, same weights: (t10 - t1) / 9 is a turn.
+    # One turn instead of ten, same weights, device time: (t10 - t1) / 9
+    # is a turn.
     one = dataclasses.replace(cfg, max_exchange=1)
     data = torch.from_numpy(features(64, seed=564)).to(device)
     with torch.inference_mode():
-        t1 = event_median_ms(lambda: fused_eval_exchange(
+        t1 = device_median_ms(lambda: fused_eval_exchange(
             one, params, data, pred._desc))
-    t10 = rows[64]["kernel_ms"]
-    log({"phase": "timing", "batch": 64, "kernel_ms_1_turn": t1,
-         "kernel_ms_per_turn": (t10 - t1) / (cfg.max_exchange - 1)})
+    t10 = rows[64]["kernel_device_ms"]
+    log({"phase": "timing", "batch": 64, "kernel_device_ms_1_turn": t1,
+         "kernel_device_ms_per_turn": (t10 - t1) / (cfg.max_exchange - 1)})
+    rows["phases"] = phase_split(cfg, params, data, pred._desc)
+    rows["floor"] = latency_floor(cfg, 64, pred._desc.shape[0])
     return rows
 
 
@@ -547,6 +750,10 @@ def train_timing(device, trained):
         with torch.inference_mode():
             k_ms = event_median_ms(lambda: fused_train_forward(
                 cfg, params, data, desc, seed=0, step=1))
+            kd_ms = device_median_ms(lambda: fused_train_forward(
+                cfg, params, data, desc, seed=0, step=1))
+            kh_ms = host_launch_ms(lambda: fused_train_forward(
+                cfg, params, data, desc, seed=0, step=1))
             ku_ms = event_median_ms(lambda: fused_train_forward(
                 cfg, params, data, desc, uniforms=u))
             p_ms = event_median_ms(lambda: fused_train_forward_reference(
@@ -554,18 +761,35 @@ def train_timing(device, trained):
             # The eval mode on the same weights and data, for comparison.
             e_ms = event_median_ms(lambda: fused_eval_exchange(
                 cfg, params, data, desc))
+            ed_ms = device_median_ms(lambda: fused_eval_exchange(
+                cfg, params, data, desc))
         n_u = cfg.max_exchange * batch * sum(
             uniform_widths(cfg, train=True).values())
         with_u = work(cfg, batch, uniform_floats=n_u)
         row = {"phase": "timing", "kernel": "fused_train_forward",
                "batch": batch, "kernel_ms": k_ms,
+               "kernel_device_ms": kd_ms, "kernel_host_ms": kh_ms,
                "kernel_ms_given_uniforms": ku_ms, "plain_ms": p_ms,
                "eval_kernel_ms_same_inputs": e_ms,
+               "eval_kernel_device_ms_same_inputs": ed_ms,
+               "train_over_eval": k_ms / e_ms,
+               "train_over_eval_device": kd_ms / ed_ms,
                "bound_ms_given_uniforms": with_u["bound_ms"],
                "bound_by_given_uniforms": with_u["bound_by"],
                **work(cfg, batch)}
         log(row)
         rows[batch] = row
+    # One turn instead of ten, same weights and data, device time:
+    # (t10 - t1) / 9 is a turn of the train instance.
+    one = dataclasses.replace(cfg, max_exchange=1)
+    data = train.feats[:TRAIN_BATCH].contiguous()
+    with torch.inference_mode():
+        t1 = device_median_ms(lambda: fused_train_forward(
+            one, params, data, desc, seed=0, step=1))
+    t10 = rows[TRAIN_BATCH]["kernel_device_ms"]
+    log({"phase": "timing", "kernel": "fused_train_forward",
+         "batch": TRAIN_BATCH, "kernel_device_ms_1_turn": t1,
+         "kernel_device_ms_per_turn": (t10 - t1) / (cfg.max_exchange - 1)})
 
     # The step and phase A at batch 64, host clock around work that ends
     # in a synchronize; the steps go on training the same agents.
@@ -633,8 +857,50 @@ def train_timing(device, trained):
     return rows
 
 
+def times_only() -> int:
+    """``--times``: the probe, then at batch 64 on random canonical
+    weights the times of both kernels (``ms``, ``device_ms`` and the host
+    time of the launch) and of ``Predictor.predict``; no result line. It builds nothing itself and
+    calls only entry points that every tree of the port has, so the same
+    script times an older tree of the port beside this one."""
+    import torch
+    from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward, kernel_params)
+    from multimodalgame_tpu_torch.serve import Predictor
+    probe()
+    cfg = canonical_cfg(**TRAIN_HP)
+    params = kernel_params(make_agents(cfg, "cuda"))
+    x = features(64, seed=564)
+    data = torch.from_numpy(x).to("cuda")
+    desc = torch.from_numpy(descriptions()).to("cuda")
+    pack = DescriptionPack(descriptions(), descriptions(), [1] * NUM_CLASSES)
+    pred = Predictor(canonical_cfg(), make_agents(canonical_cfg(), "cuda"),
+                     pack, device="cuda")
+
+    def ev():
+        return fused_eval_exchange(cfg, params, data, desc)
+
+    def tr():
+        return fused_train_forward(cfg, params, data, desc, seed=0, step=1)
+
+    with torch.inference_mode():
+        row = {"phase": "timing", "batch": 64,
+               "eval_kernel_ms": event_median_ms(ev),
+               "eval_kernel_device_ms": device_median_ms(ev),
+               "eval_kernel_host_ms": host_launch_ms(ev),
+               "train_kernel_ms": event_median_ms(tr),
+               "train_kernel_device_ms": device_median_ms(tr),
+               "train_kernel_host_ms": host_launch_ms(tr)}
+    row["predict_ms"] = host_median_ms(lambda: pred.predict(x))
+    log(row)
+    return 0
+
+
 def main() -> int:
     import torch
+    if sys.argv[1:] == ["--times"]:
+        return times_only()
     smi = probe()
     build()
     worst = check_kernels("cuda")
@@ -647,6 +913,12 @@ def main() -> int:
     train_rows = train_timing("cuda", trained)
     at = rows[64]
     tat = train_rows[TRAIN_BATCH]
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        ROWS, kernel_registers, plan_for)
+    plan = plan_for(served["pred"].cfg, 64, NUM_CLASSES)
+    layout = {"cluster": plan.cluster, "rows_per_tile": ROWS,
+              "smem_bytes": plan.smem_bytes,
+              "latency_floor_ms": rows["floor"]["latency_floor_ms"]}
     log({"kernels": [{
         "name": "fused_eval_exchange",
         "route": "cuda",
@@ -657,12 +929,15 @@ def main() -> int:
         "tie_rows": worst["tie_rows"],
         "batch": 64,
         "ms": at["kernel_ms"],
+        "device_ms": at["kernel_device_ms"],
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
         "card": smi,
+        **kernel_registers(train=False),
+        **layout,
     }, {
         "name": "fused_train_forward",
         "route": "cuda",
@@ -674,6 +949,7 @@ def main() -> int:
         "batch": TRAIN_BATCH,
         "rng": "philox",
         "ms": tat["kernel_ms"],
+        "device_ms": tat["kernel_device_ms"],
         "plain_ms": tat["plain_ms"],
         "bound_ms": tat["bound_ms"],
         "bound_by": tat["bound_by"],
@@ -683,6 +959,8 @@ def main() -> int:
         "phase_a_share": train_rows["step"]["phase_a_share"],
         "dev_top6": trained["top6"],
         "card": smi,
+        **kernel_registers(train=True),
+        **layout,
     }]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

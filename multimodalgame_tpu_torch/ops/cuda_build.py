@@ -4,7 +4,9 @@ Each ``.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, which :func:`load` opens with
 ``ctypes``. Libraries go to ``build/`` at the repository root, named by a
 hash of the sources and flags, so a changed source is rebuilt and a built
-one is reused. Nothing is compiled at import time.
+one is reused. ``extra_flags`` (for example ``-DMMG_PHASE_CLOCKS``, the
+kernel's per-phase clock stamps) give a library of its own name beside
+the plain one. Nothing is compiled at import time.
 """
 
 from __future__ import annotations
@@ -15,14 +17,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -38,17 +40,18 @@ def nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, extra_flags: Sequence[str] = ()) -> Path:
     """Where the library built from ``csrc/<source>`` lives: the name
     carries a hash of every file in ``csrc/`` and of the flags."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join([*NVCC_FLAGS, *extra_flags]).encode())
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(sources: Iterable[str]) -> List[Tuple[Path, str]]:
+def build(sources: Iterable[str], extra_flags: Sequence[str] = ()
+          ) -> List[Tuple[Path, str]]:
     """Compile every source that is not built yet, one ``nvcc`` process
     each, all started together. Returns ``(library, compiler log)`` per
     source; the log holds ``ptxas``'s register and shared-memory report
@@ -56,12 +59,13 @@ def build(sources: Iterable[str]) -> List[Tuple[Path, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for src in sources:
-        out = library_path(src)
+        out = library_path(src, extra_flags)
         if out.exists():
             jobs.append((out, None, None))
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+               str(CSRC / src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((out, tmp, proc))
@@ -81,10 +85,12 @@ def build(sources: Iterable[str]) -> List[Tuple[Path, str]]:
     return results
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<source>``, built on first use."""
-    lib = _LOADED.get(source)
+def load(source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>`` with ``extra_flags``,
+    built on first use."""
+    key = (source, tuple(extra_flags))
+    lib = _LOADED.get(key)
     if lib is None:
-        (path, _), = build([source])
-        lib = _LOADED[source] = ctypes.CDLL(str(path))
+        (path, _), = build([source], extra_flags)
+        lib = _LOADED[key] = ctypes.CDLL(str(path))
     return lib

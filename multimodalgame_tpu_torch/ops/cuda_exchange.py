@@ -17,6 +17,15 @@ called through ``ctypes`` (``ops/cuda_build.py``).
 * :func:`kernel_params` lays the agents' weights out as the kernel reads
   them: each Linear weight as its ``(in, out)`` transpose, ``y1`` split
   into its ``h_z`` and description blocks.
+* :func:`launch_plan` decides how the kernel is launched: CTAs per
+  thread-block cluster, which per-turn matrices each CTA keeps in shared
+  memory, and the shared-memory carve (a tile is always :data:`ROWS` batch
+  rows). It goes to the
+  kernel in the int table, which recomputes the carve and refuses a plan
+  that disagrees or does not fit; a plan that fits nowhere raises here.
+* :func:`phase_clocks` and :func:`link_cycles` measure the kernel through
+  a second build with per-phase clock stamps (``-DMMG_PHASE_CLOCKS``);
+  :func:`kernel_registers` reads each instance's registers.
 
 The train mode samples ``u < p``. Its uniforms are either given, in the
 JAX exchange's layout (``{s, z, w[, fz, fw]}``, each ``(T, B, dim)``
@@ -24,13 +33,15 @@ float32), or drawn in the kernel by Philox4x32-10 keyed by
 ``(seed, step)``; ``ops/philox.py`` computes the same numbers on the CPU.
 
 Unlike the JAX kernel, every batch size is served, 1 and 100 included:
-the batch is tiled over thread blocks and the last tile is masked.
+the batch is tiled over clusters and the last tile is masked.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+import functools
+from types import MappingProxyType
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +65,180 @@ PARAM_ORDER = ("wimg", "bimg", "wcode", "bcode", "cbias", "wbin", "bbin",
 
 _MIX = {"sum": 0, "prod": 1}
 _MIX_IGNORE_CODE = 2
+
+# The int table, in the order of csrc/fused_exchange.cu's enum Dim: sizes,
+# flags, the launch plan, then the train mode's entries.
+DIM_ORDER = ("B", "F", "H", "W", "R", "D", "V", "T", "MIX",
+             "IGNORE_RECEIVER", "S_PROB_PROD", "CLUSTER", "RESIDENT",
+             "PULL", "COMPACT", "SMEM_BYTES")
+TRAIN_DIM_ORDER = ("PHILOX", "SEED", "STEP", "FLIP_SEN", "FLIP_REC")
+# The pointer table, in the order of enum Ptr: inputs, PARAM_ORDER, the
+# outputs (FusedEvalOutputs' order), then the uniform streams.
+OUTPUT_ORDER = ("o_sfeat", "o_sprob", "o_zfeat", "o_zprob", "o_wfeat",
+                "o_wprob", "o_y", "o_mask")
+PTR_ORDER = ("data", "desc", "corrupt") + PARAM_ORDER + OUTPUT_ORDER
+# The per-turn matrices the plan may keep in shared memory, in the order
+# of enum Mat (bit i of the RESIDENT entry).
+MATRIX_ORDER = ("wcode", "wbin", "wih", "whh", "y1h", "whk", "wk")
+
+THREADS = 256                  # threads of a CTA
+NWARPS = THREADS // 32
+EXCHANGES = 4                  # pushes between a cluster's CTAs each turn
+CTA_BARRIERS = 7               # __syncthreads() of a turn (after turn 0)
+DESC_CHUNK = 16                # description rows staged at a time (set-up)
+HX_WARPS = 4                   # set-up: warps of h_x; the rest do desc_proj
+DESC_WARPS = NWARPS - HX_WARPS
+IH_WARPS = 3                   # GRU: warps of z W_ih; the rest do h W_hh
+SMEM_OPTIN_BYTES = 232448      # H100: dynamic shared memory a CTA may opt in to
+# Batch rows per tile, and the cluster sizes in the planner's order: 4 CTAs
+# where they hold the weights, else 8. Measured on an H100 at the
+# canonical width, batch 64 (PERF.md): 4 rows and 4 CTAs beat 8 or 16 rows
+# and 1, 2 or 8 CTAs.
+ROWS = 4
+CLUSTER_CHOICES = (4, 8)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_lanes(nc: int, k: int, nw: int = NWARPS) -> int:
+    """Lanes that share one output column of a split-K product on ``nw``
+    warps: the largest power of two up to 32 and up to ``k`` that still
+    gives every column its lanes in one pass over the warps (1 when the
+    columns outnumber the lanes). ``fused_exchange.cu:split_lanes`` is the
+    same rule."""
+    s = 1
+    while s < 32 and 2 * s <= k and nc * 2 * s <= 32 * nw:
+        s *= 2
+    return s
+
+
+def padded_ld(n: int, m: int) -> int:
+    """Row stride (floats) of an ``n``-wide shared-memory matrix read by
+    a warp as ``32 / m`` rows of ``m`` neighbours: the least stride >= n
+    that is ``m`` modulo 32, so that the 32 lanes hit 32 banks."""
+    m %= 32
+    if m == 0:
+        return n
+    return n + (m - n % 32) % 32
+
+
+class LaunchPlan(NamedTuple):
+    cluster: int                 # CTAs per cluster (C)
+    tiles: int                   # clusters in the grid (grid = tiles * C)
+    resident: Tuple[str, ...]    # per-turn matrices held in shared memory
+    in_device_memory: Tuple[str, ...]  # the rest, read through __ldg
+    pull: bool                   # class-score partials read remotely
+    compact: bool                # set-up products stored unpadded
+    smem_bytes: int              # dynamic shared memory of one CTA
+    offsets: Mapping[str, int]   # shared-memory carve, in floats (read-only)
+
+    @property
+    def resident_mask(self) -> int:
+        return sum(1 << i for i, m in enumerate(MATRIX_ORDER)
+                   if m in self.resident)
+
+
+def smem_layout(F: int, H: int, W: int, R: int, D: int, V: int,
+                cluster: int, resident, pull: bool,
+                compact: bool) -> Tuple[Dict[str, int], int]:
+    """Offsets (floats) of every region of one CTA's shared memory and
+    its size in bytes; ``fused_exchange.cu:make_layout`` computes the same
+    from the int table. CTA ``c`` of a cluster holds columns
+    ``[c*hc, (c+1)*hc)`` of the sender's hidden width (``wcode`` columns,
+    ``wbin`` rows) and ``[c*rc, (c+1)*rc)`` of the receiver's (the GRU's
+    three gates, ``y1h``, ``whk``, ``desc_proj`` and ``desc.w_d`` columns,
+    ``wk`` rows); for the set-up, its ``[y1_d | w_d]`` column slices and
+    DESC_CHUNK rows of ``desc``. ``pull`` keeps one slot of class-score
+    partials instead of one per CTA; ``compact`` drops the bank padding of
+    ``desc_proj``, ``desc.w_d`` and ``[y1_d | w_d]``."""
+    C, rows = cluster, ROWS
+    hc, rc = _ceil(H, C), _ceil(R, C)
+    shapes = {"wcode": (W, hc), "wbin": (hc, W), "wih": (W, 3 * rc),
+              "whh": (R, 3 * rc), "y1h": (R, rc), "whk": (R, rc),
+              "wk": (rc, W)}
+    warps = {"wcode": NWARPS, "wbin": NWARPS, "wih": IH_WARPS,
+             "whh": NWARPS - IH_WARPS, "y1h": NWARPS // 2,
+             "whk": NWARPS // 2, "wk": NWARPS}      # each product's warps
+    # 8-byte mbarriers: one per exchange.
+    sizes = [("bars", 2 * EXCHANGES)]
+    for m in MATRIX_ORDER:
+        if m in resident:
+            k, n = shapes[m]
+            sizes.append((m, k * padded_ld(
+                n, 32 // split_lanes(n, k, warps[m]))))
+    ld_dp = rc if compact else padded_ld(rc, split_lanes(rows * D, rc))
+    ld_dw = rc if compact else padded_ld(rc, 32 // split_lanes(rc, D))
+    ld_wd = (2 * rc if compact else padded_ld(
+        2 * rc, 32 // split_lanes(2 * rc, V, DESC_WARPS)))
+    sizes += [("bcode", hc), ("bbin", W), ("bih", 3 * rc), ("bhh", 3 * rc),
+              ("y1b", rc), ("whb", rc), ("sk", R), ("y2k", rc), ("wb", W),
+              ("corrupt", W), ("dp", D * ld_dp), ("dw", D * ld_dw),
+              ("dstage", DESC_CHUNK * V), ("wd", V * ld_wd),
+              ("hx", rows * hc), ("mix", rows * hc), ("wbits", rows * W),
+              ("zbits", rows * W), ("zpart", C * rows * W),
+              ("h", 2 * rows * R), ("gi", rows * 3 * rc),
+              ("gh", rows * 3 * rc), ("y1", rows * rc), ("wh", rows * rc),
+              ("stop", rows), ("spart", (1 if pull else C) * rows * D),
+              ("p", rows * D), ("hq", rows * rc), ("wpart", C * rows * W),
+              ("mask", rows), ("sprod", rows), ("u", rows * (4 * W + 1))]
+    offsets, o = {}, 0
+    for name, n in sizes:
+        offsets[name] = o
+        o += _ceil(n, 4) * 4      # every region 16-byte aligned
+    return offsets, 4 * o
+
+
+@functools.lru_cache(maxsize=64)     # every launch asks; plans are immutable
+def launch_plan(F: int, H: int, W: int, R: int, D: int, V: int,
+                batch: int, smem_limit: int = SMEM_OPTIN_BYTES
+                ) -> LaunchPlan:
+    """The kernel's launch plan for these sizes: CTAs per cluster, which
+    per-turn matrices live in shared memory, and the carve. A cluster of 4
+    CTAs where it holds every matrix; failing that, 8 CTAs, then 8 with
+    the class-score partials read remotely, then also without bank
+    padding, then with the largest matrices left in device memory one by
+    one. Raises ValueError when nothing fits ``smem_limit`` bytes."""
+    if batch < 1:
+        raise ValueError("empty batch")
+    sizes = (F, H, W, R, D, V)
+
+    def fit(c, keep, pull, compact):
+        offsets, nbytes = smem_layout(*sizes, c, keep, pull, compact)
+        if nbytes > smem_limit:
+            return None
+        return LaunchPlan(
+            c, _ceil(batch, ROWS),
+            tuple(m for m in MATRIX_ORDER if m in keep),
+            tuple(m for m in MATRIX_ORDER if m not in keep),
+            pull, compact, nbytes, MappingProxyType(offsets))
+
+    for c in CLUSTER_CHOICES[:-1]:
+        plan = fit(c, MATRIX_ORDER, False, False)
+        if plan is not None:
+            return plan
+    c = CLUSTER_CHOICES[-1]
+    hc, rc = _ceil(H, c), _ceil(R, c)
+    big = {"wcode": W * hc, "wbin": hc * W, "wih": W * 3 * rc,
+           "whh": R * 3 * rc, "y1h": R * rc, "whk": R * rc, "wk": rc * W}
+    for pull, compact in ((False, False), (True, False), (True, True)):
+        keep = list(MATRIX_ORDER)
+        while True:
+            plan = fit(c, keep, pull, compact)
+            if plan is not None:
+                return plan
+            if not (pull and compact) or not keep:
+                break
+            keep.remove(max(keep, key=lambda m: big[m]))
+    raise ValueError(
+        f"no launch plan fits {smem_limit} bytes of shared memory for "
+        f"F={F} H={H} W={W} R={R} D={D} V={V}")
+
+
+def plan_for(cfg: GameConfig, batch: int, num_desc: int) -> LaunchPlan:
+    return launch_plan(cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim,
+                       cfg.rec_hidden, num_desc, cfg.wv_dim, batch)
 
 
 class FusedEvalOutputs(NamedTuple):
@@ -303,8 +488,15 @@ def compare_outputs(cfg: GameConfig, got, want, tie: float = 1e-5,
             "max_abs_err": max(prob_err, y_err)}
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
+# The kernel's phases, in the order of csrc/fused_exchange.cu's enum Phase.
+PHASES = ("setup", "sender_code_mix", "binary_sample", "gru", "heads",
+          "scores_softmax", "query", "reply_sample")
+PHASE_CLOCK_FLAGS = ("-DMMG_PHASE_CLOCKS",)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = cuda_build.load(SOURCE, extra_flags)
     fn = lib.mmg_fused_eval_exchange
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
@@ -316,6 +508,16 @@ def _library() -> ctypes.CDLL:
                    ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.mmg_phase_clocks.argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    lib.mmg_phase_clocks.restype = ctypes.c_int
+    lib.mmg_link_cycles.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.mmg_link_cycles.restype = ctypes.c_int
+    lib.mmg_kernel_registers.argtypes = [ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_int)]
+    lib.mmg_kernel_registers.restype = ctypes.c_int
     lib.mmg_error_string.argtypes = [ctypes.c_int]
     lib.mmg_error_string.restype = ctypes.c_char_p
     return lib
@@ -353,29 +555,46 @@ def _check_uniforms(cfg: GameConfig, uniforms: Dict[str, torch.Tensor],
 
 
 def _check_inputs(cfg: GameConfig, params: Dict[str, torch.Tensor],
-                  data: torch.Tensor, desc: torch.Tensor) -> None:
+                  data: torch.Tensor, desc: torch.Tensor) -> List:
+    """Checks the kernel's inputs and returns the weights in PARAM_ORDER.
+    Every launch pays for this loop, so only a tensor that fails is looked
+    at again (by :func:`_check`) for the message."""
     dev = data.device
     if data.shape[0] == 0:
         raise ValueError("empty batch")
-    _check("data", data, (data.shape[0], cfg.img_feat_dim), dev)
-    _check("desc", desc, (desc.shape[0], cfg.wv_dim), dev)
-    for name, shape in param_shapes(cfg).items():
-        _check(name, params[name], shape, dev)
+    shapes = param_shapes(cfg)
+    weights = [params[k] for k in PARAM_ORDER]
+    named = [("data", data, (data.shape[0], cfg.img_feat_dim)),
+             ("desc", desc, (desc.shape[0], cfg.wv_dim))] + [
+                 (k, w, shapes[k]) for k, w in zip(PARAM_ORDER, weights)]
+    for name, x, shape in named:
+        if (x.dtype is not torch.float32 or x.shape != shape
+                or not x.is_contiguous() or x.device != dev):
+            _check(name, x, shape, dev)
+    return weights
 
 
-def _dims(cfg: GameConfig, batch: int, num_desc: int) -> list:
-    mix = _MIX_IGNORE_CODE if cfg.ignore_code else _MIX[cfg.sender_mix]
-    return [batch, cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim,
-            cfg.rec_hidden, num_desc, cfg.wv_dim, cfg.max_exchange, mix,
-            int(cfg.ignore_receiver), int(cfg.s_prob_prod)]
+def _dims(cfg: GameConfig, batch: int, num_desc: int,
+          plan: LaunchPlan) -> list:
+    values = {
+        "B": batch, "F": cfg.img_feat_dim, "H": cfg.img_h_dim,
+        "W": cfg.rec_w_dim, "R": cfg.rec_hidden, "D": num_desc,
+        "V": cfg.wv_dim, "T": cfg.max_exchange,
+        "MIX": _MIX_IGNORE_CODE if cfg.ignore_code else _MIX[cfg.sender_mix],
+        "IGNORE_RECEIVER": int(cfg.ignore_receiver),
+        "S_PROB_PROD": int(cfg.s_prob_prod),
+        "CLUSTER": plan.cluster, "RESIDENT": plan.resident_mask,
+        "PULL": int(plan.pull), "COMPACT": int(plan.compact),
+        "SMEM_BYTES": plan.smem_bytes}
+    return [values[k] for k in DIM_ORDER]
 
 
-def _launch(fn_name: str, tensors, dims, *extra, device: torch.device
-            ) -> None:
+def _launch(fn_name: str, tensors, dims, *extra, device: torch.device,
+            extra_flags: Tuple[str, ...] = ()) -> None:
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if x is None else x.data_ptr() for x in tensors])
     dims = (ctypes.c_int * len(dims))(*dims)
-    lib = _library()
+    lib = _library(extra_flags)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(ptrs, len(tensors), dims, len(dims),
@@ -394,6 +613,27 @@ def _empty_outputs(cfg: GameConfig, batch: int, num_desc: int,
         for n in (1, 1, W, W, W, W, num_desc, 1)))
 
 
+def _eval_launch(cfg: GameConfig, params: Dict[str, torch.Tensor],
+                 data: torch.Tensor, desc: torch.Tensor,
+                 corrupt_mask: Optional[torch.Tensor],
+                 plan: Optional[LaunchPlan] = None,
+                 extra_flags: Tuple[str, ...] = ()) -> FusedEvalOutputs:
+    if data.device.type != "cuda":
+        raise ValueError(f"no kernel for device {data.device}")
+    dev = data.device
+    weights = _check_inputs(cfg, params, data, desc)
+    batch, num_desc = data.shape[0], desc.shape[0]
+    plan = plan or plan_for(cfg, batch, num_desc)
+    # No mask: a null pointer, which the kernel reads as no corruption.
+    corrupt = (None if corrupt_mask is None
+               else _corrupt_vector(cfg, corrupt_mask, data))
+    outs = _empty_outputs(cfg, batch, num_desc, dev)
+    _launch("mmg_fused_eval_exchange", [data, desc, corrupt] + weights
+            + list(outs), _dims(cfg, batch, num_desc, plan),
+            device=dev, extra_flags=extra_flags)
+    return outs
+
+
 def fused_eval_exchange(cfg: GameConfig, params: Dict[str, torch.Tensor],
                         data: torch.Tensor, desc: torch.Tensor,
                         corrupt_mask: Optional[torch.Tensor] = None
@@ -410,17 +650,7 @@ def fused_eval_exchange(cfg: GameConfig, params: Dict[str, torch.Tensor],
     if data.device.type == "cpu":
         return fused_eval_exchange_reference(cfg, params, data, desc,
                                              corrupt_mask)
-    if data.device.type != "cuda":
-        raise ValueError(f"no kernel for device {data.device}")
-
-    dev = data.device
-    _check_inputs(cfg, params, data, desc)
-    corrupt = _corrupt_vector(cfg, corrupt_mask, data)
-    outs = _empty_outputs(cfg, data.shape[0], desc.shape[0], dev)
-    _launch("mmg_fused_eval_exchange",
-            [data, desc, corrupt] + [params[k] for k in PARAM_ORDER]
-            + list(outs), _dims(cfg, data.shape[0], desc.shape[0]),
-            device=dev)
+    outs = _eval_launch(cfg, params, data, desc, corrupt_mask)
     fused_eval_exchange.launches += 1
     return outs
 
@@ -453,11 +683,21 @@ def fused_train_forward(cfg: GameConfig, params: Dict[str, torch.Tensor],
             uniforms = philox_uniforms(cfg, data.shape[0], seed, step)
         return fused_train_forward_reference(cfg, params, data, desc,
                                              uniforms)
+    outs = _train_launch(cfg, params, data, desc, uniforms, seed, step)
+    fused_train_forward.launches += 1
+    return outs
+
+
+def _train_launch(cfg: GameConfig, params: Dict[str, torch.Tensor],
+                  data: torch.Tensor, desc: torch.Tensor,
+                  uniforms: Optional[Dict[str, torch.Tensor]],
+                  seed: Optional[int], step: Optional[int],
+                  plan: Optional[LaunchPlan] = None,
+                  extra_flags: Tuple[str, ...] = ()) -> FusedEvalOutputs:
     if data.device.type != "cuda":
         raise ValueError(f"no kernel for device {data.device}")
-
     dev = data.device
-    _check_inputs(cfg, params, data, desc)
+    weights = _check_inputs(cfg, params, data, desc)
     batch = data.shape[0]
     if uniforms is not None:
         _check_uniforms(cfg, uniforms, batch, dev, strict=True)
@@ -465,22 +705,77 @@ def fused_train_forward(cfg: GameConfig, params: Dict[str, torch.Tensor],
     for name, index in STREAMS.items():
         if uniforms is not None and name in uniforms:
             streams[index] = uniforms[name]
+    plan = plan or plan_for(cfg, batch, desc.shape[0])
     outs = _empty_outputs(cfg, batch, desc.shape[0], dev)
     philox = uniforms is None
     as_int = lambda v: v - 2 ** 32 if v >= 2 ** 31 else v   # noqa: E731
-    dims = _dims(cfg, batch, desc.shape[0]) + [
+    dims = _dims(cfg, batch, desc.shape[0], plan) + [
         int(philox), as_int(seed) if philox else 0,
         as_int(step) if philox else 0,
         int(cfg.flipout_sen is not None), int(cfg.flipout_rec is not None)]
     probs = (ctypes.c_float * 2)(
         0.0 if cfg.flipout_sen is None else cfg.flipout_sen,
         0.0 if cfg.flipout_rec is None else cfg.flipout_rec)
+    # The train mode never corrupts: a null corrupt mask.
     _launch("mmg_fused_train_forward",
-            [data, desc, _corrupt_vector(cfg, None, data)]
-            + [params[k] for k in PARAM_ORDER] + list(outs) + streams,
-            dims, probs, 2, device=dev)
-    fused_train_forward.launches += 1
+            [data, desc, None] + weights + list(outs) + streams,
+            dims, probs, 2, device=dev, extra_flags=extra_flags)
     return outs
 
 
 fused_train_forward.launches = 0
+
+
+def phase_clocks(cfg: GameConfig, params: Dict[str, torch.Tensor],
+                 data: torch.Tensor, desc: torch.Tensor, *,
+                 train: bool = False,
+                 uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                 seed: Optional[int] = None, step: Optional[int] = None
+                 ) -> Dict[str, int]:
+    """One conversation through the library built with the per-phase
+    clock stamps (``-DMMG_PHASE_CLOCKS``): the SM cycles the grid's first
+    CTA spent in each phase of :data:`PHASES`, summed over the turns, and
+    under ``slowest_cta`` the whole cycles of the slowest CTA. A
+    measurement tool, not counted in the wrappers' ``launches``; CUDA
+    tensors only."""
+    if train:
+        _train_launch(cfg, params, data, desc, uniforms, seed, step, None,
+                      PHASE_CLOCK_FLAGS)
+    else:
+        _eval_launch(cfg, params, data, desc, None, None, PHASE_CLOCK_FLAGS)
+    torch.cuda.synchronize(data.device)
+    out = (ctypes.c_ulonglong * (len(PHASES) + 1))()
+    lib = _library(PHASE_CLOCK_FLAGS)
+    rc = lib.mmg_phase_clocks(out, len(out))
+    if rc != 0:
+        raise RuntimeError("mmg_phase_clocks failed: "
+                           + lib.mmg_error_string(rc).decode())
+    return dict(zip(PHASES + ("slowest_cta",), (int(v) for v in out)))
+
+
+def link_cycles(cluster: int, iters: int = 1000) -> int:
+    """SM cycles of one link of the conversation's chain with ``cluster``
+    CTAs (the stamped build's probe kernel): a dependent shared-memory
+    load, a warp reduction, and a CTA barrier (1 CTA) or a push to every
+    CTA plus the wait for the cluster's pushes. For the latency floor."""
+    out = ctypes.c_ulonglong()
+    lib = _library(PHASE_CLOCK_FLAGS)
+    rc = lib.mmg_link_cycles(cluster, iters, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError("mmg_link_cycles failed: "
+                           + lib.mmg_error_string(rc).decode())
+    return int(out.value)
+
+
+def kernel_registers(train: bool) -> Dict[str, int]:
+    """Registers and local-memory (spill) bytes per thread of the eval or
+    train instance of the plain build, as the loaded module reports them
+    (``cudaFuncGetAttributes``); needs a GPU."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    lib = _library()
+    rc = lib.mmg_kernel_registers(int(train), ctypes.byref(regs),
+                                  ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError("mmg_kernel_registers failed: "
+                           + lib.mmg_error_string(rc).decode())
+    return {"registers": regs.value, "local_bytes": local.value}

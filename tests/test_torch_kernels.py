@@ -24,8 +24,10 @@ from multimodalgame_tpu_torch.game.masks import build_mask
 from multimodalgame_tpu_torch.game.train import (
     init_opt_states, make_multistep_train_step_indexed)
 from multimodalgame_tpu_torch.ops.cuda_exchange import (
-    compare_outputs, fused_eval_exchange, fused_eval_exchange_reference,
-    fused_train_forward, fused_train_forward_reference, kernel_params)
+    ROWS, _eval_launch, compare_outputs, fused_eval_exchange,
+    fused_eval_exchange_reference, fused_train_forward,
+    fused_train_forward_reference, kernel_params, kernel_registers,
+    launch_plan, plan_for)
 from multimodalgame_tpu_torch.ops.philox import philox_uniforms
 from multimodalgame_tpu_torch.ops.sampling import uniform_widths
 from multimodalgame_tpu_torch.serve import Predictor
@@ -254,3 +256,89 @@ def test_training_steps_launch_the_kernel_once_each(cuda):
     torch.cuda.synchronize()
     assert fused_train_forward.launches == before + 5
     assert torch.isfinite(m.loss_rec).all() and m.loss_rec.shape == (5,)
+
+
+# ---- Launch plans: clusters, ragged tiles, weights in device memory ----
+
+# The flags' defaults (F 4096, H 100, W 50, R 128) with 100 classes: a
+# cluster of more than 2 CTAs, a ragged last tile at batch 37, widths that
+# are no multiple of the split. TOO_LARGE: weights that do not all fit in
+# the shared memory of 8 CTAs, so the plan reads some from device memory.
+DEFAULTS = dict(img_feat_dim=4096, img_h_dim=100, sender_out_dim=50,
+                rec_w_dim=50, rec_hidden=128, wv_dim=100, max_exchange=3,
+                fixed_exchange=False)
+TOO_LARGE = dict(img_feat_dim=512, img_h_dim=512, sender_out_dim=128,
+                 rec_w_dim=128, rec_hidden=512, wv_dim=100, max_exchange=4,
+                 fixed_exchange=False)
+PLAN_CASES = {"defaults_100_classes": (DEFAULTS, 37, 100),
+              "too_large_for_8": (TOO_LARGE, 37, 30),
+              "canonical": (CANON, 64, 30)}
+
+
+def _plan_case(name, stop_bias):
+    dims, batch, num_desc = PLAN_CASES[name]
+    cfg, mods, data, desc = _case(dims, batch, num_desc, seed=4,
+                                  stop_bias=stop_bias)
+    plan = plan_for(cfg, batch, num_desc)
+    if name == "defaults_100_classes":
+        assert plan.cluster > 2 and batch % ROWS != 0
+    if name == "too_large_for_8":
+        assert plan.cluster == 8 and plan.in_device_memory
+    return cfg, kernel_params(mods), data, desc
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_kernel_matches_plain_version_across_plans(cuda, name):
+    cfg, params, data, desc = _plan_case(name, stop_bias=2.5)
+    before = fused_eval_exchange.launches
+    _check(cfg, params, data, desc)
+    assert fused_eval_exchange.launches == before + 1
+
+
+@pytest.mark.parametrize("mode", ["uniforms", "philox"])
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_train_kernel_matches_plain_version_across_plans(cuda, name, mode):
+    cfg, params, data, desc = _plan_case(name, stop_bias=0.0)
+    before = fused_train_forward.launches
+    _check_train(cfg, params, data, desc, mode)
+    assert fused_train_forward.launches == before + 1
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_instances_report_their_registers(cuda, train):
+    """Both instances fit the 255 registers of a thread at one CTA an SM
+    (``__launch_bounds__(256, 1)``)."""
+    regs = kernel_registers(train)
+    assert 0 < regs["registers"] <= 255 and regs["local_bytes"] >= 0
+
+
+def test_plans_that_do_not_fit_are_refused(cuda):
+    cfg, mods, data, desc = _case(CANON, 8, 30)
+    params = kernel_params(mods)
+    eval_before = fused_eval_exchange.launches
+    plan = plan_for(cfg, 8, 30)
+    # A carve the kernel does not recompute: refused by the C side.
+    with pytest.raises(RuntimeError):
+        _eval_launch(cfg, params, data, desc, None,
+                     plan._replace(smem_bytes=plan.smem_bytes + 16))
+    # Every matrix of TOO_LARGE held by 4 CTAs needs more than the card's
+    # opt-in shared memory: refused by the C side.
+    big_cfg, big_mods, big_data, big_desc = _case(TOO_LARGE, 8, 30)
+    big = launch_plan(512, 512, 128, 512, 30, 100, 8, smem_limit=10 ** 7)
+    assert big.smem_bytes > 232448 and big.in_device_memory == ()
+    with pytest.raises(RuntimeError):
+        _eval_launch(big_cfg, kernel_params(big_mods), big_data, big_desc,
+                     None, big)
+    # Nothing fits at all: refused by the planner, before any launch.
+    huge = GameConfig(img_feat_dim=64, img_h_dim=2048, sender_out_dim=512,
+                      rec_w_dim=512, rec_hidden=1024, wv_dim=300,
+                      max_exchange=2)
+    mods = init_params(AgentModules(huge), seed=0, device="cuda")
+    data = torch.zeros(4, 64, device="cuda")
+    desc = torch.zeros(100, 300, device="cuda")
+    with pytest.raises(ValueError):
+        fused_eval_exchange(huge, kernel_params(mods), data, desc)
+    with pytest.raises(ValueError):
+        fused_train_forward(huge, kernel_params(mods), data, desc, seed=0,
+                            step=0)
+    assert fused_eval_exchange.launches == eval_before
