@@ -37,17 +37,30 @@ result line):
              batches (1, 7, 64, 100) answered through the kernel (its
              launch count must grow by exactly 4) and held against a
              plain ``Predictor(use_kernel=False)`` on the same card;
-6. train   — the training main path: ``make_multistep_train_step_indexed
+6. train   — the bare trainer: ``make_multistep_train_step_indexed
              (fast="kernel")`` on cuda at the canonical width and
              hyper-parameters (RMSprop, lr 1e-4, entropies 0.08 / 0.01 /
              0.01, batch 64), over an in-memory synthetic set of 30
-             classes x 100 train and 20 dev examples, for the demo's 30
-             epochs in chunks of 5 epochs. The train kernel's launch count
-             must equal the number of steps and every loss must be
-             finite; dev top-1 and top-6 are read through the eval kernel
-             (top-6 must reach 0.5, chance is 0.2); the four agents are
-             saved as a reference .pt and loaded back;
-7. timing  — CUDA-event medians of both kernels and their plain
+             classes x 100 train and 20 dev examples, for 5 epochs in one
+             chunk. The train kernel's launch count must equal the number
+             of steps and every loss must be finite; dev top-1 and top-6
+             are read through the eval kernel; the four agents are saved
+             as a reference .pt and loaded back;
+7. driver  — the training main path: ``train.run`` (what ``python -m
+             multimodalgame_tpu_torch`` calls) with the demo's argv
+             (tools/demo.sh:21-31), parsed by the port's config.py, on
+             the same in-memory sets and descriptions, for the demo's 30
+             epochs = 1,380 steps. Train-kernel launches must equal the
+             steps and eval-kernel launches the count the cadences give
+             (``cadence_counts``: a log window's eval dump, and every dev
+             batch of every dev sweep); the log must hold the predicted
+             counts of "Training Accuracy", "Development Accuracy" and
+             "Checkpointing." lines, only finite losses, and a last dev
+             top-6 of at least 0.5 (chance 0.2); the .pt and its _best
+             reload with equal weights and optimizer slots; an
+             ``-eval_only`` run on _best (``-log_load`` of the run's JSON)
+             must reproduce _best's ``best_dev_acc``;
+8. timing  — CUDA-event medians of both kernels and their plain
              versions around the wrapper call (``ms``: the host's launch
              work included, as every earlier chip_smoke timed it) and, for
              the kernels, of the device's work alone (``device_ms``: the
@@ -103,8 +116,20 @@ TRAIN_HP = dict(entropy_s=0.08, entropy_sen=0.01, entropy_rec=0.01,
                 learning_rate=1e-4, optim_type="RMSprop",
                 baseline_hid_dim=500)
 TRAIN_BATCH, TRAIN_PER_CLASS, DEV_PER_CLASS = 64, 100, 20
-EPOCHS, CHUNK_EPOCHS = 30, 5
+EPOCHS = 5                  # the bare trainer's; the driver runs the demo's
 MIN_DEV_TOP6 = 0.5
+# The demo's training command (tools/demo.sh:21-31) without its file
+# paths: the driver phase hands the sets over in memory.
+DEMO_ARGV = ["-experiment_name", "demo", "-model_type", "Adaptive",
+             "-max_exchange", "10", "-batch_size", "64",
+             "-batch_size_dev", "100", "-rec_w_dim", "32",
+             "-sender_out_dim", "32", "-img_h_dim", "256",
+             "-rec_hidden", "64", "-learning_rate", "1e-4",
+             "-entropy_rec", "0.01", "-entropy_sen", "0.01",
+             "-entropy_s", "0.08", "-use_binary", "-max_epoch", "30",
+             "-top_k_dev", "6", "-top_k_train", "6", "-wv_dim", "100",
+             "-log_interval", "100", "-log_dev", "200", "-save_after", "100",
+             "-save_interval", "200", "-exchange_samples", "3"]
 # Random weights stop every conversation after turn 0; this bias on the
 # stop unit makes them run 5-7 of the 10 turns, so the served answers
 # depend on the stop-mask chain.
@@ -188,6 +213,14 @@ def synthetic_set(per_class: int, seed: int):
 
 def descriptions() -> np.ndarray:
     return np.random.RandomState(7).randn(NUM_CLASSES, 100).astype(np.float32)
+
+
+def description_pack():
+    from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
+    desc = descriptions()
+    return DescriptionPack(desc, desc, [1] * NUM_CLASSES,
+                           {i: i for i in range(NUM_CLASSES)},
+                           {i: f"class{i}" for i in range(NUM_CLASSES)})
 
 
 def make_agents(cfg, device):
@@ -421,30 +454,25 @@ def train_game(device, workdir):
     opts = init_opt_states(cfg, mods)
     steps_per_epoch = train.size // TRAIN_BATCH
 
-    # The main path, counted alone.
+    # The bare trainer, counted alone.
     fused_train_forward.launches = 0
     t0 = time.perf_counter()
-    step0, rows = 0, []
-    for e0 in range(0, EPOCHS, CHUNK_EPOCHS):
-        plan = np.concatenate([train.epoch_indices(e, True, TRAIN_BATCH)
-                               for e in range(e0, e0 + CHUNK_EPOCHS)])
-        m = chunk(opts, train.feats, train.targets, plan, desc, step0)
-        step0 += len(plan)
-        rows.append(m)
-        log({"phase": "train", "steps": step0,
-             "epoch": e0 + CHUNK_EPOCHS,
-             "loss_rec": float(m.loss_rec.mean()),
-             "loss_sen": float(m.loss_sen.mean()),
-             "nll_loss": float(m.nll_loss.mean()),
-             "train_top6": float(m.accuracy.mean())})
+    plan = np.concatenate([train.epoch_indices(e, True, TRAIN_BATCH)
+                           for e in range(EPOCHS)])
+    m = chunk(opts, train.feats, train.targets, plan, desc, 0)
+    step0 = len(plan)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    log({"phase": "train", "steps": step0, "epoch": EPOCHS,
+         "loss_rec": float(m.loss_rec.mean()),
+         "loss_sen": float(m.loss_sen.mean()),
+         "nll_loss": float(m.nll_loss.mean()),
+         "train_top6": float(m.accuracy.mean())})
     launches = fused_train_forward.launches
     if launches != step0:
         raise SystemExit(f"expected {step0} train-kernel launches, counted "
                          f"{launches}")
-    every = torch.cat([torch.stack(list(m)) for m in rows], dim=1)
-    if not torch.isfinite(every).all():
+    if not torch.isfinite(torch.stack(list(m))).all():
         raise SystemExit("a training loss is not finite")
 
     fused_eval_exchange.launches = 0
@@ -454,8 +482,6 @@ def train_game(device, workdir):
          "steps_per_s": step0 / secs, "train_kernel_launches": launches,
          "dev_top1": top1, "dev_top6": top6, "chance_top6": 6 / NUM_CLASSES,
          "dev_eval_kernel_launches": fused_eval_exchange.launches})
-    if top6 < MIN_DEV_TOP6:
-        raise SystemExit(f"dev top-6 {top6} is below {MIN_DEV_TOP6}")
 
     ckpt = os.path.join(workdir, "trained.pt")
     save_reference_checkpoint(ckpt, {"step": step0}, mods)
@@ -475,7 +501,6 @@ def serve_requests(device, workdir):
     import torch
     from multimodalgame_tpu_torch.config import (finalize_flags, make_flags,
                                                  parse_args)
-    from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
         compare_outputs, fused_eval_exchange)
     from multimodalgame_tpu_torch.serve import Predictor
@@ -492,10 +517,7 @@ def serve_requests(device, workdir):
     flags = make_flags()
     parse_args(flags, argv)
     finalize_flags(flags, argv)
-    desc = descriptions()
-    pack = DescriptionPack(desc, desc, [1] * NUM_CLASSES,
-                           {i: i for i in range(NUM_CLASSES)},
-                           {i: f"class{i}" for i in range(NUM_CLASSES)})
+    pack = description_pack()
     pred = Predictor.from_checkpoint(flags, pack, device=device)
     plain = Predictor.from_checkpoint(flags, pack, device=device,
                                       use_kernel=False)
@@ -542,6 +564,152 @@ def serve_requests(device, workdir):
              "mean_conversation_length":
                  float(out["conversation_length"].mean())})
     return {"launches": launches, "tie_rows": ties, "pred": pred}
+
+
+def cadence_counts(flags, train_size: int, dev_size: int) -> dict:
+    """What the driver's cadences predict for a run from step 0: steps,
+    log windows, dev sweeps, periodic checkpoints, and the launches of
+    each kernel (one train launch a step; one eval launch for each log
+    window's dump and for each batch of each dev sweep)."""
+    steps = flags.max_epoch * (train_size // flags.batch_size)
+    logs = len(range(0, steps, flags.log_interval))
+    devs = len(range(0, steps, flags.log_dev))
+    saves = sum(1 for t in range(steps) if t >= flags.save_after
+                and t % flags.save_interval == 0)
+    dev_batches = -(-dev_size // flags.batch_size_dev)
+    return {"steps": steps, "log_windows": logs, "dev_sweeps": devs,
+            "checkpoints": saves,
+            "train_launches": steps,
+            "eval_launches": logs * (flags.exchange_samples > 0)
+            + devs * dev_batches}
+
+
+def drive(device, workdir, smi):
+    """The training main path through ``train.run`` with the demo's argv
+    and in-memory sets, then ``-eval_only`` on its best checkpoint."""
+    import ast
+    import re
+
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES,
+                                                      AgentModules)
+    from multimodalgame_tpu_torch.game.config import GameConfig
+    from multimodalgame_tpu_torch.game.train import init_opt_states
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.train import run
+    from multimodalgame_tpu_torch.utils.checkpoint import load_checkpoint
+    from multimodalgame_tpu_torch.utils.torch_interop import (
+        opt_states_to_torch, read_reference_checkpoint)
+
+    flags = flags_from_argv(DEMO_ARGV + ["-log_path", workdir])
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    dev = DeviceDataset(*synthetic_set(DEV_PER_CLASS, seed=2), device=device)
+    pack = description_pack()
+    inputs = (pack, pack, train, dev)
+    want = cadence_counts(flags, train.size, dev.size)
+
+    # The main path, counted alone.
+    fused_train_forward.launches = 0
+    fused_eval_exchange.launches = 0
+    t0 = time.perf_counter()
+    summary = run(flags, device=device, inputs=inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {"steps": summary["step"],
+           "train_launches": fused_train_forward.launches,
+           "eval_launches": fused_eval_exchange.launches}
+    with open(flags.log_file) as f:
+        text = f.read()
+    lines = re.split(r"^\d\d-\d\d-\d\d \d\d:\d\d:\d\d \[\d\] ", text,
+                     flags=re.M)
+    got["log_windows"] = sum("Training Accuracy: " in m for m in lines)
+    dev_lines = [m for m in lines if m.startswith("Epoch: ")
+                 and "Development Accuracy: " in m]
+    got["dev_sweeps"] = len(dev_lines)
+    got["checkpoints"] = sum(m.strip() == "Checkpointing." for m in lines)
+    losses = [float(v) for v in re.findall(r"Loss [^:]*: (\S+)", text)]
+    last_dev = float(dev_lines[-1].split(": ")[-1]) if dev_lines else 0.0
+    timing = ast.literal_eval(
+        text.split("Final step timing: ")[1].splitlines()[0])
+    row = {"phase": "driver", **got, "expected": want,
+           "finite_losses": len(losses), "last_dev_top6": last_dev,
+           "best_dev_acc": summary["best_dev_acc"], "seconds": secs,
+           "last_epoch_steps_per_s": timing["steps_per_sec"],
+           "last_epoch_timing": timing,
+           "card": smi}
+    log(row)
+    for k, v in got.items():
+        if v != want[k]:
+            raise SystemExit(f"driver: {k} {v}, the cadences give {want[k]}")
+    if not losses or not all(np.isfinite(losses)):
+        raise SystemExit("driver: a logged loss is not finite")
+    if last_dev < MIN_DEV_TOP6:
+        raise SystemExit(f"driver: dev top-6 {last_dev} is below "
+                         f"{MIN_DEV_TOP6}")
+
+    # Both checkpoints reload with their weights and optimizer slots.
+    cfg = GameConfig.from_flags(flags)
+    for path in (flags.checkpoint, flags.checkpoint + "_best"):
+        payload = read_reference_checkpoint(path)
+        mods = AgentModules(cfg).to(device)
+        opts = init_opt_states(cfg, mods)
+        data = load_checkpoint(path, mods, opts)
+        slots = opt_states_to_torch(mods, opts, cfg.optim_type,
+                                    data["step"])
+        for agent in AGENT_NAMES:
+            sd = getattr(mods, agent).state_dict()
+            ok = all(torch.equal(sd[k].cpu(), v)
+                     for k, v in payload["models"][agent].items())
+            st = payload["optimizers"][agent]["state"]
+            n_params = len(list(getattr(mods, agent).parameters()))
+            ok = ok and len(st) == n_params and all(
+                torch.equal(slots[agent]["state"][i][k], v)
+                for i, s in st.items() for k, v in s.items()
+                if isinstance(v, torch.Tensor))
+            if not ok:
+                raise SystemExit(f"{path}: {agent} did not reload")
+    best = read_reference_checkpoint(flags.checkpoint + "_best")["data"]
+    log({"phase": "driver", "checkpoints_reloaded": 2, "best": best})
+
+    # -eval_only on the best checkpoint, configured from the run's JSON.
+    eval_flags = flags_from_argv(["-log_load", flags.json_file,
+                                  "-eval_only", "-checkpoint",
+                                  flags.checkpoint + "_best"])
+    fused_eval_exchange.launches = 0
+    out = run(eval_flags, device=device, inputs=inputs)
+    with open(eval_flags.eval_csv_file) as f:
+        header, csv_row = f.read().splitlines()[:2]
+    fields = dict(zip(header.split(","), csv_row.split(",")))
+    log({"phase": "driver", "eval_only": fields,
+         "eval_kernel_launches": fused_eval_exchange.launches})
+    if (float(fields["best_dev_acc"]) != best["best_dev_acc"]
+            or out["dev_acc"] != best["best_dev_acc"]):
+        raise SystemExit(f"-eval_only gave {out['dev_acc']} on _best, "
+                         f"which recorded {best['best_dev_acc']}")
+    # Where the run's wall time went, as the run itself measured it:
+    # ``step_spans`` are the driver's timer spans (the steps, each log
+    # window's copy and each dev sweep; not the periodic checkpoints),
+    # and what lies outside them is set-up, checkpoints and log lines.
+    spent = summary["seconds"]
+    log({"phase": "driver", "seconds": secs,
+         "run_steps_per_s": want["steps"] / secs,
+         "spent_s": spent,
+         "outside_step_spans_s": secs - spent["step_spans"],
+         "share": {"step_spans": spent["step_spans"] / secs,
+                   "dev_sweeps": spent["dev_sweeps"] / secs,
+                   "checkpoints": spent["checkpoints"] / secs,
+                   "outside_step_spans":
+                       (secs - spent["step_spans"]) / secs},
+         "card": smi})
+    return {"train_launches": got["train_launches"],
+            "eval_launches": got["eval_launches"],
+            "last_epoch_steps_per_s": timing["steps_per_sec"],
+            "run_steps_per_s": want["steps"] / secs,
+            "last_dev_top6": last_dev}
 
 
 def work(cfg, batch: int, uniform_floats: int = 0):
@@ -860,11 +1028,17 @@ def train_timing(device, trained):
 def times_only() -> int:
     """``--times``: the probe, then at batch 64 on random canonical
     weights the times of both kernels (``ms``, ``device_ms`` and the host
-    time of the launch) and of ``Predictor.predict``; no result line. It builds nothing itself and
-    calls only entry points that every tree of the port has, so the same
-    script times an older tree of the port beside this one."""
+    time of the launch), of ``Predictor.predict`` and of one step of the
+    bare trainer; no result line. It builds nothing itself and calls only
+    entry points that every tree of the port with a training step has, so
+    the same script times an older tree of the port beside this one."""
     import torch
     from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    from multimodalgame_tpu_torch.game.agents import (AgentModules,
+                                                      init_params)
+    from multimodalgame_tpu_torch.game.train import (
+        init_opt_states, make_multistep_train_step_indexed)
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
         fused_eval_exchange, fused_train_forward, kernel_params)
     from multimodalgame_tpu_torch.serve import Predictor
@@ -893,6 +1067,26 @@ def times_only() -> int:
                "train_kernel_device_ms": device_median_ms(tr),
                "train_kernel_host_ms": host_launch_ms(tr)}
     row["predict_ms"] = host_median_ms(lambda: pred.predict(x))
+
+    mods = init_params(AgentModules(cfg), seed=0, device="cuda")
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device="cuda")
+    chunk = make_multistep_train_step_indexed(
+        mods, top_k=6, batch_denom=TRAIN_BATCH, fast="kernel", seed=0,
+        device="cuda")
+    opts = init_opt_states(cfg, mods)
+    plan = train.epoch_indices(0, True, TRAIN_BATCH)
+    done = [0]
+
+    def one_step():
+        i = done[0]
+        chunk(opts, train.feats, train.targets, plan[i % len(plan)][None],
+              desc, i)
+        done[0] += 1
+        torch.cuda.synchronize()
+
+    row["train_step_ms"] = host_median_ms(one_step)
+    row["steps_per_s"] = 1e3 / row["train_step_ms"]
     log(row)
     return 0
 
@@ -909,6 +1103,10 @@ def main() -> int:
             os.path.abspath(__file__))) as workdir:
         served = serve_requests("cuda", workdir)
         trained = train_game("cuda", workdir)
+        driven = drive("cuda", workdir, smi)
+    log({"phase": "driver", "run_steps_per_s": driven["run_steps_per_s"],
+         "last_epoch_steps_per_s": driven["last_epoch_steps_per_s"],
+         "bare_trainer_steps_per_s": trained["steps_per_s"], "card": smi})
     rows = timing("cuda", served["pred"])
     train_rows = train_timing("cuda", trained)
     at = rows[64]
@@ -925,6 +1123,8 @@ def main() -> int:
         "source": "multimodalgame_tpu_torch/csrc/fused_exchange.cu",
         "replaces": "multimodalgame_tpu/ops/pallas_exchange.py:265",
         "launches": served["launches"],
+        "launches_by_path": {"serve": served["launches"],
+                             "driver": driven["eval_launches"]},
         "max_abs_err": worst["max_abs_err"],
         "tie_rows": worst["tie_rows"],
         "batch": 64,
@@ -944,6 +1144,8 @@ def main() -> int:
         "source": "multimodalgame_tpu_torch/csrc/fused_exchange.cu",
         "replaces": "multimodalgame_tpu/ops/pallas_exchange.py:278",
         "launches": trained["launches"],
+        "launches_by_path": {"train": trained["launches"],
+                             "driver": driven["train_launches"]},
         "max_abs_err": worst_train["max_abs_err"],
         "tie_rows": worst_train["tie_rows"],
         "batch": TRAIN_BATCH,
@@ -957,7 +1159,8 @@ def main() -> int:
         "library_note": "no single PyTorch call computes this function",
         "steps_per_s": train_rows["step"]["steps_per_s"],
         "phase_a_share": train_rows["step"]["phase_a_share"],
-        "dev_top6": trained["top6"],
+        "driver_run_steps_per_s": driven["run_steps_per_s"],
+        "dev_top6": driven["last_dev_top6"],
         "card": smi,
         **kernel_registers(train=True),
         **layout,

@@ -30,6 +30,7 @@ class FlagDef:
     type: str  # "string" | "boolean" | "integer" | "float" | "enum"
     default: Any
     choices: Optional[List[str]] = None
+    help: str = ""
 
     def parse(self, raw: str) -> Any:
         if self.type == "string":
@@ -188,7 +189,144 @@ def _registry() -> Dict[str, FlagDef]:
     define("bit_flip", "boolean", False)
     define("corrupt_region", "string", None)
 
+    for name, text in _HELP.items():
+        defs[name].help = text
     return defs
+
+
+# One-line descriptions shown by ``--help`` (the reference's gflags
+# surface printed per-flag help).
+_HELP = {
+    "branch": "Git branch recorded in the flag dump for provenance.",
+    "sha": "Git commit recorded in the flag dump for provenance.",
+    "debug": "Arm debug checks: autograd anomaly detection and numpy "
+             "floating-point errors raised as exceptions.",
+    "save_after": "First step at which checkpoints (periodic and _best) "
+                  "may be written.",
+    "save_interval": "Write the periodic checkpoint every this many steps.",
+    "checkpoint": "Checkpoint path; training auto-resumes when the file "
+                  "exists. Default derived from log_path/experiment_name.",
+    "conf_mat": "Confusion-matrix CSV path written by dev evaluation.",
+    "log_path": "Directory for the log file and derived artifact paths.",
+    "log_file": "Training log file; default <log_path>/<experiment_name>.log.",
+    "eval_csv_file": "CSV written by -eval_only with the dev accuracy.",
+    "json_file": "Path of the flag-dump JSON written at startup.",
+    "log_load": "Load flag values from a previous run's JSON dump "
+                "(explicit CLI flags still override).",
+    "eval_only": "Evaluate the checkpoint on the dev set, write the eval "
+                 "CSV, and exit.",
+    "binary_only": "Extract exchanged binary messages to binary_output "
+                   "and exit.",
+    "binary_output": "bv.hdf5 output path for -binary_only.",
+    "cuda": "Accepted for reference CLI compatibility; the port runs on "
+            "the GPU unless its caller asks for the CPU.",
+    "fast_driver": "Chunked device-side training driver: dataset staged "
+                   "on the GPU, batches gathered there by index, one copy "
+                   "to the host per log window. -nofast_driver selects the "
+                   "per-batch host loop.",
+    "random_seed": "Master PRNG seed for parameter init and sampling "
+                   "streams.",
+    "ckpt_format": "Checkpoint format. The port writes the reference's "
+                   "single-file .pt (atomic rename) under msgpack, the "
+                   "default: it has no msgpack writer. orbax is not "
+                   "ported and raises.",
+    "compute_dtype": "Conversation compute precision; only float32 is "
+                     "ported (bfloat16 raises).",
+    "mesh": "Data-parallel mesh size; the port runs on one device "
+            "(0 or 1), larger values raise.",
+    "mesh_model": "Tensor-parallel axis size; not ported (values above "
+                  "1 raise).",
+    "coordinator": "Multi-host coordinator address host:port; "
+                   "multi-process runs are not ported.",
+    "num_processes": "Number of processes in a multi-host job; only 1 "
+                     "is ported.",
+    "process_id": "This process's index in a multi-host job (0-based; "
+                  "process 0 writes the shared artifacts).",
+    "population": "Member count for the JAX package's population sweep "
+                  "(not ported).",
+    "lr_scales": "Per-member learning-rate multipliers of the JAX "
+                 "package's population sweep (not ported).",
+    "env": "Visdom environment name.",
+    "visdom": "Enable live Visdom plotting.",
+    "use_alpha": "Dump messages as letter groups instead of 0/1 strings.",
+    "experiment_name": "Run name; stems every derived artifact path.",
+    "log_interval": "Steps between interval log windows.",
+    "log_dev": "Steps between dev evaluations.",
+    "wv_type": "Word-vector source for class descriptions: a GloVe file, "
+               "random fake vectors, or none (rejected — dead in the "
+               "reference).",
+    "wv_dim": "Word-vector dimensionality.",
+    "descr_train": "Class-description CSV (label_id,label,description) "
+                   "for training.",
+    "descr_dev": "Class-description CSV for dev evaluation.",
+    "train_file": "HDF5 feature file for training.",
+    "dev_file": "HDF5 feature file for dev evaluation.",
+    "images": "Image source: packaged mammal features (cifar is not "
+              "ported and raises).",
+    "glove_path": "GloVe text file scanned when wv_type=glove.6B.",
+    "shuffle_train": "Shuffle training batches each epoch (seed "
+                     "11+epoch). Ignored for CIFAR, which always "
+                     "shuffles.",
+    "shuffle_dev": "Shuffle dev batches.",
+    "model_type": "Preset configuration; overrides the preset-owned "
+                  "model/conversation flags.",
+    "img_feat": "Which packaged feature set feeds the sender.",
+    "data_context": "Feature set concatenated as extra attention context "
+                    "(attn_extra_context).",
+    "sender_mix": "How the sender mixes its image and message "
+                  "projections.",
+    "img_feat_dim": "Dimensionality of the selected image features.",
+    "img_h_dim": "Sender hidden size.",
+    "baseline_hid_dim": "Hidden size of the two value-baseline MLPs.",
+    "sender_out_dim": "Sender message width in bits (must equal "
+                      "rec_w_dim).",
+    "rec_hidden": "Receiver GRU hidden size.",
+    "rec_out_dim": "Per-class prediction head output width.",
+    "rec_w_dim": "Receiver query width in bits (must equal "
+                 "sender_out_dim).",
+    "rec_s_dim": "STOP-bit head width.",
+    "use_binary": "Sampled binary channel trained with REINFORCE; false "
+                  "= continuous messages, classification loss only.",
+    "ignore_receiver": "Zero the receiver's query each turn.",
+    "ignore_code": "Sender ignores the incoming query and reads only the "
+                   "image.",
+    "block_y": "Accepted for flag-surface parity; unused (the "
+               "reference's softmax detach is unconditional).",
+    "first_rec": "Fill value of the receiver's initial query message.",
+    "flipout_rec": "Training-time bit-flip probability on receiver "
+                   "messages.",
+    "flipout_sen": "Training-time bit-flip probability on sender "
+                   "messages.",
+    "flipout_dev": "Apply flipout corruption at dev evaluation too.",
+    "s_prob_prod": "Eval-mode STOP decision uses the cumulative product "
+                   "of per-turn stop probabilities.",
+    "visual_attn": "Sender attends over the 8x8 layer4_2 feature map.",
+    "attn_dim": "Visual-attention scoring dimensionality.",
+    "attn_extra_context": "Concatenate the data_context features into "
+                          "attention scoring.",
+    "attn_context_dim": "Dimensionality of the attention context "
+                        "features.",
+    "desc_attn": "Receiver attends over description words instead of "
+                 "using CBOW means.",
+    "desc_attn_dim": "Description-attention scoring dimensionality.",
+    "top_k_dev": "k for top-k dev accuracy.",
+    "top_k_train": "k for top-k training accuracy.",
+    "optim_type": "Optimizer applied to all four agents.",
+    "batch_size": "Training batch size.",
+    "batch_size_dev": "Dev-evaluation batch size.",
+    "learning_rate": "Learning rate for all four optimizers.",
+    "max_epoch": "Number of training epochs.",
+    "entropy_s": "Entropy-bonus weight on the STOP head (presets set "
+                 "this).",
+    "entropy_sen": "Entropy-bonus weight on sender messages.",
+    "entropy_rec": "Entropy-bonus weight on receiver messages.",
+    "exchange_samples": "Example conversations dumped per log window.",
+    "max_exchange": "Maximum exchange steps per conversation.",
+    "fixed_exchange": "Always run max_exchange steps (no adaptive STOP).",
+    "bit_flip": "Flip the corrupt_region sender-message bits at eval.",
+    "corrupt_region": "Bit-region spec like '0:3,5' for eval-time "
+                      "corruption.",
+}
 
 
 def make_flags() -> Flags:
@@ -196,9 +334,10 @@ def make_flags() -> Flags:
 
 
 def format_help(flags: Flags) -> str:
-    """The ``--help`` listing: every flag with its type and default."""
+    """The ``--help`` listing: every flag with its help text, type and
+    default."""
     out = [
-        "usage: python -m multimodalgame_tpu_torch.serve [flags]",
+        "usage: python -m multimodalgame_tpu_torch[.serve] [flags]",
         "",
         "Flag syntaxes (gflags-compatible): -flag value, --flag=value,",
         "-boolflag, -noboolflag.",
@@ -210,6 +349,8 @@ def format_help(flags: Flags) -> str:
         if d.type == "enum" and d.choices:
             head += " <" + "|".join(d.choices) + ">"
         out.append(head)
+        if d.help:
+            out.append(f"      {d.help}")
         out.append(f"      ({d.type}; default: {d.default!r})")
     return "\n".join(out)
 

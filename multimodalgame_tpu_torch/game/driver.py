@@ -1,0 +1,399 @@
+"""The chunked training driver: the main path of ``python -m
+multimodalgame_tpu_torch``.
+
+The port of ``multimodalgame_tpu/game/driver.py:run_fast``:
+
+* the training and dev sets are staged on the device once
+  (``data/device_dataset.py``); batches are gathered there by a
+  host-made ``(K, B)`` index plan;
+* steps between host-visible boundaries (the log, dev and checkpoint
+  cadences, reference model.py:1341-1584) run as chunks of
+  ``make_multistep_train_step_indexed``, split by the piece planner into
+  512-step pieces and one remainder, which bounds the distinct chunk
+  lengths a run uses; the randomness of step ``s`` is keyed by the
+  global step (Philox ``(seed, s)`` or the caller's ``uniforms(s)``), so
+  the partition cannot change the trajectory;
+* a log-boundary step runs alone with full metrics, plus one eval
+  conversation on the same batch for the "Eval:" dump; everything its
+  window prints is packed into one tensor (``game/logpack.py``) and
+  copied to the host once, with the accuracies of the steps since the
+  last copy, at the next host-visible event (the step-ordered event
+  queue keeps every line in the order and with the content of immediate
+  printing);
+* a dev sweep (``game/fast_eval.py``) and a checkpoint run at their
+  step, after the queued log windows print, so the best checkpoint holds
+  the parameters of its dev step.
+
+On a GPU every training step's phase A is one launch of the train-mode
+kernel (``fast="kernel"`` where ``ops/cuda_exchange.py:supports_config``
+holds) and every eval conversation one launch of the eval-mode kernel.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+from multimodalgame_tpu_torch.game.fast_eval import run_device_dev_eval
+from multimodalgame_tpu_torch.game.logpack import LogPacker
+from multimodalgame_tpu_torch.game.train import (
+    make_multistep_train_step_indexed, make_train_step_indexed)
+from multimodalgame_tpu_torch.ops.cuda_exchange import supports_config
+from multimodalgame_tpu_torch.utils.checkpoint import save_checkpoint
+from multimodalgame_tpu_torch.utils.profiling import StepTimer
+
+# Chunk sizes are drawn from this fixed set, so the number of distinct
+# chunk lengths is bounded by its length, not by the flag values.
+_POW2 = (512, 256, 128, 64, 32, 16, 8, 4, 2, 1)
+
+# A recurring sub-512 remainder runs as one exact-length piece from its
+# second occurrence on; its first occurrence decomposes into _POW2
+# pieces. The cap bounds the distinct exact lengths.
+_EXACT_CAP = 16
+
+
+def decompose_chunks(k: int) -> list:
+    """Greedy power-of-two decomposition of a chunk of ``k`` steps."""
+    out = []
+    for p in _POW2:
+        while k >= p:
+            out.append(p)
+            k -= p
+    return out
+
+
+def make_piece_planner(cap: int = _EXACT_CAP):
+    """Returns ``plan(k) -> [piece sizes]``: 512-step pieces plus one
+    remainder, exact-length once that length recurs (at most ``cap``
+    distinct exact lengths), else decomposed into _POW2 pieces."""
+    seen = set()
+    admitted = set()
+
+    def plan(k: int) -> list:
+        pieces = []
+        while k >= 512:
+            pieces.append(512)
+            k -= 512
+        if k:
+            if k in admitted or (k in seen and len(admitted) < cap):
+                admitted.add(k)
+                pieces.append(k)
+            else:
+                seen.add(k)
+                pieces.extend(decompose_chunks(k))
+        return pieces
+
+    return plan
+
+
+def resolve_mesh(flags) -> None:
+    """The port trains on one device: ``-mesh`` and ``-mesh_model`` above
+    1 raise."""
+    if int(flags.mesh or 0) not in (0, 1) or int(flags.mesh_model or 0) > 1:
+        raise NotImplementedError(
+            "-mesh/-mesh_model parallelism is not ported to PyTorch yet "
+            "(ROADMAP §1.10, scale-out)")
+
+
+def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
+             logger, eval_exchange: Callable, step: int = 0,
+             best_dev_acc: float = 0.0, max_steps: Optional[int] = None,
+             train_ds: Optional[DeviceDataset] = None,
+             dev_ds: Optional[DeviceDataset] = None,
+             uniforms: Optional[Callable] = None) -> dict:
+    """Train with the chunked schedule on the modules' device; returns
+    the summary dict of the per-batch loop in ``train.py`` plus
+    ``seconds``, the wall seconds of the run's step spans, dev sweeps and
+    checkpoint writes.
+
+    ``train_ds``/``dev_ds`` replace the sets read from ``-train_file`` /
+    ``-dev_file``, and ``uniforms`` (``step -> {s, z, w[, fz, fw]}``)
+    replaces the Philox stream; both are seams for callers that hold the
+    data in memory or replay another package's draws."""
+    resolve_mesh(flags)
+    cfg = modules.cfg
+    device = next(modules.parameters()).device
+    if train_ds is None:
+        train_ds = DeviceDataset.from_hdf5(flags.train_file, flags.img_feat,
+                                           map_labels=desc_train.map_labels,
+                                           device=device)
+    if dev_ds is None:
+        dev_ds = DeviceDataset.from_hdf5(flags.dev_file, flags.img_feat,
+                                         map_labels=desc_dev.map_labels,
+                                         device=device)
+    desc = torch.as_tensor(desc_train.desc, dtype=torch.float32,
+                           device=device)
+
+    fast = "kernel" if supports_config(cfg) else "auto"
+    trainer_kw = dict(fast=fast, seed=flags.random_seed + 1,
+                      uniforms=uniforms, device=device)
+    full_step = make_train_step_indexed(modules, flags.top_k_train,
+                                        flags.batch_size, **trainer_kw)
+    chunk_step = make_multistep_train_step_indexed(
+        modules, flags.top_k_train, flags.batch_size, **trainer_kw)
+    packer = LogPacker(cfg, flags.batch_size, flags.exchange_samples)
+
+    L = flags.log_interval
+    D = flags.log_dev
+
+    def is_log(t):
+        return t % L == 0
+
+    def is_dev(t):
+        return t % D == 0
+
+    def is_save(t):
+        return t >= flags.save_after and t % flags.save_interval == 0
+
+    plan_pieces = make_piece_planner()
+    batch_accuracy = []   # host floats, one per optimizer step, in order
+    pending_acc = []      # device accuracy tensors not yet copied
+    pending = []          # queued log windows, in step order
+    timer = StepTimer()
+    state = {"steps_timed": 0}
+    # Wall seconds of the run's parts, taken where they run: the timer's
+    # spans (each log window's copy and each dev sweep fall inside one,
+    # the periodic checkpoints do not), the dev sweeps and every
+    # checkpoint write.
+    spent = {"step_spans": 0.0, "dev_sweeps": 0.0, "checkpoints": 0.0}
+    done = False
+
+    def flush_acc(extra: Optional[torch.Tensor] = None):
+        """One device-to-host copy of the queued accuracies and, when
+        given, of ``extra`` (a log payload); returns ``extra``'s host
+        copy."""
+        if not pending_acc and extra is None:
+            return None
+        parts = [a.reshape(-1).float() for a in pending_acc]
+        n = sum(p.numel() for p in parts)
+        if extra is not None:
+            parts.append(extra)
+        host = torch.cat(parts).cpu().numpy()
+        batch_accuracy.extend(host[:n].astype(np.float64).tolist())
+        pending_acc.clear()
+        return host[n:] if extra is not None else None
+
+    def queued_acc_count():
+        return len(batch_accuracy) + sum(a.numel() for a in pending_acc)
+
+    def restart_timer():
+        """Close the running span after a host copy (the sync), then
+        reopen it."""
+        if state["steps_timed"]:
+            timer.stop(steps=state["steps_timed"])
+            state["steps_timed"] = 0
+            timer.start()
+
+    def flush_payload(ev):
+        """Copy and print one queued log window."""
+        from multimodalgame_tpu_torch.train import emit_log_window
+        payload, t, i_b, ep, tgt, acc_end = ev
+        host = packer.unpack(flush_acc(payload))
+        restart_timer()
+        host["target"] = tgt
+        window = batch_accuracy[max(0, acc_end - flags.log_interval):acc_end]
+        emit_log_window(flags, flogger, logger, ep, t, i_b,
+                        float(np.asarray(window).mean()), host)
+
+    def flush_events():
+        """Print the queued log windows in step order; called before any
+        new host-visible line."""
+        while pending:
+            flush_payload(pending.pop(0))
+
+    def run_dev(t, i_batch, epoch):
+        nonlocal best_dev_acc
+        t0 = time.perf_counter()
+        dev_acc, extra = run_device_dev_eval(flags, modules, eval_exchange,
+                                             desc_dev, dev_ds, epoch)
+        spent["dev_sweeps"] += time.perf_counter() - t0
+        restart_timer()   # the sweep's copy to the host was the sync
+        logger.log(key="Development Accuracy", val=dev_acc, step=t)
+        logger.log(key="Conversation Length (avg)",
+                   val=extra["conversation_lengths_mean"], step=t)
+        logger.log(key="Conversation Length (std)",
+                   val=extra["conversation_lengths_std"], step=t)
+        logger.log(key="Hamming Receiver (avg)",
+                   val=extra["hamming_rec_mean"], step=t)
+        logger.log(key="Hamming Sender (avg)",
+                   val=extra["hamming_sen_mean"], step=t)
+        flogger.Log("Epoch: {} Step: {} Batch: {} Development Accuracy: {}"
+                    .format(epoch, t, i_batch, dev_acc))
+        flogger.Log("Epoch: {} Step: {} Batch: {} Conversation Length "
+                    "(avg/std): {}/{}".format(
+                        epoch, t, i_batch,
+                        extra["conversation_lengths_mean"],
+                        extra["conversation_lengths_std"]))
+        flogger.Log("Epoch: {} Step: {} Batch: {} Mean Hamming Distance "
+                    "(R/S): {}/{}".format(
+                        epoch, t, i_batch, extra["hamming_rec_mean"],
+                        extra["hamming_sen_mean"]))
+        if t >= flags.save_after and dev_acc > best_dev_acc:
+            best_dev_acc = dev_acc
+            flogger.Log("Checkpointing with best Development "
+                        "Accuracy: {}".format(best_dev_acc))
+            t0 = time.perf_counter()
+            save_checkpoint(flags.checkpoint + "_best",
+                            dict(step=t, best_dev_acc=best_dev_acc),
+                            modules, opt_states)
+            spent["checkpoints"] += time.perf_counter() - t0
+
+    def run_save(t):
+        flush_acc()
+        if state["steps_timed"]:
+            timer.stop(steps=state["steps_timed"])
+            state["steps_timed"] = 0
+        else:
+            timer.cancel()
+        flogger.Log("Checkpointing.")
+        t0 = time.perf_counter()
+        save_checkpoint(flags.checkpoint,
+                        dict(step=t, best_dev_acc=best_dev_acc),
+                        modules, opt_states)
+        spent["checkpoints"] += time.perf_counter() - t0
+        timer.start()
+
+    # --- Cross-epoch batch stream ----------------------------------------
+    # Chunks end at host-visible cadences and max_steps only, not at epoch
+    # ends. The per-epoch shuffle plans (seed 11 + epoch) are buffered and
+    # consumed in order; a "Starting epoch" line prints when the stream
+    # first reaches that epoch's steps. Epochs count 0..max_epoch-1
+    # whatever the resumed step, as the reference's run() does
+    # (model.py:1190).
+    plan_buf = np.zeros((0, flags.batch_size), np.int64)
+    tag_epoch = np.zeros((0,), np.int64)   # epoch of each buffered row
+    tag_batch = np.zeros((0,), np.int64)   # i_batch within that epoch
+    next_epoch = 0        # next epoch to plan
+    started_epoch = -1    # highest epoch whose Starting line printed
+
+    def refill(need):
+        nonlocal plan_buf, tag_epoch, tag_batch, next_epoch
+        while plan_buf.shape[0] < need and next_epoch < flags.max_epoch:
+            plan = train_ds.epoch_indices(next_epoch, flags.shuffle_train,
+                                          flags.batch_size)
+            if plan.shape[0] == 0:
+                next_epoch = flags.max_epoch  # dataset < one batch
+                break
+            plan_buf = np.concatenate([plan_buf, plan], axis=0)
+            tag_epoch = np.concatenate(
+                [tag_epoch, np.full(plan.shape[0], next_epoch, np.int64)])
+            tag_batch = np.concatenate(
+                [tag_batch, np.arange(plan.shape[0], dtype=np.int64)])
+            next_epoch += 1
+
+    def consume(k):
+        nonlocal plan_buf, tag_epoch, tag_batch
+        rows, plan_buf = plan_buf[:k], plan_buf[k:]
+        eps, tag_epoch = tag_epoch[:k], tag_epoch[k:]
+        ibs, tag_batch = tag_batch[:k], tag_batch[k:]
+        return rows, eps, ibs
+
+    def enter_epochs(upto):
+        """Print the Starting-epoch (and the previous epoch's timing)
+        lines of every epoch the stream is about to enter, after the
+        queued log windows."""
+        nonlocal started_epoch
+        while started_epoch < upto:
+            started_epoch += 1
+            flush_events()
+            if started_epoch > 0 and timer.count:
+                flogger.Log("Epoch {} step timing: {}".format(
+                    started_epoch - 1, timer.summary()))
+                spent["step_spans"] += timer.seconds
+                timer.reset()
+            flogger.Log("Starting epoch: {}".format(started_epoch))
+            if not timer.running:
+                timer.start()
+
+    while not done:
+        t = step
+        if max_steps is not None and t >= max_steps:
+            break
+        refill(1)
+        if plan_buf.shape[0] == 0:
+            # Epochs exhausted. A dataset smaller than one batch trains no
+            # step, but every epoch's Starting line still prints, as in
+            # the per-batch loop.
+            enter_epochs(flags.max_epoch - 1)
+            break
+        if is_log(t):
+            rows, eps, ibs = consume(1)
+            row_np, ev_epoch, ev_batch = rows[0], int(eps[0]), int(ibs[0])
+            enter_epochs(ev_epoch)
+            # The previous window prints before this one is queued.
+            flush_events()
+            row = torch.as_tensor(row_np, device=device)
+            m = full_step(opt_states, train_ds.feats, train_ds.targets, row,
+                          desc, t)
+            ex_eval = None
+            if flags.exchange_samples > 0:
+                # The eval conversation on the same batch, for the
+                # inferred-conversation dump (model.py:1463-1465).
+                with torch.no_grad():
+                    ex_eval = eval_exchange(train_ds.feats[row], desc)
+            pending_acc.append(m.accuracy)
+            pending.append((packer.pack(m, ex_eval), t, ev_batch, ev_epoch,
+                            train_ds.targets_host[row_np],
+                            queued_acc_count()))
+            state["steps_timed"] += 1
+            did = 1
+        else:
+            # Every step up to (not including) the next log boundary, cut
+            # at the first dev or checkpoint step so that it runs at its
+            # step. Epoch ends do not cut chunks.
+            next_log = (t // L + 1) * L
+            limit = next_log - 1
+            if max_steps is not None:
+                limit = min(limit, max_steps - 1)
+            # First dev/save boundary in [t, limit], in closed form.
+            chunk_last = limit
+            nd = ((t + D - 1) // D) * D                    # is_dev
+            if nd <= limit:
+                chunk_last = nd
+            s0 = max(t, flags.save_after)                  # is_save
+            ns = ((s0 + flags.save_interval - 1)
+                  // flags.save_interval) * flags.save_interval
+            if ns <= limit:
+                chunk_last = min(chunk_last, ns)
+            k = chunk_last - t + 1
+            refill(k)
+            k = min(k, plan_buf.shape[0])
+            rows, eps, ibs = consume(k)
+            ev_epoch, ev_batch = int(eps[-1]), int(ibs[-1])
+            enter_epochs(ev_epoch)
+            off = 0
+            for size in plan_pieces(k):
+                sm = chunk_step(opt_states, train_ds.feats, train_ds.targets,
+                                rows[off:off + size], desc, t + off)
+                pending_acc.append(sm.accuracy)
+                off += size
+            state["steps_timed"] += k
+            did = k
+
+        t_done = t + did - 1
+        if is_dev(t_done):
+            flush_events()
+            run_dev(t_done, ev_batch, ev_epoch)
+        if is_save(t_done):
+            flush_events()
+            run_save(t_done)
+        step = t_done + 1
+        if max_steps is not None and step >= max_steps:
+            done = True
+
+    flush_events()
+    flush_acc()  # the final sync closes the trailing span
+    if state["steps_timed"]:
+        timer.stop(steps=state["steps_timed"])
+        state["steps_timed"] = 0
+    if timer.count:
+        flogger.Log("Final step timing: {}".format(timer.summary()))
+        spent["step_spans"] += timer.seconds
+        timer.reset()
+    return dict(step=step, best_dev_acc=best_dev_acc, modules=modules,
+                opt_states=opt_states, batch_accuracy=batch_accuracy,
+                metrics=logger.history, seconds=spent)

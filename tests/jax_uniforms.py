@@ -53,3 +53,26 @@ def jax_step_provider(cfg, base_key, batch, dtype=jnp.float32):
         return cache[step]
 
     return provider
+
+
+def jax_split_chain_provider(cfg, base_key, batch, spends_extra_key,
+                             dtype=jnp.float32):
+    """``step -> uniforms`` replaying the JAX per-batch loop's key chain
+    (train.py:446, 484, 529): each step draws from ``sub`` of ``key, sub =
+    split(key)``, and a step for which ``spends_extra_key(step)`` holds
+    (a log window with an eval dump) splits once more. Steps are drawn in
+    order from 0."""
+    state = {"key": base_key, "next": 0}
+    cache = {}
+
+    def provider(step):
+        while state["next"] <= step:
+            s = state["next"]
+            key, sub = jax.random.split(state["key"])
+            cache[s] = jax_uniforms(cfg, sub, batch, dtype=dtype)
+            if spends_extra_key(s):
+                key, _ = jax.random.split(key)
+            state["key"], state["next"] = key, s + 1
+        return cache[step]
+
+    return provider

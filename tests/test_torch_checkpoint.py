@@ -1,0 +1,219 @@
+"""The port's ``.pt`` checkpoints with optimizer state, against the JAX
+package's ``utils/torch_interop.py``, on the CPU.
+
+* The port's file, written after a few steps, read by JAX's
+  ``load_reference_checkpoint(path, params, opt_states, optim_type)``:
+  weights and RMSprop/Adam slots equal to the port's, bit for bit.
+* A file JAX wrote with its slots after three steps of its trainer,
+  resumed by the port's ``load_checkpoint``: the port's next three steps
+  (JAX's uniforms, float64) continue JAX's trajectory to ~1e-9.
+* JAX's own formats (a msgpack file, an Orbax directory) raise the clear
+  ``ValueError``; ``-ckpt_format orbax`` raises ``NotImplementedError``;
+  a failed write leaves the previous file whole.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodalgame_tpu.game.agents import AgentModules as JaxModules
+from multimodalgame_tpu.game.agents import init_params as jax_init_params
+from multimodalgame_tpu.game.config import GameConfig as JaxConfig
+from multimodalgame_tpu.game.train import (
+    init_opt_states as jax_init_opt_states)
+from multimodalgame_tpu.game.train import (
+    make_multistep_train_step_indexed as jax_multistep)
+from multimodalgame_tpu.utils import checkpoint as jax_checkpoint
+from multimodalgame_tpu.utils import torch_interop as jax_interop
+from multimodalgame_tpu_torch.config import make_flags, parse_args
+from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES, AgentModules,
+                                                  init_params)
+from multimodalgame_tpu_torch.game.config import GameConfig
+from multimodalgame_tpu_torch.game.train import (
+    init_opt_states, make_multistep_train_step_indexed)
+from multimodalgame_tpu_torch.train import check_supported
+from multimodalgame_tpu_torch.utils import torch_interop
+from multimodalgame_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                       save_checkpoint)
+from multimodalgame_tpu_torch.utils.torch_interop import (
+    params_to_torch_state)
+from tests.jax_uniforms import jax_step_provider
+
+BASE = dict(img_feat_dim=24, img_h_dim=12, sender_out_dim=10, rec_w_dim=10,
+            rec_hidden=14, wv_dim=16, max_exchange=4, baseline_hid_dim=12,
+            entropy_s=0.08, entropy_sen=0.01, entropy_rec=0.01,
+            learning_rate=1e-3, fixed_exchange=False)
+NUM_CLASSES, BATCH, TOP_K, N = 5, 6, 2, 20
+RTOL, ATOL = 1e-9, 1e-12
+DELTA_RTOL, DELTA_ATOL = 1e-8, 3e-11   # as tests/test_torch_train.py
+
+
+def _data(seed=5):
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(N, BASE["img_feat_dim"])
+    targets = rng.randint(0, NUM_CLASSES, N)
+    desc = rng.randn(NUM_CLASSES, BASE["wv_dim"])
+    idx = np.stack([np.sort(rng.permutation(N)[:BATCH]) for _ in range(6)])
+    return feats, targets, desc, idx
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def test_port_parameter_order_is_the_references():
+    """Optimizer slots are indexed by ``Module.parameters()`` position;
+    the port registers its parameters in the reference's order, the one
+    JAX's ``_torch_param_entries`` writes."""
+    cfg = BASE
+    jmods = JaxModules(JaxConfig(**cfg))
+    params = jax_init_params(jmods, jax.random.PRNGKey(0),
+                             num_classes=NUM_CLASSES)
+    mods = AgentModules(GameConfig(**cfg))
+    for agent in AGENT_NAMES:
+        want = [e[0] for e in jax_interop._torch_param_entries(
+            agent, params[agent])]
+        assert [n for n, _ in getattr(mods, agent).named_parameters()] == \
+            want, agent
+
+
+@pytest.mark.parametrize("optim", ["RMSprop", "Adam", "SGD"])
+def test_port_checkpoint_read_by_jax(tmp_path, optim):
+    cfg = GameConfig(**BASE, optim_type=optim)
+    mods = init_params(AgentModules(cfg), seed=2)
+    chunk = make_multistep_train_step_indexed(mods, TOP_K, BATCH,
+                                              fast="kernel", device="cpu")
+    opts = init_opt_states(cfg, mods)
+    feats, targets, desc, idx = _data()
+    chunk(opts, torch.tensor(feats, dtype=torch.float32),
+          torch.tensor(targets), idx[:2], torch.tensor(desc,
+                                                       dtype=torch.float32))
+    path = str(tmp_path / "port.pt")
+    save_checkpoint(path, {"step": 2, "best_dev_acc": 0.5}, mods, opts)
+
+    jmods = JaxModules(JaxConfig(**BASE, optim_type=optim))
+    template = jax_init_params(jmods, jax.random.PRNGKey(0),
+                               num_classes=NUM_CLASSES)
+    data, params, jopts = jax_interop.load_reference_checkpoint(
+        path, template, jax_init_opt_states(jmods.cfg, template), optim)
+    assert data == {"step": 2, "best_dev_acc": 0.5}
+    got = params_to_torch_state(_np_tree(params))
+    for agent in AGENT_NAMES:
+        for name, v in getattr(mods, agent).state_dict().items():
+            np.testing.assert_array_equal(got[agent][name], v.numpy())
+        # JAX's slots, written back in torch's layout, are the port's.
+        back = jax_interop.opt_state_to_torch(
+            agent, params[agent], jopts[agent], optim, step=2)["state"]
+        mine = torch_interop.opt_states_to_torch(
+            mods, opts, optim, 2)[agent]["state"]
+        assert back.keys() == mine.keys()
+        assert (len(mine) > 0) == (optim != "SGD")
+        for i, slots in mine.items():
+            assert back[i].keys() == slots.keys()
+            for k, v in slots.items():
+                np.testing.assert_array_equal(np.asarray(back[i][k]),
+                                              np.asarray(v), err_msg=k)
+    if optim == "Adam":
+        assert opts["sender"]["count"] == 2
+
+
+def _f64(tree):
+    return jax.tree_util.tree_map(
+        lambda x: jnp.asarray(x, jnp.float64)
+        if jnp.issubdtype(jnp.asarray(x).dtype, jnp.floating) else x, tree)
+
+
+@pytest.mark.parametrize("optim", ["RMSprop", "Adam"])
+def test_port_resumes_jax_checkpoint_on_jax_trajectory(tmp_path, optim):
+    kw = {**BASE, "optim_type": optim}
+    feats, targets, desc, idx = _data()
+    key = jax.random.PRNGKey(8)
+    path = str(tmp_path / "jax.pt")
+    with jax.enable_x64(True):
+        jmods = JaxModules(JaxConfig(**kw))
+        params = _f64(jax_init_params(jmods, jax.random.PRNGKey(1),
+                                      num_classes=NUM_CLASSES))
+        opts = jax_init_opt_states(jmods.cfg, params)
+        chunk = jax_multistep(jmods, top_k=TOP_K, batch_denom=BATCH,
+                              fast="auto")
+        args = (jnp.asarray(feats), jnp.asarray(targets))
+        params, opts, _ = chunk(params, opts, *args, jnp.asarray(idx[:3]),
+                                jnp.asarray(desc), key, step0=0)
+        params3 = _np_tree(params)
+        jax_interop.save_reference_checkpoint(
+            path, {"step": 3, "best_dev_acc": 0.0}, params3,
+            _np_tree(opts), optim)
+        params, opts, jm = chunk(params, opts, *args, jnp.asarray(idx[3:]),
+                                 jnp.asarray(desc), key, step0=3)
+        want_losses = np.asarray(jm.loss_rec), np.asarray(jm.loss_sen)
+        params6 = _np_tree(params)
+        provider = jax_step_provider(jmods.cfg, key, BATCH,
+                                     dtype=jnp.float64)
+        for s in range(3, 6):
+            provider(s)
+
+    mods = AgentModules(GameConfig(**kw)).double()
+    port_opts = init_opt_states(mods.cfg, mods)
+    assert load_checkpoint(path, mods, port_opts)["step"] == 3
+    if optim == "Adam":
+        assert port_opts["receiver"]["count"] == 3
+    port_chunk = make_multistep_train_step_indexed(
+        mods, TOP_K, BATCH, fast="kernel", uniforms=provider, device="cpu")
+    sm = port_chunk(port_opts, torch.from_numpy(feats),
+                    torch.from_numpy(targets), idx[3:],
+                    torch.from_numpy(desc), 3)
+    np.testing.assert_allclose(sm.loss_rec.numpy(), want_losses[0],
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(sm.loss_sen.numpy(), want_losses[1],
+                               rtol=RTOL, atol=ATOL)
+    want = params_to_torch_state(params6)
+    base = params_to_torch_state(params3)
+    for agent in AGENT_NAMES:
+        for name, p in getattr(mods, agent).named_parameters():
+            np.testing.assert_allclose(
+                p.detach().numpy() - base[agent][name],
+                want[agent][name] - base[agent][name], rtol=DELTA_RTOL,
+                atol=DELTA_ATOL, err_msg=f"{agent}.{name}")
+
+
+def test_jax_native_formats_raise_clearly(tmp_path):
+    kw = {**BASE}
+    jmods = JaxModules(JaxConfig(**kw))
+    params = jax_init_params(jmods, jax.random.PRNGKey(0),
+                             num_classes=NUM_CLASSES)
+    path = str(tmp_path / "native.msgpack")
+    jax_checkpoint.save_checkpoint(path, {"step": 1, "best_dev_acc": 0.0},
+                                   params,
+                                   jax_init_opt_states(jmods.cfg, params))
+    mods = AgentModules(GameConfig(**kw))
+    opts = init_opt_states(mods.cfg, mods)
+    for bad in (path, str(tmp_path)):          # msgpack file, a directory
+        with pytest.raises(ValueError, match="not a reference-layout"):
+            load_checkpoint(bad, mods, opts)
+    flags = make_flags()
+    parse_args(flags, ["-ckpt_format", "orbax"])
+    with pytest.raises(NotImplementedError, match="orbax"):
+        check_supported(flags)
+
+
+def test_failed_write_keeps_the_previous_file(tmp_path, monkeypatch):
+    mods = init_params(AgentModules(GameConfig(**BASE)), seed=3)
+    opts = init_opt_states(mods.cfg, mods)
+    path = str(tmp_path / "ckpt.pt")
+    save_checkpoint(path, {"step": 1, "best_dev_acc": 0.0}, mods, opts)
+
+    def broken_save(obj, f):
+        with open(f, "wb") as out:
+            out.write(b"partial")
+        raise OSError("disk full")
+
+    monkeypatch.setattr(torch_interop.torch, "save", broken_save)
+    with pytest.raises(OSError):
+        save_checkpoint(path, {"step": 2, "best_dev_acc": 0.0}, mods, opts)
+    monkeypatch.undo()
+    fresh = AgentModules(GameConfig(**BASE))
+    assert load_checkpoint(path, fresh, init_opt_states(fresh.cfg,
+                                                        fresh))["step"] == 1
+    assert torch.equal(fresh.sender.code_bias, mods.sender.code_bias)

@@ -1,0 +1,170 @@
+"""``python -m multimodalgame_tpu_torch`` against the JAX package's CLI, on
+the CPU (``cli.main(argv, device="cpu")``).
+
+* ``-eval_only`` (device sweep and ``-nofast_driver`` host loop) on the
+  same weights: the eval CSV's header and row, the conf-mat file and the
+  flag-dump JSON equal JAX's, the paths aside.
+* ``-binary_only``: the two datasets of ``bv.hdf5`` equal JAX
+  ``extract_binary``'s (ids, indices, ranks and bits exactly, the
+  probabilities and scores to 1e-5).
+* Bad flags fail as in the JAX CLI; without a GPU and without
+  ``device="cpu"`` the CLI raises; ``python -m`` reaches it.
+"""
+
+import os
+import subprocess
+import sys
+
+import h5py
+import jax
+import numpy as np
+import pytest
+import torch
+
+from multimodalgame_tpu import cli as jax_cli
+from multimodalgame_tpu.data.descriptions import (
+    load_descriptions as jax_load_descriptions)
+from multimodalgame_tpu.game.agents import AgentModules as JaxModules
+from multimodalgame_tpu.game.agents import init_params as jax_init_params
+from multimodalgame_tpu.game.config import GameConfig as JaxConfig
+from multimodalgame_tpu.game.train import (
+    init_opt_states as jax_init_opt_states)
+from multimodalgame_tpu.utils import checkpoint as jax_checkpoint
+from multimodalgame_tpu.utils import torch_interop as jax_interop
+from multimodalgame_tpu_torch import cli
+from tests.port_runs import jax_flags, small_argv
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _checkpoints(paths, argv, jax_path, port_path, stop_bias=1.5):
+    """One set of JAX weights, as JAX's msgpack file and as a reference
+    ``.pt``, both at step 3 with best dev accuracy 0.25. The stop bias
+    keeps conversations going past turn 0."""
+    jf = jax_flags(argv)
+    pack = jax_load_descriptions(paths["descr"], "glove.6B", 16,
+                                 glove_path=paths["glove"])
+    jmods = JaxModules(JaxConfig.from_flags(jf))
+    params = jax_init_params(jmods, jax.random.PRNGKey(4),
+                             num_classes=pack.num_classes)
+    params["receiver"]["s"]["bias"] = params["receiver"]["s"]["bias"] \
+        + stop_bias
+    opts = jax_init_opt_states(jmods.cfg, params)
+    data = {"step": 3, "best_dev_acc": 0.25}
+    jax_checkpoint.save_checkpoint(jax_path, data, params, opts)
+    jax_interop.save_reference_checkpoint(
+        port_path, data, jax.tree_util.tree_map(np.asarray, params),
+        jax.tree_util.tree_map(np.asarray, opts), jf.optim_type)
+
+
+def _both(paths, tmp_path, mode_argv):
+    """Run JAX's CLI and the port's on the same argv, each in a directory
+    of its own; returns the two directories."""
+    dirs = {k: tmp_path / k for k in ("jax", "port")}
+    argvs = {k: small_argv(paths, d, "cli",
+                           ["-checkpoint", str(d / "ckpt")] + mode_argv(d))
+             for k, d in dirs.items()}
+    os.makedirs(dirs["jax"], exist_ok=True)
+    os.makedirs(dirs["port"], exist_ok=True)
+    _checkpoints(paths, argvs["jax"], str(dirs["jax"] / "ckpt"),
+                 str(dirs["port"] / "ckpt"))
+    jax_cli.main(argvs["jax"])
+    cli.main(argvs["port"], device="cpu")
+    return dirs
+
+
+def _read(path, d):
+    with open(path) as f:
+        return f.read().replace(str(d), "<dir>")
+
+
+@pytest.mark.parametrize("extra", [[], ["-nofast_driver"]],
+                         ids=["device_sweep", "host_loop"])
+def test_eval_only_matches_jax(synthetic_dataset, tmp_path, extra):
+    dirs = _both(synthetic_dataset, tmp_path,
+                 lambda d: ["-eval_only"] + extra)
+    jd, pd = dirs["jax"], dirs["port"]
+    want = _read(jd / "cli.eval.csv", jd).splitlines()
+    got = _read(pd / "cli.eval.csv", pd).splitlines()
+    assert got[0] == want[0] == ("checkpoint,eval_file,topk,step,"
+                                 "best_dev_acc,eval_acc,convlen_mean,"
+                                 "convlen_std")
+    g, w = got[1].split(","), want[1].split(",")
+    assert g[:5] == w[:5]
+    assert g[3:5] == ["3", "0.25"]
+    np.testing.assert_allclose([float(x) for x in g[5:]],
+                               [float(x) for x in w[5:]], atol=1e-6)
+    assert float(w[6]) > 0.5          # conversations past turn 0
+    assert _read(pd / "cli.conf_mat.txt", pd) == \
+        _read(jd / "cli.conf_mat.txt", jd)
+    assert _read(pd / "cli.json", pd) == _read(jd / "cli.json", jd)
+
+
+def test_binary_only_matches_jax(synthetic_dataset, tmp_path):
+    # Batches of 4 hold one class each (4 dev examples a class, in class
+    # blocks), as the rank column requires.
+    dirs = _both(synthetic_dataset, tmp_path,
+                 lambda d: ["-binary_only", "-batch_size_dev", "4",
+                            "-binary_output", str(d / "bv.hdf5")])
+    exact = {"Communication": ("ExampleId", "AgentId", "Index", "Target",
+                               "Rank", "BinaryVec"),
+             "Predictions": ("ExampleId", "AgentId", "Index", "Target",
+                             "Rank", "StopVec", "StopMask")}
+    close = {"Communication": ("BinaryProb",),
+             "Predictions": ("Predictions", "StopProb")}
+    with h5py.File(dirs["jax"] / "bv.hdf5", "r") as jf, \
+            h5py.File(dirs["port"] / "bv.hdf5", "r") as pf:
+        assert set(pf) == set(jf) == set(exact)
+        for name in exact:
+            want, got = jf[name][()], pf[name][()]
+            assert got.dtype == want.dtype
+            assert len(got) == len(want) > 24
+            for field in exact[name]:
+                np.testing.assert_array_equal(got[field], want[field],
+                                              err_msg=field)
+            for field in close[name]:
+                np.testing.assert_allclose(got[field], want[field],
+                                           atol=1e-5, err_msg=field)
+
+
+@pytest.mark.parametrize("argv", [
+    ["-no_such_flag", "1"], ["-batch_size"], ["-optim_type", "Foo"],
+    ["-batch_size", "x"], ["-nofast_driver=true"], ["stray"],
+    ["-sender_out_dim", "8", "-rec_w_dim", "16"],
+    ["-exchange_samples", "40", "-batch_size", "8"]])
+def test_bad_flags_fail_as_in_jax(argv):
+    argv = ["-experiment_name", "bad"] + argv
+    with pytest.raises(Exception) as want:
+        jax_cli.main(argv)
+    with pytest.raises(Exception) as got:
+        cli.main(argv, device="cpu")
+    # Each package has its own FlagError (a ValueError).
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert type(got.value).__mro__[1:] == type(want.value).__mro__[1:]
+    assert str(got.value) == str(want.value)
+
+
+def test_cli_raises_without_a_gpu(synthetic_dataset, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = small_argv(synthetic_dataset, tmp_path, "nogpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    assert not os.path.exists(tmp_path / "nogpu.log")
+
+
+def test_python_m_reaches_the_cli(synthetic_dataset, tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    out = subprocess.run([sys.executable, "-m", "multimodalgame_tpu_torch",
+                          "-help"], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0
+    assert "usage: python -m multimodalgame_tpu_torch" in out.stdout
+    assert "has no msgpack writer" in out.stdout
+    out = subprocess.run(
+        [sys.executable, "-m", "multimodalgame_tpu_torch"]
+        + small_argv(synthetic_dataset, tmp_path, "sub"), cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr

@@ -217,7 +217,7 @@ def test_resolve_device_raises_without_gpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-_BANNED = ("jax", "flax", "optax", "multimodalgame_tpu")
+_BANNED = ("jax", "flax", "optax", "sklearn", "multimodalgame_tpu")
 
 
 def _banned(name: str) -> bool:
@@ -227,7 +227,7 @@ def _banned(name: str) -> bool:
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port, walked with ``ast``: no import of jax,
-    flax, optax, or the JAX package ``multimodalgame_tpu`` (exact name or
+    flax, optax, sklearn, or the JAX package ``multimodalgame_tpu`` (exact name or
     ``multimodalgame_tpu.*`` — the port's own name shares the prefix)."""
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "multimodalgame_tpu_torch").rglob("*.py"))
@@ -248,3 +248,4 @@ def test_port_imports_nothing_of_jax():
     assert "multimodalgame_tpu_torch.game.config" in seen
     assert not _banned("multimodalgame_tpu_torch.serve")
     assert _banned("multimodalgame_tpu.serve") and _banned("jax.numpy")
+    assert _banned("sklearn.metrics")
