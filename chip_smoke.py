@@ -60,7 +60,27 @@ result line):
              reload with equal weights and optimizer slots; an
              ``-eval_only`` run on _best (``-log_load`` of the run's JSON)
              must reproduce _best's ``best_dev_acc``;
-8. timing  — CUDA-event medians of both kernels and their plain
+8. driver_attention — ``train.run`` with ``-model_type AdaptiveAttention``
+             and the demo's other flags (benchmarks/adaptive_attention_run.py
+             :76-96 for the model, the demo's cadences) on in-memory
+             ``layer4_2`` maps and ``fc`` contexts made as data/synthetic.py
+             makes them (30 classes x 100 train and 20 dev), for 30 epochs =
+             1,380 steps: no launch of either kernel (``supports_config``
+             sends attention to the plain conversation), the cadences'
+             counts, finite losses, a last dev top-6 of at least 0.5, both
+             checkpoints reloaded with their attention entries and slots, and
+             ``-eval_only`` on _best reproducing its ``best_dev_acc``; the
+             run's steps/s and where its seconds went;
+9. serve_attention — ``Predictor`` on that _best with the ``fc`` context at
+             batches 1, 64 and 100, held on the card against the same
+             Predictor on the CPU (``compare_outputs``: bits equal but for
+             counted tie rows, class scores within 1e-4);
+10. variants — ``train.run`` for 2 epochs (92 steps) at the canonical
+             width with ``-desc_attn`` (word sets of 3-12 words),
+             ``-sender_mix mou``, ``-sender_mix mou -ignore_code`` and
+             ``-flipout_dev -flipout_sen 0.1 -flipout_rec 0.1``: finite
+             losses, the cadences' counts, no kernel launch;
+11. timing — CUDA-event medians of both kernels and their plain
              versions around the wrapper call (``ms``: the host's launch
              work included, as every earlier chip_smoke timed it) and, for
              the kernels, of the device's work alone (``device_ms``: the
@@ -72,7 +92,10 @@ result line):
              turn), the per-phase cycle split of both instances (stamped
              build), the latency floor; the train kernel in both random
              modes; the whole training step and its phase A at batch 64
-             (steps/s, and the share of the step that phase A takes).
+             (steps/s, and the share of the step that phase A takes) for
+             the Adaptive game (phase A in the train kernel) and for the
+             AdaptiveAttention game of phase 8 (phase A on the plain
+             conversation).
 
 ``python3 chip_smoke.py --times`` runs only the probe and the batch-64
 times of both kernels (both rulers) and of ``Predictor.predict``, through
@@ -130,6 +153,20 @@ DEMO_ARGV = ["-experiment_name", "demo", "-model_type", "Adaptive",
              "-top_k_dev", "6", "-top_k_train", "6", "-wv_dim", "100",
              "-log_interval", "100", "-log_dev", "200", "-save_after", "100",
              "-save_interval", "200", "-exchange_samples", "3"]
+# The attention presets' model (benchmarks/adaptive_attention_run.py:76-96)
+# at the demo's cadences: the demo's argv with the preset swapped.
+ATTENTION_ARGV = [("AdaptiveAttention" if a == "Adaptive" else a)
+                  for a in DEMO_ARGV]
+# Canonical-width variants trained for 2 epochs (92 steps) each.
+VARIANT_ARGV = {
+    "desc_attn": ["-desc_attn"],
+    "mou": ["-sender_mix", "mou"],
+    "mou_ignore_code": ["-sender_mix", "mou", "-ignore_code"],
+    "flipout_dev": ["-flipout_dev", "-flipout_sen", "0.1",
+                    "-flipout_rec", "0.1"],
+}
+VARIANT_EPOCHS = 2
+WORDS = (3, 12)             # words in a class's set, least and most
 # Random weights stop every conversation after turn 0; this bias on the
 # stop unit makes them run 5-7 of the 10 turns, so the served answers
 # depend on the stop-mask chain.
@@ -221,6 +258,40 @@ def description_pack():
     return DescriptionPack(desc, desc, [1] * NUM_CLASSES,
                            {i: i for i in range(NUM_CLASSES)},
                            {i: f"class{i}" for i in range(NUM_CLASSES)})
+
+
+def word_pack():
+    """Descriptions of 3-12 random words a class, each class's CBOW row
+    the mean of its words (data/descriptions.py's layout)."""
+    from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
+    rng = np.random.RandomState(8)
+    lens = rng.randint(WORDS[0], WORDS[1] + 1, size=NUM_CLASSES)
+    words = rng.randn(int(lens.sum()), 100).astype(np.float32)
+    ends = np.cumsum(lens)
+    desc = np.stack([words[e - n:e].mean(0) for n, e in zip(lens, ends)])
+    return DescriptionPack(desc, words, lens.tolist(),
+                           {i: i for i in range(NUM_CLASSES)},
+                           {i: f"class{i}" for i in range(NUM_CLASSES)})
+
+
+def attention_set(per_class: int, seed: int):
+    """``per_class`` examples of each class as data/synthetic.py:117-143
+    makes them: prototypes (pool, fc, map, drawn in that order from
+    ``RandomState(1234)``) plus 0.3 noise, the noise drawn in the order
+    avgpool, fc, map. Returns ``(maps (N, 512, 8, 8), fc (N, 1000),
+    labels (N,))``, float32."""
+    proto = np.random.RandomState(1234)
+    proto.randn(NUM_CLASSES, 512)                       # pool, unused
+    proto_fc = proto.randn(NUM_CLASSES, 1000).astype(np.float32)
+    proto_map = proto.randn(NUM_CLASSES, 512, 8, 8).astype(np.float32)
+    labels = np.repeat(np.arange(NUM_CLASSES), per_class)
+    rng = np.random.RandomState(seed)
+    rng.randn(len(labels), 512)                         # avgpool, unused
+    fc = proto_fc[labels] + np.float32(0.3) * rng.randn(
+        len(labels), 1000).astype(np.float32)
+    maps = proto_map[labels] + np.float32(0.3) * rng.randn(
+        len(labels), 512, 8, 8).astype(np.float32)
+    return maps, fc, labels
 
 
 def make_agents(cfg, device):
@@ -584,74 +655,65 @@ def cadence_counts(flags, train_size: int, dev_size: int) -> dict:
             + devs * dev_batches}
 
 
-def drive(device, workdir, smi):
-    """The training main path through ``train.run`` with the demo's argv
-    and in-memory sets, then ``-eval_only`` on its best checkpoint."""
-    import ast
-    import re
-
+def run_counted(flags, inputs, device):
+    """``train.run`` with both kernels' launch counts set to 0 just
+    before it; returns its summary, wall seconds and the counts read just
+    after it."""
     import torch
-    from multimodalgame_tpu_torch.config import flags_from_argv
-    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
-    from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES,
-                                                      AgentModules)
-    from multimodalgame_tpu_torch.game.config import GameConfig
-    from multimodalgame_tpu_torch.game.train import init_opt_states
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
         fused_eval_exchange, fused_train_forward)
     from multimodalgame_tpu_torch.train import run
-    from multimodalgame_tpu_torch.utils.checkpoint import load_checkpoint
-    from multimodalgame_tpu_torch.utils.torch_interop import (
-        opt_states_to_torch, read_reference_checkpoint)
-
-    flags = flags_from_argv(DEMO_ARGV + ["-log_path", workdir])
-    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
-                          device=device)
-    dev = DeviceDataset(*synthetic_set(DEV_PER_CLASS, seed=2), device=device)
-    pack = description_pack()
-    inputs = (pack, pack, train, dev)
-    want = cadence_counts(flags, train.size, dev.size)
-
-    # The main path, counted alone.
     fused_train_forward.launches = 0
     fused_eval_exchange.launches = 0
     t0 = time.perf_counter()
     summary = run(flags, device=device, inputs=inputs)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    got = {"steps": summary["step"],
-           "train_launches": fused_train_forward.launches,
-           "eval_launches": fused_eval_exchange.launches}
+    return summary, secs, {"train_launches": fused_train_forward.launches,
+                           "eval_launches": fused_eval_exchange.launches}
+
+
+def read_log(flags, summary):
+    """The run's counts as its log shows them, its logged losses, the
+    last dev accuracy and the "Final step timing" line."""
+    import ast
+    import re
     with open(flags.log_file) as f:
         text = f.read()
     lines = re.split(r"^\d\d-\d\d-\d\d \d\d:\d\d:\d\d \[\d\] ", text,
                      flags=re.M)
-    got["log_windows"] = sum("Training Accuracy: " in m for m in lines)
     dev_lines = [m for m in lines if m.startswith("Epoch: ")
                  and "Development Accuracy: " in m]
-    got["dev_sweeps"] = len(dev_lines)
-    got["checkpoints"] = sum(m.strip() == "Checkpointing." for m in lines)
+    got = {"steps": summary["step"],
+           "log_windows": sum("Training Accuracy: " in m for m in lines),
+           "dev_sweeps": len(dev_lines),
+           "checkpoints": sum(m.strip() == "Checkpointing." for m in lines)}
     losses = [float(v) for v in re.findall(r"Loss [^:]*: (\S+)", text)]
     last_dev = float(dev_lines[-1].split(": ")[-1]) if dev_lines else 0.0
     timing = ast.literal_eval(
         text.split("Final step timing: ")[1].splitlines()[0])
-    row = {"phase": "driver", **got, "expected": want,
-           "finite_losses": len(losses), "last_dev_top6": last_dev,
-           "best_dev_acc": summary["best_dev_acc"], "seconds": secs,
-           "last_epoch_steps_per_s": timing["steps_per_sec"],
-           "last_epoch_timing": timing,
-           "card": smi}
-    log(row)
+    return got, losses, last_dev, timing
+
+
+def check_counts(phase, got, want, losses):
     for k, v in got.items():
         if v != want[k]:
-            raise SystemExit(f"driver: {k} {v}, the cadences give {want[k]}")
+            raise SystemExit(f"{phase}: {k} {v}, expected {want[k]}")
     if not losses or not all(np.isfinite(losses)):
-        raise SystemExit("driver: a logged loss is not finite")
-    if last_dev < MIN_DEV_TOP6:
-        raise SystemExit(f"driver: dev top-6 {last_dev} is below "
-                         f"{MIN_DEV_TOP6}")
+        raise SystemExit(f"{phase}: a logged loss is not finite")
 
-    # Both checkpoints reload with their weights and optimizer slots.
+
+def check_reloads(phase, flags, device):
+    """The .pt and its _best reload with equal weights and optimizer
+    slots; returns _best's data."""
+    import torch
+    from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES,
+                                                      AgentModules)
+    from multimodalgame_tpu_torch.game.config import GameConfig
+    from multimodalgame_tpu_torch.game.train import init_opt_states
+    from multimodalgame_tpu_torch.utils.checkpoint import load_checkpoint
+    from multimodalgame_tpu_torch.utils.torch_interop import (
+        opt_states_to_torch, read_reference_checkpoint)
     cfg = GameConfig.from_flags(flags)
     for path in (flags.checkpoint, flags.checkpoint + "_best"):
         payload = read_reference_checkpoint(path)
@@ -671,32 +733,38 @@ def drive(device, workdir, smi):
                 for i, s in st.items() for k, v in s.items()
                 if isinstance(v, torch.Tensor))
             if not ok:
-                raise SystemExit(f"{path}: {agent} did not reload")
+                raise SystemExit(f"{phase}: {path}: {agent} did not reload")
     best = read_reference_checkpoint(flags.checkpoint + "_best")["data"]
-    log({"phase": "driver", "checkpoints_reloaded": 2, "best": best})
+    log({"phase": phase, "checkpoints_reloaded": 2, "best": best,
+         "sender_entries": sorted(payload["models"]["sender"])})
+    return best
 
-    # -eval_only on the best checkpoint, configured from the run's JSON.
+
+def check_eval_only(phase, flags, inputs, device, best):
+    """``-eval_only`` on _best, configured from the run's JSON, must
+    reproduce _best's ``best_dev_acc``."""
+    from multimodalgame_tpu_torch.config import flags_from_argv
     eval_flags = flags_from_argv(["-log_load", flags.json_file,
                                   "-eval_only", "-checkpoint",
                                   flags.checkpoint + "_best"])
-    fused_eval_exchange.launches = 0
-    out = run(eval_flags, device=device, inputs=inputs)
+    out, _, counts = run_counted(eval_flags, inputs, device)
     with open(eval_flags.eval_csv_file) as f:
         header, csv_row = f.read().splitlines()[:2]
     fields = dict(zip(header.split(","), csv_row.split(",")))
-    log({"phase": "driver", "eval_only": fields,
-         "eval_kernel_launches": fused_eval_exchange.launches})
+    log({"phase": phase, "eval_only": fields,
+         "eval_kernel_launches": counts["eval_launches"]})
     if (float(fields["best_dev_acc"]) != best["best_dev_acc"]
             or out["dev_acc"] != best["best_dev_acc"]):
-        raise SystemExit(f"-eval_only gave {out['dev_acc']} on _best, "
-                         f"which recorded {best['best_dev_acc']}")
-    # Where the run's wall time went, as the run itself measured it:
-    # ``step_spans`` are the driver's timer spans (the steps, each log
-    # window's copy and each dev sweep; not the periodic checkpoints),
-    # and what lies outside them is set-up, checkpoints and log lines.
-    spent = summary["seconds"]
-    log({"phase": "driver", "seconds": secs,
-         "run_steps_per_s": want["steps"] / secs,
+        raise SystemExit(f"{phase}: -eval_only gave {out['dev_acc']} on "
+                         f"_best, which recorded {best['best_dev_acc']}")
+
+
+def log_time_split(phase, steps, secs, spent, smi):
+    """Where the run's wall time went, as the run itself measured it:
+    ``step_spans`` are the driver's timer spans (the steps, each log
+    window's copy and each dev sweep; not the periodic checkpoints), and
+    what lies outside them is set-up, checkpoints and log lines."""
+    log({"phase": phase, "seconds": secs, "run_steps_per_s": steps / secs,
          "spent_s": spent,
          "outside_step_spans_s": secs - spent["step_spans"],
          "share": {"step_spans": spent["step_spans"] / secs,
@@ -705,11 +773,175 @@ def drive(device, workdir, smi):
                    "outside_step_spans":
                        (secs - spent["step_spans"]) / secs},
          "card": smi})
+
+
+def drive(device, workdir, smi):
+    """The training main path through ``train.run`` with the demo's argv
+    and in-memory sets, then ``-eval_only`` on its best checkpoint."""
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+
+    flags = flags_from_argv(DEMO_ARGV + ["-log_path", workdir])
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    dev = DeviceDataset(*synthetic_set(DEV_PER_CLASS, seed=2), device=device)
+    pack = description_pack()
+    inputs = (pack, pack, train, dev)
+    want = cadence_counts(flags, train.size, dev.size)
+
+    # The main path, counted alone.
+    summary, secs, counts = run_counted(flags, inputs, device)
+    got, losses, last_dev, timing = read_log(flags, summary)
+    got.update(counts)
+    log({"phase": "driver", **got, "expected": want,
+         "finite_losses": len(losses), "last_dev_top6": last_dev,
+         "best_dev_acc": summary["best_dev_acc"], "seconds": secs,
+         "last_epoch_steps_per_s": timing["steps_per_sec"],
+         "last_epoch_timing": timing, "card": smi})
+    check_counts("driver", got, want, losses)
+    if last_dev < MIN_DEV_TOP6:
+        raise SystemExit(f"driver: dev top-6 {last_dev} is below "
+                         f"{MIN_DEV_TOP6}")
+    best = check_reloads("driver", flags, device)
+    check_eval_only("driver", flags, inputs, device, best)
+    log_time_split("driver", want["steps"], secs, summary["seconds"], smi)
     return {"train_launches": got["train_launches"],
             "eval_launches": got["eval_launches"],
             "last_epoch_steps_per_s": timing["steps_per_sec"],
             "run_steps_per_s": want["steps"] / secs,
             "last_dev_top6": last_dev}
+
+
+def drive_attention(device, workdir, smi):
+    """AdaptiveAttention through ``train.run`` at full width on in-memory
+    ``layer4_2`` maps and ``fc`` contexts; neither kernel may launch."""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+
+    flags = flags_from_argv(ATTENTION_ARGV + [
+        "-log_path", os.path.join(workdir, "attention")])
+    t0 = time.perf_counter()
+    maps, fc, labels = attention_set(TRAIN_PER_CLASS, seed=1)
+    train = DeviceDataset(maps, labels, fc, device=device)
+    maps, fc, labels = attention_set(DEV_PER_CLASS, seed=2)
+    dev = DeviceDataset(maps, labels, fc, device=device)
+    del maps, fc
+    set_up = time.perf_counter() - t0
+    pack = description_pack()
+    inputs = (pack, pack, train, dev)
+    want = dict(cadence_counts(flags, train.size, dev.size),
+                train_launches=0, eval_launches=0)
+
+    summary, secs, counts = run_counted(flags, inputs, device)
+    got, losses, last_dev, timing = read_log(flags, summary)
+    got.update(counts)
+    log({"phase": "driver_attention", **got, "expected": want,
+         "feats": list(train.feats.shape), "context": list(
+             train.context.shape), "data_set_up_s": set_up,
+         "finite_losses": len(losses), "last_dev_top6": last_dev,
+         "best_dev_acc": summary["best_dev_acc"],
+         "dev_curve": summary["metrics"].get("Development Accuracy"),
+         "conversation_length_curve": summary["metrics"].get(
+             "Conversation Length (avg)"),
+         "seconds": secs, "last_epoch_steps_per_s": timing["steps_per_sec"],
+         "card": smi})
+    check_counts("driver_attention", got, want, losses)
+    if last_dev < MIN_DEV_TOP6:
+        raise SystemExit(f"driver_attention: dev top-6 {last_dev} is below "
+                         f"{MIN_DEV_TOP6}")
+    best = check_reloads("driver_attention", flags, device)
+    check_eval_only("driver_attention", flags, inputs, device, best)
+    log_time_split("driver_attention", want["steps"], secs,
+                   summary["seconds"], smi)
+    return {"flags": flags, "train": train, "dev": dev, "counts": counts,
+            "desc": torch.from_numpy(descriptions()).to(device),
+            "summary": summary, "run_steps_per_s": want["steps"] / secs,
+            "last_dev_top6": last_dev}
+
+
+def serve_attention(device, attention):
+    """The attention game's _best served on the card and on the CPU."""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        compare_outputs, fused_eval_exchange)
+    from multimodalgame_tpu_torch.serve import Predictor
+    flags = flags_from_argv(["-log_load", attention["flags"].json_file,
+                             "-checkpoint",
+                             attention["flags"].checkpoint + "_best"])
+    pack = description_pack()
+    pred = Predictor.from_checkpoint(flags, pack, device=device)
+    plain = Predictor.from_checkpoint(flags, pack, device="cpu")
+    dev = attention["dev"]
+    ties, worst, launches = 0, 0.0, 0
+    for batch in TIMED_BATCHES:
+        rows = torch.arange(batch, device=device) * (dev.size // batch)
+        x = dev.feats[rows].cpu().numpy()
+        ctx = dev.context[rows].cpu().numpy()
+        fused_eval_exchange.launches = 0
+        out = pred.predict(x, data_context=ctx)
+        torch.cuda.synchronize()
+        launches += fused_eval_exchange.launches
+        ref = plain.predict(x, data_context=ctx)
+        with torch.inference_mode():
+            got = pred._exchange(
+                torch.from_numpy(x).to(device), pred._desc,
+                data_context=torch.from_numpy(ctx).to(device))
+            want = plain._exchange(torch.from_numpy(x), plain._desc,
+                                   data_context=torch.from_numpy(ctx))
+        rep = compare_outputs(pred.cfg, got, want)
+        log({"phase": "serve_attention", "batch": batch,
+             "n_steps": out["n_steps"],
+             "equal_predictions": bool(np.array_equal(out["prediction"],
+                                                      ref["prediction"])),
+             "mean_conversation_length":
+                 float(out["conversation_length"].mean()),
+             "attn_scores": list(got.attn_scores.shape), **rep})
+        if not rep["ok"] or not np.isfinite(out["log_probs"]).all():
+            raise SystemExit(f"serve_attention: batch {batch} on the card "
+                             f"differs from the CPU: {rep}")
+        ties += rep["tie_rows"]
+        worst = max(worst, rep["max_abs_err"])
+    if launches:
+        raise SystemExit(f"serve_attention: {launches} kernel launches")
+    return {"launches": launches, "tie_rows": ties, "max_abs_err": worst}
+
+
+def drive_variants(device, workdir, smi):
+    """-desc_attn, mou, mou + ignore_code and -flipout_dev through
+    ``train.run`` for 2 epochs each at the canonical width."""
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    dev = DeviceDataset(*synthetic_set(DEV_PER_CLASS, seed=2), device=device)
+    totals = {"train_launches": 0, "eval_launches": 0}
+    rows = {}
+    for name, extra in VARIANT_ARGV.items():
+        flags = flags_from_argv(DEMO_ARGV + extra + [
+            "-max_epoch", str(VARIANT_EPOCHS), "-experiment_name", name,
+            "-log_path", os.path.join(workdir, "variants")])
+        pack = word_pack() if flags.desc_attn else description_pack()
+        want = dict(cadence_counts(flags, train.size, dev.size),
+                    train_launches=0, eval_launches=0)
+        summary, secs, counts = run_counted(flags, (pack, pack, train, dev),
+                                            device)
+        got, losses, last_dev, _ = read_log(flags, summary)
+        got.update(counts)
+        for k in totals:
+            totals[k] += counts[k]
+        rows[name] = {"steps_per_s": got["steps"] / secs,
+                      "last_dev_top6": last_dev}
+        log({"phase": "variants", "variant": name, **got, "expected": want,
+             "finite_losses": len(losses), "last_dev_top6": last_dev,
+             "seconds": secs, "steps_per_s": got["steps"] / secs,
+             "word_set_sizes": ([min(pack.desc_set_lens),
+                                 max(pack.desc_set_lens)]
+                                if flags.desc_attn else None),
+             "card": smi})
+        check_counts(f"variants {name}", got, want, losses)
+    return {**totals, "rows": rows}
 
 
 def work(cfg, batch: int, uniform_floats: int = 0):
@@ -988,15 +1220,24 @@ def train_timing(device, trained):
             total.backward()
         torch.cuda.synchronize()
 
+    row = step_breakdown(one_step, phase_a, forward)
+    row["train_kernel_ms"] = rows[TRAIN_BATCH]["kernel_ms"]
+    log(row)
+    rows["step"] = row
+    return rows
+
+
+def step_breakdown(one_step, phase_a, forward) -> dict:
+    """Host-clock medians of a training step, its phase A and its forward
+    pass without and with the backward pass (each ends in a
+    synchronize), then the device's kernels a step and busy share over a
+    few profiled steps (the profiler adds its own host overhead)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     step_ms = host_median_ms(one_step)
     a_ms = host_median_ms(phase_a)
     fwd_ms = host_median_ms(lambda: forward(False))
     fwd_bwd_ms = host_median_ms(lambda: forward(True))
-
-    # Device busy share and kernel count over a few steps (the profiler
-    # adds its own host overhead to the window).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     n_prof = 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1009,20 +1250,69 @@ def train_timing(device, trained):
     device_us = sum(e.self_device_time_total for e in device_events)
     launches = sum(e.count for e in device_events)
     top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:5]
-    row = {"phase": "timing", "batch": TRAIN_BATCH, "train_step_ms": step_ms,
-           "steps_per_s": 1e3 / step_ms, "phase_a_ms": a_ms,
-           "phase_a_share": a_ms / step_ms,
-           "forward_ms": fwd_ms, "backward_ms": fwd_bwd_ms - fwd_ms,
-           "optimizer_and_rest_ms": step_ms - fwd_bwd_ms,
-           "train_kernel_ms": rows[TRAIN_BATCH]["kernel_ms"],
-           "profiled_steps": n_prof,
-           "device_kernels_per_step": launches / n_prof,
-           "device_busy_share": (device_us / wall_us) if device_us else None,
-           "top_device_kernels_us_per_step": [
-               [e.key[:60], e.self_device_time_total / n_prof] for e in top]}
+    return {"phase": "timing", "batch": TRAIN_BATCH, "train_step_ms": step_ms,
+            "steps_per_s": 1e3 / step_ms, "phase_a_ms": a_ms,
+            "phase_a_share": a_ms / step_ms,
+            "forward_ms": fwd_ms, "backward_ms": fwd_bwd_ms - fwd_ms,
+            "optimizer_and_rest_ms": step_ms - fwd_bwd_ms,
+            "profiled_steps": n_prof,
+            "device_kernels_per_step": launches / n_prof,
+            "device_busy_share": (device_us / wall_us) if device_us else None,
+            "top_device_kernels_us_per_step": [
+                [e.key[:60], e.self_device_time_total / n_prof]
+                for e in top]}
+
+
+def attention_timing(device, attention):
+    """The AdaptiveAttention step at batch 64 on the trained agents:
+    phase A on the plain conversation (uniforms drawn by the host's
+    Philox, as the driver's steps draw them), the forward and backward
+    passes, and the device's share."""
+    import torch
+    from multimodalgame_tpu_torch.game.fast_train import (
+        compute_losses_fast, sample_conversation)
+    from multimodalgame_tpu_torch.game.train import (
+        make_multistep_train_step_indexed)
+    from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+    mods, opts = attention["summary"]["modules"], \
+        attention["summary"]["opt_states"]
+    train, desc = attention["train"], attention["desc"]
+    chunk = make_multistep_train_step_indexed(
+        mods, top_k=6, batch_denom=TRAIN_BATCH, seed=0, device=device)
+    plan = train.epoch_indices(0, True, TRAIN_BATCH)
+    counter = {"step": 0}
+
+    def one_step():
+        i = counter["step"]
+        chunk(opts, train.feats, train.targets, plan[i % len(plan)][None],
+              desc, i, feats_context=train.context)
+        counter["step"] += 1
+        torch.cuda.synchronize()
+
+    rows = torch.from_numpy(plan[0]).to(device)
+    data, ctx = train.feats[rows], train.context[rows]
+    target = train.targets[rows]
+
+    def phase_a():
+        sample_conversation(mods, data, desc, "plain", uniforms=(
+            philox_uniforms(mods.cfg, TRAIN_BATCH, 0, 1, device)),
+            data_context=ctx)
+        torch.cuda.synchronize()
+
+    def forward(backward: bool):
+        mods.zero_grad(set_to_none=True)
+        total, _ = compute_losses_fast(
+            mods, data, target, desc, 6, TRAIN_BATCH,
+            uniforms=philox_uniforms(mods.cfg, TRAIN_BATCH, 0, 1, device),
+            data_context=ctx)
+        if backward:
+            total.backward()
+        torch.cuda.synchronize()
+
+    row = step_breakdown(one_step, phase_a, forward)
+    row["config"] = "AdaptiveAttention"
     log(row)
-    rows["step"] = row
-    return rows
+    return row
 
 
 def times_only() -> int:
@@ -1104,11 +1394,21 @@ def main() -> int:
         served = serve_requests("cuda", workdir)
         trained = train_game("cuda", workdir)
         driven = drive("cuda", workdir, smi)
+        # The attention presets and the variants: neither kernel
+        # launches on them.
+        attention = drive_attention("cuda", workdir, smi)
+        served_attn = serve_attention("cuda", attention)
+        variants = drive_variants("cuda", workdir, smi)
+    log({"phase": "variants", "steps_per_s": {
+        "AdaptiveAttention": attention["run_steps_per_s"],
+        **{k: v["steps_per_s"] for k, v in variants["rows"].items()}},
+        "card": smi})
     log({"phase": "driver", "run_steps_per_s": driven["run_steps_per_s"],
          "last_epoch_steps_per_s": driven["last_epoch_steps_per_s"],
          "bare_trainer_steps_per_s": trained["steps_per_s"], "card": smi})
     rows = timing("cuda", served["pred"])
     train_rows = train_timing("cuda", trained)
+    attention_row = attention_timing("cuda", attention)
     at = rows[64]
     tat = train_rows[TRAIN_BATCH]
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
@@ -1123,8 +1423,11 @@ def main() -> int:
         "source": "multimodalgame_tpu_torch/csrc/fused_exchange.cu",
         "replaces": "multimodalgame_tpu/ops/pallas_exchange.py:265",
         "launches": served["launches"],
-        "launches_by_path": {"serve": served["launches"],
-                             "driver": driven["eval_launches"]},
+        "launches_by_path": {
+            "serve": served["launches"], "driver": driven["eval_launches"],
+            "driver_attention": attention["counts"]["eval_launches"],
+            "serve_attention": served_attn["launches"],
+            "variants": variants["eval_launches"]},
         "max_abs_err": worst["max_abs_err"],
         "tie_rows": worst["tie_rows"],
         "batch": 64,
@@ -1144,8 +1447,10 @@ def main() -> int:
         "source": "multimodalgame_tpu_torch/csrc/fused_exchange.cu",
         "replaces": "multimodalgame_tpu/ops/pallas_exchange.py:278",
         "launches": trained["launches"],
-        "launches_by_path": {"train": trained["launches"],
-                             "driver": driven["train_launches"]},
+        "launches_by_path": {
+            "train": trained["launches"], "driver": driven["train_launches"],
+            "driver_attention": attention["counts"]["train_launches"],
+            "variants": variants["train_launches"]},
         "max_abs_err": worst_train["max_abs_err"],
         "tie_rows": worst_train["tie_rows"],
         "batch": TRAIN_BATCH,
@@ -1161,6 +1466,9 @@ def main() -> int:
         "phase_a_share": train_rows["step"]["phase_a_share"],
         "driver_run_steps_per_s": driven["run_steps_per_s"],
         "dev_top6": driven["last_dev_top6"],
+        "attention_run_steps_per_s": attention["run_steps_per_s"],
+        "attention_step_steps_per_s": attention_row["steps_per_s"],
+        "attention_dev_top6": attention["last_dev_top6"],
         "card": smi,
         **kernel_registers(train=True),
         **layout,

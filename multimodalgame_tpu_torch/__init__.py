@@ -10,16 +10,18 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise
 (:func:`multimodalgame_tpu_torch.utils.device.resolve_device`).
 
-Covered so far, for the non-attention game: ``python -m
+Covered so far, for every preset (the attention ones included),
+``-desc_attn``, the ``mou`` mix and ``-flipout_dev``: ``python -m
 multimodalgame_tpu_torch`` (``cli.py``, ``train.py``: the training
 driver ``game/driver.py``, dev evaluation ``game/fast_eval.py`` and
 ``eval.py``, extraction ``extract.py``, checkpoints with optimizer state
 ``utils/checkpoint.py``), serving (``serve.py``) and the training steps
-(``game/train.py``, ``game/fast_train.py``). The whole conversation runs
-in one hand-written CUDA kernel (``ops/cuda_exchange.py``,
-``csrc/fused_exchange.cu``): rounded in eval mode, sampled
+(``game/train.py``, ``game/fast_train.py``). For the configs the JAX
+kernel covers (``ops/cuda_exchange.py:supports_config``) the whole
+conversation runs in one hand-written CUDA kernel
+(``csrc/fused_exchange.cu``): rounded in eval mode, sampled
 (Philox4x32-10, ``ops/philox.py``) in train mode, where it is phase A of
-every ``fast="kernel"`` step.
+every ``fast="kernel"`` step. The others run it in plain PyTorch.
 """
 
 __version__ = "0.1.0"

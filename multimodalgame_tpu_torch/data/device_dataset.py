@@ -35,9 +35,12 @@ class DeviceDataset:
     """Features and mapped labels on one device.
 
     Attributes:
-        feats: ``(N, ...)`` float32 tensor of the image features.
+        feats: ``(N, ...)`` float32 tensor of the image features:
+            ``(N, F)`` vectors, or ``(N, C, H, W)`` maps (``layer4_2``)
+            for visual attention.
         context: optional ``(N, C)`` float32 tensor of the attention
-            context features, else ``None``.
+            context features (``fc``), gathered with ``feats`` by the
+            same indices, else ``None``.
         targets: ``(N,)`` int64 tensor of mapped labels.
         targets_host: int32 numpy copy of ``targets`` (the log's
             "Predictions" line reads it without a device read).

@@ -14,7 +14,10 @@ Reproduced quirk (SURVEY §2#7): the accuracy denominator adds the
 *configured* batch size even for a truncated final batch (model.py:667).
 
 ``-eval_only -nofast_driver`` uses this path; ``game/fast_eval.py`` is the
-driver's sweep over the staged dev set, with the same numbers.
+driver's sweep over the staged dev set, with the same numbers: the same
+``-flipout_dev`` draws too (Philox keyed by ``(random_seed + 1, step)``,
+slot ``1 + i`` for batch ``i``). The attention context is read from the
+file's ``-data_context`` column under ``attn_extra_context``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 
 from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
 from multimodalgame_tpu_torch.data.hdf5_loader import load_hdf5
+from multimodalgame_tpu_torch.game.exchange import description_inputs
 from multimodalgame_tpu_torch.game.masks import build_mask
+from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 
 
 def confusion_matrix(true_labels: np.ndarray,
@@ -73,16 +78,25 @@ def sliced_masks(stop_masks: np.ndarray, n: int) -> list:
     return masks
 
 
+def context_of(flags, batch: Dict[str, np.ndarray], device
+               ) -> Optional[torch.Tensor]:
+    """A batch's attention context (its ``-data_context`` column) under
+    ``attn_extra_context``, else ``None``."""
+    if not flags.attn_extra_context:
+        return None
+    return torch.as_tensor(batch[flags.data_context], device=device)
+
+
 def eval_dev(flags, modules, eval_exchange: Callable, dev_file: str,
              batch_size: int, epoch: int, shuffle: bool, top_k: int,
-             desc_pack: DescriptionPack
+             desc_pack: DescriptionPack, step: int = 0
              ) -> Tuple[float, Dict[str, float]]:
     """Development accuracy and conversation statistics over the HDF5
-    file ``dev_file``, on the modules' device."""
+    file ``dev_file``, on the modules' device; ``step`` keys the
+    ``-flipout_dev`` draws."""
     cfg = modules.cfg
     device = next(modules.parameters()).device
-    desc = torch.as_tensor(desc_pack.desc, dtype=torch.float32,
-                           device=device)
+    descs = description_inputs(desc_pack, cfg, device)
     corrupt = corrupt_mask_for(flags, cfg, device)
 
     extra: Dict[str, float] = {}
@@ -98,13 +112,20 @@ def eval_dev(flags, modules, eval_exchange: Callable, dev_file: str,
                            truncate_final_batch=True,
                            map_labels=desc_pack.map_labels)
 
-    for batch in dev_loader:
+    for i, batch in enumerate(dev_loader):
         target = np.asarray(batch["target"])
         data = torch.as_tensor(batch[flags.img_feat], device=device)
         true_labels.append(target.reshape(-1))
 
         with torch.no_grad():
-            ex = eval_exchange(data, desc, corrupt)
+            ex = eval_exchange(
+                data, descs["desc"], corrupt,
+                data_context=context_of(flags, batch, device),
+                desc_set_padded=descs["desc_set_padded"],
+                desc_set_mask=descs["desc_set_mask"],
+                uniforms=philox_eval_uniforms(
+                    cfg, len(target), flags.random_seed + 1, step, 1 + i,
+                    device))
         ex = type(ex)(*(None if v is None else v.cpu().numpy()
                         for v in ex))
         n = int(ex.n_steps)

@@ -28,7 +28,9 @@ import torch
 
 from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
 from multimodalgame_tpu_torch.data.hdf5_loader import load_hdf5
-from multimodalgame_tpu_torch.eval import sliced_masks
+from multimodalgame_tpu_torch.eval import context_of, sliced_masks
+from multimodalgame_tpu_torch.game.exchange import description_inputs
+from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 
 
 def reference_rank(np_preds: np.ndarray, single_target: int) -> np.ndarray:
@@ -43,9 +45,10 @@ def reference_rank(np_preds: np.ndarray, single_target: int) -> np.ndarray:
 
 def extract_binary(flags, modules, eval_exchange: Callable, dev_file: str,
                    batch_size: int, epoch: int, shuffle: bool,
-                   desc_pack: DescriptionPack) -> str:
+                   desc_pack: DescriptionPack, step: int = 0) -> str:
     """Write the conversation record of the dev set to
-    ``flags.binary_output``, on the modules' device. Returns the path."""
+    ``flags.binary_output``, on the modules' device; ``step`` keys the
+    ``-flipout_dev`` draws as in ``eval.py``. Returns the path."""
     import h5py
 
     cfg = modules.cfg
@@ -53,8 +56,7 @@ def extract_binary(flags, modules, eval_exchange: Callable, dev_file: str,
     output_path = flags.binary_output
     num_desc = desc_pack.num_classes
     device = next(modules.parameters()).device
-    desc = torch.as_tensor(desc_pack.desc, dtype=torch.float32,
-                           device=device)
+    descs = description_inputs(desc_pack, cfg, device)
 
     # Fixed-width byte strings ("S50"/"S1"), what the reference's py2
     # ``np.str_`` compound dtype wrote (binary_vectors.py:24-30).
@@ -89,9 +91,9 @@ def extract_binary(flags, modules, eval_exchange: Callable, dev_file: str,
         predictions = bin_vec_file.create_dataset(
             "Predictions", (0,), maxshape=(None,), dtype=preds_format)
 
-        for batch in load_hdf5(dev_file, batch_size, epoch, shuffle,
-                               truncate_final_batch=True,
-                               map_labels=desc_pack.map_labels):
+        for i, batch in enumerate(load_hdf5(
+                dev_file, batch_size, epoch, shuffle,
+                truncate_final_batch=True, map_labels=desc_pack.map_labels)):
             target = np.asarray(batch["target"])
             data = torch.as_tensor(batch[flags.img_feat], device=device)
             example_ids = [
@@ -104,7 +106,14 @@ def extract_binary(flags, modules, eval_exchange: Callable, dev_file: str,
             # the record is the clean-channel conversation even under
             # -bit_flip.
             with torch.no_grad():
-                ex = eval_exchange(data, desc)
+                ex = eval_exchange(
+                    data, descs["desc"],
+                    data_context=context_of(flags, batch, device),
+                    desc_set_padded=descs["desc_set_padded"],
+                    desc_set_mask=descs["desc_set_mask"],
+                    uniforms=philox_eval_uniforms(
+                        cfg, bsz, flags.random_seed + 1, step, 1 + i,
+                        device))
             ex = type(ex)(*(None if v is None else v.cpu().numpy()
                             for v in ex))
             n = int(ex.n_steps)

@@ -32,6 +32,9 @@ class AgentModules(nn.Module):
             w_dim=cfg.rec_w_dim,
             bin_dim_out=cfg.sender_out_dim,
             use_attn=cfg.visual_attn,
+            attn_dim=cfg.attn_dim,
+            attn_extra_context=cfg.attn_extra_context,
+            attn_context_dim=cfg.attn_context_dim,
             sender_mix=cfg.sender_mix,
             ignore_code=cfg.ignore_code)
         self.receiver = Receiver(
@@ -41,7 +44,8 @@ class AgentModules(nn.Module):
             out_dim=cfg.rec_out_dim,
             w_dim=cfg.rec_w_dim,
             s_dim=cfg.rec_s_dim,
-            desc_attn=cfg.desc_attn)
+            desc_attn=cfg.desc_attn,
+            desc_attn_dim=cfg.desc_attn_dim)
         # Sender baseline sees (h_x, z_r); Receiver baseline (z_s, h_z)
         # (model.py:1031-1034, 1056-1059).
         self.baseline_sen = Baseline(

@@ -27,6 +27,13 @@ The port of ``multimodalgame_tpu/game/driver.py:run_fast``:
 On a GPU every training step's phase A is one launch of the train-mode
 kernel (``fast="kernel"`` where ``ops/cuda_exchange.py:supports_config``
 holds) and every eval conversation one launch of the eval-mode kernel.
+The configs it rejects (attention, ``mou``, ``-flipout_dev`` with flipout)
+run both on the plain conversation. Under ``attn_extra_context`` the sets
+stage the ``-data_context`` column beside the features, and under
+description attention the packs' padded word sets go to every step.
+Under ``-flipout_dev`` a log window's eval dump draws its flips from
+Philox keyed by ``(random_seed + 1, step)`` and ``EVAL_DUMP_SLOT``, a dev
+sweep from the same key and one slot a batch.
 """
 
 from __future__ import annotations
@@ -38,11 +45,14 @@ import numpy as np
 import torch
 
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+from multimodalgame_tpu_torch.game.exchange import description_inputs
 from multimodalgame_tpu_torch.game.fast_eval import run_device_dev_eval
 from multimodalgame_tpu_torch.game.logpack import LogPacker
 from multimodalgame_tpu_torch.game.train import (
     make_multistep_train_step_indexed, make_train_step_indexed)
 from multimodalgame_tpu_torch.ops.cuda_exchange import supports_config
+from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
+                                                 philox_eval_uniforms)
 from multimodalgame_tpu_torch.utils.checkpoint import save_checkpoint
 from multimodalgame_tpu_torch.utils.profiling import StepTimer
 
@@ -117,19 +127,22 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     resolve_mesh(flags)
     cfg = modules.cfg
     device = next(modules.parameters()).device
+    ctx_key = flags.data_context if flags.attn_extra_context else None
     if train_ds is None:
         train_ds = DeviceDataset.from_hdf5(flags.train_file, flags.img_feat,
                                            map_labels=desc_train.map_labels,
+                                           context_key=ctx_key,
                                            device=device)
     if dev_ds is None:
         dev_ds = DeviceDataset.from_hdf5(flags.dev_file, flags.img_feat,
                                          map_labels=desc_dev.map_labels,
-                                         device=device)
-    desc = torch.as_tensor(desc_train.desc, dtype=torch.float32,
-                           device=device)
+                                         context_key=ctx_key, device=device)
+    descs = description_inputs(desc_train, cfg, device)
+    desc = descs.pop("desc")
+    seed = flags.random_seed + 1
 
     fast = "kernel" if supports_config(cfg) else "auto"
-    trainer_kw = dict(fast=fast, seed=flags.random_seed + 1,
+    trainer_kw = dict(fast=fast, seed=seed,
                       uniforms=uniforms, device=device)
     full_step = make_train_step_indexed(modules, flags.top_k_train,
                                         flags.batch_size, **trainer_kw)
@@ -209,7 +222,7 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         nonlocal best_dev_acc
         t0 = time.perf_counter()
         dev_acc, extra = run_device_dev_eval(flags, modules, eval_exchange,
-                                             desc_dev, dev_ds, epoch)
+                                             desc_dev, dev_ds, epoch, step=t)
         spent["dev_sweeps"] += time.perf_counter() - t0
         restart_timer()   # the sweep's copy to the host was the sync
         logger.log(key="Development Accuracy", val=dev_acc, step=t)
@@ -328,13 +341,19 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
             flush_events()
             row = torch.as_tensor(row_np, device=device)
             m = full_step(opt_states, train_ds.feats, train_ds.targets, row,
-                          desc, t)
+                          desc, t, feats_context=train_ds.context, **descs)
             ex_eval = None
             if flags.exchange_samples > 0:
                 # The eval conversation on the same batch, for the
                 # inferred-conversation dump (model.py:1463-1465).
                 with torch.no_grad():
-                    ex_eval = eval_exchange(train_ds.feats[row], desc)
+                    ex_eval = eval_exchange(
+                        train_ds.feats[row], desc,
+                        data_context=(None if train_ds.context is None
+                                      else train_ds.context[row]),
+                        uniforms=philox_eval_uniforms(
+                            cfg, len(row_np), seed, t, EVAL_DUMP_SLOT,
+                            device), **descs)
             pending_acc.append(m.accuracy)
             pending.append((packer.pack(m, ex_eval), t, ev_batch, ev_epoch,
                             train_ds.targets_host[row_np],
@@ -368,7 +387,8 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
             off = 0
             for size in plan_pieces(k):
                 sm = chunk_step(opt_states, train_ds.feats, train_ds.targets,
-                                rows[off:off + size], desc, t + off)
+                                rows[off:off + size], desc, t + off,
+                                feats_context=train_ds.context, **descs)
                 pending_acc.append(sm.accuracy)
                 off += size
             state["steps_timed"] += k

@@ -15,7 +15,9 @@ would have run.
   ``w`` and, with flipout, ``fz`` and ``fw``, each ``(T, B, dim)``.
 
 Every channel crossing is detached (model.py:807-811, 826-829, 836, 843),
-so the four agents' autograd graphs stay apart.
+so the four agents' autograd graphs stay apart. Under visual attention the
+Sender's ``h_x`` changes every turn, and the Sender baseline reads that
+turn's ``h_x`` (JAX exchange.py:188, 241-244).
 
 This is the plain PyTorch path for every config the port supports, and
 the reference that the fused CUDA kernel (ops/cuda_exchange.py) is held
@@ -24,7 +26,7 @@ to.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,7 +51,21 @@ class ExchangeOutputs(NamedTuple):
     bs: torch.Tensor           # (T, B, 1) sender-baseline scores (train)
     br: torch.Tensor           # (T, B, 1) receiver-baseline scores (train)
     n_steps: torch.Tensor      # () int32
-    attn_scores: Optional[torch.Tensor]
+    attn_scores: Optional[torch.Tensor]   # (T, B, N) with visual attention
+
+
+def description_inputs(pack: Any, cfg, device) -> Dict[str, Any]:
+    """A description pack's tensors as the conversation takes them:
+    ``desc`` ``(D, wv)`` and, under description attention,
+    ``desc_set_padded`` ``(D, L, wv)`` and ``desc_set_mask`` ``(D, L)``
+    (else ``None``), float32 on ``device``."""
+    def put(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+    return {"desc": put(pack.desc),
+            "desc_set_padded": (put(pack.desc_set_padded)
+                                if cfg.desc_attn else None),
+            "desc_set_mask": (put(pack.desc_set_mask)
+                              if cfg.desc_attn else None)}
 
 
 def finalize_stop_masks(masks: torch.Tensor, fixed_exchange: bool
@@ -78,12 +94,17 @@ def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
              corrupt_mask: Optional[torch.Tensor] = None, *,
              train: bool = False,
              uniforms: Optional[Dict[str, torch.Tensor]] = None,
-             score_baselines: bool = True) -> ExchangeOutputs:
+             score_baselines: bool = True,
+             data_context: Optional[torch.Tensor] = None,
+             desc_set_padded: Optional[torch.Tensor] = None,
+             desc_set_mask: Optional[torch.Tensor] = None
+             ) -> ExchangeOutputs:
     """Run a batched conversation.
 
     Args:
         modules: the four agents (carry the :class:`GameConfig`).
-        data: image features ``(B, feat_dim)``.
+        data: image features ``(B, feat_dim)``, or the map
+            ``(B, feat_dim, H, W)`` under visual attention.
         desc: class-description CBOW matrix ``(D, wv_dim)``.
         corrupt_mask: optional ``(w_dim,)`` bit-flip mask applied to every
             sender message (model.py:814-820).
@@ -94,6 +115,11 @@ def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
             ``ops/sampling.py:uniform_widths``.
         score_baselines: in train mode, score the baselines; when False
             ``bs``/``br`` are zeros (the fast path scores them batched).
+        data_context: the ``fc`` context ``(B, attn_context_dim)`` of
+            visual attention with ``attn_extra_context`` (model.py:127-136).
+        desc_set_padded, desc_set_mask: the padded word sets ``(D, L,
+            wv_dim)`` and their 0/1 mask ``(D, L)``, for description
+            attention.
     """
     cfg = modules.cfg
     need = tuple(uniform_widths(cfg, train))
@@ -105,9 +131,8 @@ def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
     T = cfg.max_exchange
     flip_sen = "fz" in need
     flip_rec = "fw" in need
-    sen_cache = sender.precompute(data)
-    rec_cache = receiver.precompute(desc)
-    h_x = sen_cache["h_x"]
+    sen_cache = sender.precompute(data, data_context)
+    rec_cache = receiver.precompute(desc, desc_set_padded, desc_set_mask)
 
     # The Receiver opens with a query of ``first_rec``s (model.py:786-787).
     w_prev = torch.full((batch, cfg.rec_w_dim), cfg.first_rec,
@@ -119,12 +144,12 @@ def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
     zeros = torch.zeros((batch, 1), dtype=data.dtype, device=data.device)
 
     outs = {k: [] for k in ("mask", "s_feat", "s_prob", "z", "z_prob",
-                            "w", "w_prob", "y", "bs", "br")}
+                            "w", "w_prob", "y", "bs", "br", "attn")}
     for t in range(T):
         u = {k: uniforms[k][t] for k in need}
         # --- Sender turn (model.py:806-811) ---
         z_r = w_prev.detach()
-        sen_logits = sender.step(z_r, t, sen_cache)
+        sen_logits, h_x, attn = sender.step(z_r, t, sen_cache)
         if cfg.use_binary:
             z_probs = torch.sigmoid(sen_logits)
             z = (bernoulli_from_uniform(u["z"], z_probs) if train
@@ -174,14 +199,16 @@ def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
         mask = torch.minimum(mask, s_bit)                 # model.py:852
         for k, v in (("mask", mask), ("s_feat", s_bit), ("s_prob", s_prob),
                      ("z", z), ("z_prob", z_probs), ("w", w_feats),
-                     ("w_prob", w_probs), ("y", y), ("bs", bs), ("br", br)):
+                     ("w_prob", w_probs), ("y", y), ("bs", bs), ("br", br),
+                     ("attn", attn)):
             outs[k].append(v)
         w_prev = w_feats
 
-    st = {k: torch.stack(v) for k, v in outs.items()}
+    st = {k: None if v[0] is None else torch.stack(v)
+          for k, v in outs.items()}
     stop_masks, n_steps = finalize_stop_masks(st["mask"], cfg.fixed_exchange)
     return ExchangeOutputs(
         stop_masks=stop_masks, stop_feats=st["s_feat"],
         stop_probs=st["s_prob"], sen_feats=st["z"], sen_probs=st["z_prob"],
         rec_feats=st["w"], rec_probs=st["w_prob"], y=st["y"],
-        bs=st["bs"], br=st["br"], n_steps=n_steps, attn_scores=None)
+        bs=st["bs"], br=st["br"], n_steps=n_steps, attn_scores=st["attn"])

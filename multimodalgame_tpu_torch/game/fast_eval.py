@@ -14,6 +14,13 @@ The accuracy denominator is ``num_batches * batch_size``, tail included
 
 Exactly tied class scores (possible only with bit-equal description
 rows) may rank differently from the host ``argsort``.
+
+Under ``-flipout_dev`` each dev batch's conversation flips bits with
+uniforms of its own: by default Philox keyed by ``(seed, step)`` and slot
+``1 + i`` for batch ``i`` (``ops/philox.py:philox_eval_uniforms``), the
+draws ``eval.py``'s host loop makes too; a caller may pass ``uniforms``,
+a function ``(i, batch_size) -> {fz, fw}`` (the tests replay JAX's
+``split(key, nb)`` draws through it, JAX fast_eval.py:63, 233).
 """
 
 from __future__ import annotations
@@ -26,8 +33,13 @@ import torch
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.eval import (corrupt_mask_for,
                                            write_confusion_matrix)
-from multimodalgame_tpu_torch.game.exchange import ExchangeOutputs
+from multimodalgame_tpu_torch.game.exchange import (ExchangeOutputs,
+                                                    description_inputs)
+from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 from multimodalgame_tpu_torch.utils.device_pack import PackSpec
+
+# ``(batch index, batch size) -> {fz, fw}``: a dev batch's eval uniforms.
+EvalUniforms = Callable[[int, int], Dict[str, torch.Tensor]]
 
 
 def batch_statistics(cfg, ex: ExchangeOutputs, target: torch.Tensor,
@@ -74,23 +86,36 @@ def batch_statistics(cfg, ex: ExchangeOutputs, target: torch.Tensor,
 def eval_dev_device(modules, eval_exchange: Callable, dev_ds: DeviceDataset,
                     epoch: int, shuffle: bool, batch_size: int, top_k: int,
                     desc: torch.Tensor,
-                    corrupt_mask: Optional[torch.Tensor] = None
+                    corrupt_mask: Optional[torch.Tensor] = None,
+                    desc_set_padded: Optional[torch.Tensor] = None,
+                    desc_set_mask: Optional[torch.Tensor] = None,
+                    seed: int = 0, step: int = 0,
+                    uniforms: Optional[EvalUniforms] = None
                     ) -> Tuple[float, Dict[str, float], np.ndarray,
                                np.ndarray]:
     """Run the dev sweep; returns ``(dev_acc, extra, true_labels,
-    pred_labels)``."""
+    pred_labels)``. The dev set's ``context`` goes with its features."""
     if dev_ds.size == 0:
         raise ValueError("dev set is empty — nothing to evaluate")
     idx = dev_ds.epoch_indices(epoch, shuffle, batch_size,
                                truncate_final_batch=True)
     rows = [r[r >= 0] for r in idx]
     dev = dev_ds.feats.device
+    cfg = modules.cfg
     stats = []
     with torch.no_grad():
-        for r in rows:
+        for i, r in enumerate(rows):
             r_t = torch.as_tensor(r, device=dev)
-            ex = eval_exchange(dev_ds.feats[r_t], desc, corrupt_mask)
-            stats.append(batch_statistics(modules.cfg, ex,
+            u = (uniforms(i, len(r)) if uniforms is not None
+                 else philox_eval_uniforms(cfg, len(r), seed, step, 1 + i,
+                                           dev))
+            ex = eval_exchange(
+                dev_ds.feats[r_t], desc, corrupt_mask,
+                data_context=(None if dev_ds.context is None
+                              else dev_ds.context[r_t]),
+                desc_set_padded=desc_set_padded,
+                desc_set_mask=desc_set_mask, uniforms=u)
+            stats.append(batch_statistics(cfg, ex,
                                           dev_ds.targets[r_t], top_k))
         nb, n = len(rows), sum(len(r) for r in rows)
         spec = PackSpec([("hits", (nb,)), ("pred", (n,)),
@@ -111,17 +136,20 @@ def eval_dev_device(modules, eval_exchange: Callable, dev_ds: DeviceDataset,
 
 
 def run_device_dev_eval(flags, modules, eval_exchange: Callable, desc_pack,
-                        dev_ds: DeviceDataset, epoch: int
+                        dev_ds: DeviceDataset, epoch: int, step: int = 0,
+                        uniforms: Optional[EvalUniforms] = None
                         ) -> Tuple[float, Dict[str, float]]:
     """The flag-driven dev evaluation of the training driver's cadence and
     of ``-eval_only``: builds the descriptions and the ``-bit_flip`` mask
-    on the dev set's device, runs the sweep and writes the
-    confusion-matrix CSV. Returns ``(dev_acc, extra)``."""
+    on the dev set's device, runs the sweep (``-flipout_dev`` draws keyed
+    by ``(random_seed + 1, step)``) and writes the confusion-matrix CSV.
+    Returns ``(dev_acc, extra)``."""
     dev = dev_ds.feats.device
-    desc = torch.as_tensor(desc_pack.desc, dtype=torch.float32, device=dev)
     acc, extra, trues, preds = eval_dev_device(
         modules, eval_exchange, dev_ds, epoch, flags.shuffle_dev,
-        flags.batch_size_dev, flags.top_k_dev, desc,
-        corrupt_mask_for(flags, modules.cfg, dev))
+        flags.batch_size_dev, flags.top_k_dev,
+        corrupt_mask=corrupt_mask_for(flags, modules.cfg, dev),
+        seed=flags.random_seed + 1, step=step, uniforms=uniforms,
+        **description_inputs(desc_pack, modules.cfg, dev))
     write_confusion_matrix(flags.conf_mat, trues, preds)
     return acc, extra

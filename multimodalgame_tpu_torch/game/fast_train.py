@@ -11,8 +11,13 @@ through time that the backward pass needs is the Receiver's GRU chain:
    bits ``z``, ``w``, ``s`` and the stop-mask chain.
 2. **Phase B (recompute)** rebuilds every loss-bearing quantity from
    those bits with autograd on: the sender's logits for all T turns in
-   one batch, a GRU-only loop for the hidden chain, the heads and both
-   baselines batched over T. It is plain PyTorch.
+   one batch (under visual attention each turn's ``h_x`` too, which the
+   Sender baseline reads), a GRU-only loop for the hidden chain, the heads
+   and both baselines batched over T. It is plain PyTorch.
+
+Configs the kernel does not cover (``supports_config``: attention, ``mou``,
+``flipout_dev`` with flipout) sample on the plain exchange, as the JAX
+package's phase A does (fast_train.py:96-106).
 
 The losses see the same values as the scan path's: the recomputed
 probabilities are the same functions of the same inputs.
@@ -41,15 +46,16 @@ def sample_conversation(modules: AgentModules, data: torch.Tensor,
                         desc: torch.Tensor, sampler: str = "plain",
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         seed: Optional[int] = None,
-                        step: Optional[int] = None
+                        step: Optional[int] = None, **inputs
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor, torch.Tensor]:
     """Phase A: ``(z_bits, w_bits, s_bits, stop_masks, n_steps)``.
 
     The kernel sampler takes either ``uniforms`` or ``(seed, step)``; the
-    plain sampler takes ``uniforms``. The kernel-layout weights are packed
-    from the modules on every call, so a step always samples with the
-    weights that the previous update left."""
+    plain sampler takes ``uniforms`` and the attention ``inputs``
+    (``data_context``, ``desc_set_padded``, ``desc_set_mask``). The
+    kernel-layout weights are packed from the modules on every call, so a
+    step always samples with the weights that the previous update left."""
     cfg = modules.cfg
     if sampler == "kernel":
         f = fused_train_forward(cfg, kernel_params(modules), data, desc,
@@ -60,7 +66,7 @@ def sample_conversation(modules: AgentModules, data: torch.Tensor,
     if sampler != "plain":
         raise ValueError(f"sampler must be one of {SAMPLERS}")
     ex = exchange(modules, data, desc, train=True, uniforms=uniforms,
-                  score_baselines=False)
+                  score_baselines=False, **inputs)
     return ex.sen_feats, ex.rec_feats, ex.stop_feats, ex.stop_masks, \
         ex.n_steps
 
@@ -71,15 +77,21 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
                         sampler: str = "plain",
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         seed: Optional[int] = None,
-                        step: Optional[int] = None
+                        step: Optional[int] = None,
+                        data_context: Optional[torch.Tensor] = None,
+                        desc_set_padded: Optional[torch.Tensor] = None,
+                        desc_set_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, TrainMetrics]:
     """The summed loss and the metrics of one training step, by the
     sample-then-recompute path (fast_train.py:73-172)."""
     cfg = modules.cfg
     T = cfg.max_exchange
     batch = data.shape[0]
+    descs = dict(desc_set_padded=desc_set_padded,
+                 desc_set_mask=desc_set_mask)
     z_bits, w_bits, s_bits, stop_masks, n_steps = sample_conversation(
-        modules, data, desc, sampler, uniforms, seed, step)
+        modules, data, desc, sampler, uniforms, seed, step,
+        data_context=data_context, **descs)
 
     # The query each sender turn saw (model.py:786-787, 803).
     w_prev = torch.cat(
@@ -88,11 +100,11 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
          w_bits[:-1]], dim=0)
 
     sender, receiver = modules.sender, modules.receiver
-    sen_cache = sender.precompute(data)
-    rec_cache = receiver.precompute(desc)
+    sen_cache = sender.precompute(data, data_context)
+    rec_cache = receiver.precompute(desc, **descs)
 
-    # Sender turns, batched over T.
-    z_logits = sender.step_all(w_prev, sen_cache)
+    # Sender turns, batched over T, with each turn's h_x.
+    z_logits, h_x, attn = sender.step_all(w_prev, sen_cache)
     z_probs = (torch.sigmoid(z_logits) if cfg.use_binary
                else torch.zeros_like(z_logits))
 
@@ -114,13 +126,12 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
                if cfg.use_binary else torch.zeros_like(w_bits))
 
     # Baselines batched over T, on detached inputs (model.py:831-843).
-    h_x = sen_cache["h_x"].detach()
-    bs = modules.baseline_sen(h_x.expand(T, *h_x.shape), w_prev, None)
+    bs = modules.baseline_sen(h_x.detach(), w_prev, None)
     br = modules.baseline_rec(None, z_bits, h_stack.detach())
 
     ex = ExchangeOutputs(
         stop_masks=stop_masks, stop_feats=s_bits, stop_probs=s_probs,
         sen_feats=z_bits, sen_probs=z_probs, rec_feats=w_bits,
         rec_probs=w_probs, y=y, bs=bs, br=br, n_steps=n_steps,
-        attn_scores=None)
+        attn_scores=attn)
     return losses_from_exchange(cfg, ex, target, top_k, batch_denom)

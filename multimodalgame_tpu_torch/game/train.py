@@ -18,6 +18,13 @@ global step ``s`` are Philox4x32-10 keyed by ``(seed, s)``
 so how steps are split into chunks cannot change a run. A caller may
 instead pass ``uniforms``, a function ``step -> {s, z, w[, fz, fw]}``;
 the tests pass one that replays the JAX package's draws.
+
+Visual attention takes the feature map ``(B, C, H, W)`` as ``data`` and,
+with ``attn_extra_context``, the ``fc`` context; description attention
+the padded word sets. Each factory's step takes them as keyword
+arguments (``data_context`` or, over a staged set, ``feats_context``,
+gathered by the same indices as the features; ``desc_set_padded`` and
+``desc_set_mask``), as the JAX package's steps do.
 """
 
 from __future__ import annotations
@@ -210,16 +217,23 @@ def losses_from_exchange(cfg: GameConfig, ex: ExchangeOutputs,
 
 def compute_losses(modules: AgentModules, data: torch.Tensor,
                    target: torch.Tensor, desc: torch.Tensor, top_k: int,
-                   batch_denom: int, uniforms: Dict[str, torch.Tensor]
-                   ) -> Tuple[torch.Tensor, TrainMetrics]:
+                   batch_denom: int, uniforms: Dict[str, torch.Tensor],
+                   **inputs) -> Tuple[torch.Tensor, TrainMetrics]:
     """One training forward pass through the plain train-mode exchange,
     baselines scored turn by turn, and every loss term
-    (train.py:94-120)."""
-    ex = exchange(modules, data, desc, train=True, uniforms=uniforms)
+    (train.py:94-120). ``inputs`` are the exchange's attention inputs
+    (``data_context``, ``desc_set_padded``, ``desc_set_mask``)."""
+    ex = exchange(modules, data, desc, train=True, uniforms=uniforms,
+                  **inputs)
     return losses_from_exchange(modules.cfg, ex, target, top_k, batch_denom)
 
 
 # ------------------------------------------------------------------- trainers
+
+def _rows(feats: Optional[torch.Tensor], idx: torch.Tensor
+          ) -> Optional[torch.Tensor]:
+    return None if feats is None else feats[idx]
+
 
 def _detach(x):
     if isinstance(x, torch.Tensor):
@@ -249,7 +263,8 @@ class _Trainer:
         if fast == "kernel" and not supports_config(cfg):
             raise ValueError(
                 "fast='kernel' needs a config the fused kernel supports "
-                "(binary channel, no attention, sum or prod mix)")
+                "(binary channel, no attention, sum or prod mix, no "
+                "-flipout_dev with flipout)")
         self.modules = modules
         self.cfg = cfg
         self.top_k, self.batch_denom = top_k, batch_denom
@@ -277,7 +292,8 @@ class _Trainer:
                                             int(step), self.device)}
 
     def step(self, opt_states, data: torch.Tensor, target: torch.Tensor,
-             desc: torch.Tensor, step: int) -> TrainMetrics:
+             desc: torch.Tensor, step: int, **inputs) -> TrainMetrics:
+        """One update; ``inputs`` are the attention inputs."""
         from multimodalgame_tpu_torch.game.fast_train import (
             compute_losses_fast)
         rand = self.randomness(step, data.shape[0])
@@ -285,11 +301,11 @@ class _Trainer:
         if self.fast:
             total, metrics = compute_losses_fast(
                 self.modules, data, target, desc, self.top_k,
-                self.batch_denom, sampler=self.sampler, **rand)
+                self.batch_denom, sampler=self.sampler, **rand, **inputs)
         else:
             total, metrics = compute_losses(
                 self.modules, data, target, desc, self.top_k,
-                self.batch_denom, rand["uniforms"])
+                self.batch_denom, rand["uniforms"], **inputs)
         total.backward()
         apply_agent_updates(self.cfg, self.update_names, self.modules,
                             opt_states)
@@ -300,9 +316,11 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
                     fast: Union[bool, str] = "auto", *, seed: int = 0,
                     uniforms: Optional[UniformSource] = None,
                     device: Optional[Union[str, torch.device]] = None):
-    """Build ``step(opt_states, data, target, desc, step) -> TrainMetrics``
-    (train.py:216-248), which updates ``modules`` and ``opt_states`` in
-    place. ``step`` is the global step index that keys the randomness.
+    """Build ``step(opt_states, data, target, desc, step,
+    desc_set_padded=None, desc_set_mask=None, data_context=None) ->
+    TrainMetrics`` (train.py:216-248), which updates ``modules`` and
+    ``opt_states`` in place. ``step`` is the global step index that keys
+    the randomness.
 
     ``fast``: False runs the plain exchange with gradients through every
     turn; True or "auto" the sample-then-recompute path
@@ -313,10 +331,16 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
     """
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
 
-    def step(opt_states, data, target, desc, step: int) -> TrainMetrics:
+    def step(opt_states, data, target, desc, step: int,
+             desc_set_padded=None, desc_set_mask=None, data_context=None
+             ) -> TrainMetrics:
+        def opt(x):
+            return None if x is None else tr.tensor(x)
         return tr.step(opt_states, tr.tensor(data), tr.tensor(target,
                                                               torch.long),
-                       tr.tensor(desc), step)
+                       tr.tensor(desc), step, data_context=opt(data_context),
+                       desc_set_padded=opt(desc_set_padded),
+                       desc_set_mask=opt(desc_set_mask))
 
     return step
 
@@ -328,19 +352,23 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
                             uniforms: Optional[UniformSource] = None,
                             device: Optional[Union[str,
                                                    torch.device]] = None):
-    """Build ``step(opt_states, feats, targets, idx, desc, step0) ->
+    """Build ``step(opt_states, feats, targets, idx, desc, step0,
+    feats_context=None, desc_set_padded=None, desc_set_mask=None) ->
     TrainMetrics`` over a dataset already on the device
-    (data/device_dataset.py): the batch is ``feats[idx]``
-    (train.py:412-467). Randomness is keyed by ``step0`` as in
-    :func:`make_multistep_train_step_indexed`, so a step run alone equals
-    the same step inside a chunk."""
+    (data/device_dataset.py): the batch is ``feats[idx]``, its context
+    ``feats_context[idx]`` (train.py:412-467). Randomness is keyed by
+    ``step0`` as in :func:`make_multistep_train_step_indexed`, so a step
+    run alone equals the same step inside a chunk."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
 
-    def step(opt_states, feats, targets, idx, desc, step0: int
+    def step(opt_states, feats, targets, idx, desc, step0: int,
+             feats_context=None, desc_set_padded=None, desc_set_mask=None
              ) -> TrainMetrics:
         idx = tr.tensor(idx, torch.long)
         return tr.step(opt_states, feats[idx], targets[idx].long(), desc,
-                       step0)
+                       step0, data_context=_rows(feats_context, idx),
+                       desc_set_padded=desc_set_padded,
+                       desc_set_mask=desc_set_mask)
 
     return step
 
@@ -353,19 +381,25 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
                                       device: Optional[Union[
                                           str, torch.device]] = None):
     """Build ``chunk(opt_states, feats, targets, idx (K, B), desc,
-    step0=0) -> ScanMetrics``: K training steps over a dataset already on
-    the device, step ``i`` on batch ``feats[idx[i]]`` with the randomness
-    of global step ``step0 + i`` (train.py:470-542). The metrics stay on
+    step0=0, feats_context=None, desc_set_padded=None, desc_set_mask=None)
+    -> ScanMetrics``: K training steps over a dataset already on the
+    device, step ``i`` on batch ``feats[idx[i]]`` (and context
+    ``feats_context[idx[i]]``) with the randomness of global step
+    ``step0 + i`` (train.py:470-542). The metrics stay on
     the device until the caller reads them."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
 
-    def chunk(opt_states, feats, targets, idx, desc, step0: int = 0
+    def chunk(opt_states, feats, targets, idx, desc, step0: int = 0,
+              feats_context=None, desc_set_padded=None, desc_set_mask=None
               ) -> ScanMetrics:
         idx = tr.tensor(idx, torch.long)
         rows = []
         for i in range(idx.shape[0]):
             m = tr.step(opt_states, feats[idx[i]], targets[idx[i]].long(),
-                        desc, int(step0) + i)
+                        desc, int(step0) + i,
+                        data_context=_rows(feats_context, idx[i]),
+                        desc_set_padded=desc_set_padded,
+                        desc_set_mask=desc_set_mask)
             rows.append((m.loss_rec, m.loss_sen, m.nll_loss, m.loss_bas_rec,
                          m.loss_bas_sen, m.accuracy))
         return ScanMetrics(*(torch.stack(v) for v in zip(*rows)))
@@ -377,24 +411,36 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
 
 def make_eval_exchange(modules: AgentModules, use_kernel: bool = True
                        ) -> Callable[..., ExchangeOutputs]:
-    """Build ``run(data, desc, corrupt_mask=None) -> ExchangeOutputs``, the
-    eval conversation (rounded messages, cumulative stop product —
-    model.py:640, 1463-1465).
+    """Build ``run(data, desc, corrupt_mask=None, *, data_context=None,
+    desc_set_padded=None, desc_set_mask=None, uniforms=None) ->
+    ExchangeOutputs``, the eval conversation (rounded messages, cumulative
+    stop product — model.py:640, 1463-1465).
 
     With ``use_kernel`` a config that :func:`supports_config` accepts goes
     through :func:`fused_eval_exchange` at every batch size: the CUDA
     kernel for CUDA tensors, its plain version for CPU ones. Other configs
-    take the plain :func:`exchange`. The kernel-layout weights are rebuilt
-    only when a parameter is replaced or changed in place.
+    (attention, ``mou``, ``flipout_dev`` with flipout) take the plain
+    :func:`exchange`, with the attention inputs and, under
+    ``flipout_dev``, the ``fz``/``fw`` uniforms
+    (``ops/philox.py:philox_eval_uniforms``). The kernel-layout weights
+    are rebuilt only when a parameter is replaced or changed in place.
     """
     cfg = modules.cfg
     kernel_ok = use_kernel and supports_config(cfg)
     packed = {"key": None, "params": None}
 
     def run(data: torch.Tensor, desc: torch.Tensor,
-            corrupt_mask: Optional[torch.Tensor] = None) -> ExchangeOutputs:
+            corrupt_mask: Optional[torch.Tensor] = None, *,
+            data_context: Optional[torch.Tensor] = None,
+            desc_set_padded: Optional[torch.Tensor] = None,
+            desc_set_mask: Optional[torch.Tensor] = None,
+            uniforms: Optional[Dict[str, torch.Tensor]] = None
+            ) -> ExchangeOutputs:
         if not kernel_ok:
-            return exchange(modules, data, desc, corrupt_mask=corrupt_mask)
+            return exchange(modules, data, desc, corrupt_mask=corrupt_mask,
+                            uniforms=uniforms, data_context=data_context,
+                            desc_set_padded=desc_set_padded,
+                            desc_set_mask=desc_set_mask)
         key = tuple((p.data_ptr(), p._version) for p in modules.parameters())
         if packed["key"] != key:
             packed["key"], packed["params"] = key, kernel_params(modules)

@@ -4,95 +4,172 @@ logits.
 Parity target: reference ``Sender`` (model.py:49-238), as ported in
 ``multimodalgame_tpu/models/sender.py``:
 
-    h_x = image_layer(x)
+    h_x = image_layer(x)                   x optionally attention-pooled
     h_w = code_layer(sigmoid(code_bias))   at t == 0  (model.py:196-200)
         = code_layer(w)                    at t  > 0
-    feats = binary_layer(tanh(mix(h_x, h_w)))   mix in {sum, prod}
+    feats = binary_layer(tanh(mix(h_x, h_w)))   mix in {sum, prod, mou}
                                                  (model.py:208-221)
 
-``ignore_code`` drops ``h_w`` from the mix. The module emits logits only;
-rounding and sampling live in the exchange. Visual attention and the
-``mou`` mix are not ported yet and raise ``NotImplementedError``.
+``mou`` feeds ``[h_x, h_w, h_x - h_w, h_x * h_w]`` to a ``binary_layer``
+of input width ``4 * h_dim``. ``ignore_code`` drops ``h_w`` from the sum
+and prod mixes; with ``mou`` it replaces the query's code at t > 0 by a
+second learned constant, ``code_layer(sigmoid(code_bias_mou))``
+(model.py:201-205).
+
+Visual attention (model.py:114-142, 168-191) pools the ``(B, C, H, W)``
+feature map over its ``N = H * W`` positions with the scores
+``softmax(U tanh(W_w w + W_x x_n [+ W_g g]))``, uniform ``1/N`` at
+t == 0, so ``h_x`` is computed every turn. The module emits logits only;
+rounding and sampling live in the exchange.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from multimodalgame_tpu_torch.models.init import init_linear_, std_normal_
 
+MIXES = ("sum", "prod", "mou")
+
 
 class Sender(nn.Module):
     def __init__(self, feat_dim: int, h_dim: int, w_dim: int,
                  bin_dim_out: int, use_attn: bool = False,
-                 sender_mix: str = "sum",
+                 attn_dim: int = 256, attn_extra_context: bool = False,
+                 attn_context_dim: int = 4096, sender_mix: str = "sum",
                  ignore_code: bool = False):
         super().__init__()
-        if use_attn:
-            raise NotImplementedError(
-                "visual attention is not ported to PyTorch yet")
-        if sender_mix not in ("sum", "prod"):
-            raise NotImplementedError(
-                f"sender_mix={sender_mix!r} is not ported to PyTorch yet")
+        if sender_mix not in MIXES:
+            raise ValueError(f"sender_mix must be one of {MIXES}, got "
+                             f"{sender_mix!r}")
+        self.use_attn = use_attn
+        self.attn_extra_context = use_attn and attn_extra_context
         self.sender_mix = sender_mix
         self.ignore_code = ignore_code
+        # Registration order is the reference's, so that optimizer slots
+        # keep their positions (JAX utils/torch_interop.py:129-136).
         self.code_bias = nn.Parameter(torch.empty(bin_dim_out))
+        if sender_mix == "mou" and ignore_code:
+            self.code_bias_mou = nn.Parameter(torch.empty(bin_dim_out))
         self.image_layer = nn.Linear(feat_dim, h_dim)
         self.code_layer = nn.Linear(w_dim, h_dim)
-        self.binary_layer = nn.Linear(h_dim, bin_dim_out)
+        self.binary_layer = nn.Linear(
+            4 * h_dim if sender_mix == "mou" else h_dim, bin_dim_out)
+        if use_attn:
+            self.attn_W_x = nn.Linear(feat_dim, attn_dim)
+            self.attn_W_w = nn.Linear(w_dim, attn_dim)
+            self.attn_U = nn.Linear(attn_dim, 1)
+            if attn_extra_context:
+                self.attn_W_g = nn.Linear(attn_context_dim, attn_dim)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         std_normal_(self.code_bias, generator)
-        for layer in (self.image_layer, self.code_layer, self.binary_layer):
+        if hasattr(self, "code_bias_mou"):
+            std_normal_(self.code_bias_mou, generator)
+        for layer in self.children():
             init_linear_(layer, generator)
 
-    def precompute(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Conversation-invariant projections: ``h_x`` ``(B, h_dim)`` and
-        the first turn's code ``code_layer(sigmoid(code_bias))``
-        ``(1, h_dim)``, which depends on parameters only."""
-        return {
-            "h_x": self.image_layer(x),
-            "h_w_first": self.code_layer(
-                torch.sigmoid(self.code_bias)[None, :]),
-        }
+    def precompute(self, x: torch.Tensor, g: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Conversation-invariant pieces: the first turn's code
+        ``code_layer(sigmoid(code_bias))`` ``(1, h_dim)`` (and the
+        ``mou`` + ``ignore_code`` constant code); without attention
+        ``h_x`` ``(B, h_dim)``; with it the flattened map ``x_flat``
+        ``(B, N, C)``, its keys ``attn_W_x(x_flat)`` and, with the
+        context ``g`` ``(B, context)``, ``attn_W_g(g)`` ``(B, 1, A)``."""
+        cache = {"h_w_first": self.code_layer(
+            torch.sigmoid(self.code_bias)[None, :])}
+        if hasattr(self, "code_bias_mou"):
+            cache["h_w_mou"] = self.code_layer(
+                torch.sigmoid(self.code_bias_mou)[None, :])
+        if not self.use_attn:
+            cache["h_x"] = self.image_layer(x)
+            return cache
+        x_flat = x.reshape(x.shape[0], x.shape[1], -1).transpose(1, 2)
+        cache["x_flat"] = x_flat
+        cache["h_x_attn"] = self.attn_W_x(x_flat)
+        if self.attn_extra_context:
+            cache["h_g"] = self.attn_W_g(g)[:, None, :]
+        return cache
 
-    def step(self, w: torch.Tensor, t: int,
-             cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _attend(self, w: torch.Tensor, cache: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        """Attention scores over the map's positions for queries ``w``
+        ``(..., B, w_dim)``: ``(..., B, N)``, a softmax over N."""
+        pre = self.attn_W_w(w)[..., None, :] + cache["h_x_attn"]
+        if self.attn_extra_context:
+            pre = pre + cache["h_g"]
+        return torch.softmax(self.attn_U(torch.tanh(pre))[..., 0], dim=-1)
+
+    def _mix(self, h_x: torch.Tensor, h_w: torch.Tensor) -> torch.Tensor:
+        if self.sender_mix == "mou":
+            return torch.tanh(torch.cat([h_x, h_w, h_x - h_w, h_x * h_w],
+                                        dim=-1))
+        if self.ignore_code:
+            return torch.tanh(h_x)
+        if self.sender_mix == "prod":
+            return torch.tanh(h_x * h_w)
+        return torch.tanh(h_x + h_w)
+
+    def _later_code(self, w: torch.Tensor, cache: Dict[str, torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+        """``h_w`` of turns t > 0: the constant ``mou`` code under
+        ``ignore_code``, nothing for the other mixes under it, else
+        ``code_layer(w)``."""
+        if "h_w_mou" in cache:
+            return cache["h_w_mou"]
+        if self.ignore_code:
+            return None
+        return self.code_layer(w)
+
+    def step(self, w: torch.Tensor, t: int, cache: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """One sender turn on the Receiver's previous query ``w``
-        ``(B, w_dim)``: the message logits ``(B, bin_dim_out)``."""
-        h_x = cache["h_x"]
-        if self.ignore_code:
-            mixed = torch.tanh(h_x)
-        else:
+        ``(B, w_dim)``: ``(logits (B, bin_dim_out), h_x (B, h_dim),
+        attn_scores (B, N) or None)``. ``h_x`` feeds the Sender baseline
+        (model.py:832-836)."""
+        attn = None
+        if self.use_attn:
+            x_flat = cache["x_flat"]
             if t == 0:
-                h_w = cache["h_w_first"].expand_as(h_x)
+                attn = x_flat.new_full(x_flat.shape[:2],
+                                       1.0 / x_flat.shape[1])
             else:
-                h_w = self.code_layer(w)
-            if self.sender_mix == "prod":
-                mixed = torch.tanh(h_x * h_w)
-            else:
-                mixed = torch.tanh(h_x + h_w)
-        return self.binary_layer(mixed)
-
-    def step_all(self, w_prev: torch.Tensor,
-                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Every turn at once, given the query each turn saw,
-        ``w_prev`` ``(T, B, w_dim)`` (turn 0's is not read): the message
-        logits ``(T, B, bin_dim_out)``. The training fast path's batched
-        recompute (game/fast_train.py)."""
-        h_x = cache["h_x"]
-        turns = w_prev.shape[0]
-        if self.ignore_code:
-            mixed = torch.tanh(h_x).expand(turns, *h_x.shape)
+                attn = self._attend(w, cache)
+            h_x = self.image_layer(torch.einsum("bn,bnc->bc", attn, x_flat))
         else:
-            h_w = torch.cat([cache["h_w_first"].expand_as(h_x)[None],
-                             self.code_layer(w_prev[1:])], dim=0)
-            if self.sender_mix == "prod":
-                mixed = torch.tanh(h_x * h_w)
-            else:
-                mixed = torch.tanh(h_x + h_w)
-        return self.binary_layer(mixed)
+            h_x = cache["h_x"]
+        h_w = (cache["h_w_first"] if t == 0
+               else self._later_code(w, cache))
+        h_w = None if h_w is None else h_w.expand_as(h_x)
+        return self.binary_layer(self._mix(h_x, h_w)), h_x, attn
+
+    def step_all(self, w_prev: torch.Tensor, cache: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor]]:
+        """Every turn at once, given the query each turn saw,
+        ``w_prev`` ``(T, B, w_dim)`` (turn 0's is not read): what
+        :meth:`step` gives, each stacked over T. The training fast path's
+        batched recompute (game/fast_train.py)."""
+        turns = w_prev.shape[0]
+        attn = None
+        if self.use_attn:
+            x_flat = cache["x_flat"]
+            first = x_flat.new_full((1,) + x_flat.shape[:2],
+                                    1.0 / x_flat.shape[1])
+            attn = torch.cat([first, self._attend(w_prev[1:], cache)])
+            h_x = self.image_layer(torch.einsum("tbn,bnc->tbc", attn,
+                                                x_flat))
+        else:
+            h_x = cache["h_x"].expand(turns, *cache["h_x"].shape)
+        later = self._later_code(w_prev[1:], cache)
+        h_w = None
+        if later is not None:
+            shape = (turns - 1,) + h_x.shape[1:]
+            h_w = torch.cat([cache["h_w_first"].expand_as(h_x[0])[None],
+                             later.expand(shape)])
+        return self.binary_layer(self._mix(h_x, h_w)), h_x, attn

@@ -18,11 +18,17 @@ splitting a run into chunks cannot change its trajectory. Streams are
 numbered as the JAX exchange orders its per-turn keys
 (game/exchange.py:155-180). A uniform is ``(x >> 8) * 2**-24``: 24 bits,
 exact in float32, in ``[0, 1)``.
+
+An eval conversation under ``flipout_dev`` draws its ``fz``/``fw`` from
+the same generator, on counter words ``8 * (1 + slot) + stream`` that no
+training stream uses (:func:`philox_eval_uniforms`): slot
+:data:`EVAL_DUMP_SLOT` for a log window's eval dump, slot ``1 + i`` for
+batch ``i`` of a dev sweep.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,9 @@ from multimodalgame_tpu_torch.ops.sampling import uniform_widths
 
 # Stream index of each uniform set (the JAX exchange's split order).
 STREAMS = {"z": 0, "fz": 1, "s": 2, "w": 3, "fw": 4}
+# Counter-word stride between the eval slots, above the training streams.
+EVAL_SLOT_STRIDE = 8
+EVAL_DUMP_SLOT = 0
 
 _M0, _M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
 _W0, _W1 = np.uint32(0x9E3779B9), np.uint32(0xBB67AE85)
@@ -82,3 +91,19 @@ def philox_uniforms(cfg, batch: int, seed: int, step: int,
         STREAMS[name], cfg.max_exchange, batch, width, seed, step)).to(
             device or "cpu")
         for name, width in uniform_widths(cfg, train=True).items()}
+
+
+def philox_eval_uniforms(cfg, batch: int, seed: int, step: int, slot: int,
+                         device=None) -> Optional[Dict[str, torch.Tensor]]:
+    """The ``fz``/``fw`` uniforms of one eval conversation under
+    ``flipout_dev``, keyed by ``(seed, step)`` and ``slot``, each
+    ``(max_exchange, batch, dim)`` float32 on ``device``; ``None`` when the
+    config's eval conversation draws nothing."""
+    widths = uniform_widths(cfg, train=False)
+    if not widths:
+        return None
+    base = EVAL_SLOT_STRIDE * (1 + slot)
+    return {name: torch.from_numpy(uniforms_for(
+        base + STREAMS[name], cfg.max_exchange, batch, width, seed,
+        step)).to(device or "cpu")
+        for name, width in widths.items()}

@@ -3,7 +3,13 @@
 The port of ``multimodalgame_tpu/serve.py``: the deterministic eval
 conversation as a checkpoint-loadable predictor. On a GPU each request
 batch runs the whole conversation in one CUDA kernel launch
-(ops/cuda_exchange.py) for every config the kernel supports.
+(ops/cuda_exchange.py) for every config the kernel supports; the others
+(attention, ``mou``, ``-flipout_dev`` with flipout) run the plain
+conversation. Visual attention with ``attn_extra_context`` needs each
+request's ``fc`` context, description attention the pack's padded word
+sets. Under ``-flipout_dev`` every request flips bits with the same draws
+(Philox keyed by ``(0, 0)``, slot 0), as the JAX Predictor's fixed key
+does.
 
 CLI: ``python -m multimodalgame_tpu_torch.serve -checkpoint <path.pt>
 -log_load <train json> -dev_file <hdf5>`` prints JSONL predictions, the
@@ -23,9 +29,11 @@ from multimodalgame_tpu_torch.config import Flags
 from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
 from multimodalgame_tpu_torch.game.agents import AgentModules
 from multimodalgame_tpu_torch.game.config import GameConfig
+from multimodalgame_tpu_torch.game.exchange import description_inputs
 from multimodalgame_tpu_torch.game.losses import get_rec_outp
 from multimodalgame_tpu_torch.game.masks import assemble_loss_masks
 from multimodalgame_tpu_torch.game.train import make_eval_exchange
+from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 from multimodalgame_tpu_torch.utils.device import resolve_device
 from multimodalgame_tpu_torch.utils.torch_interop import (
     load_reference_checkpoint)
@@ -48,8 +56,8 @@ class Predictor:
         self.cfg = cfg
         self.modules = modules.to(self.device).eval()
         self.desc_pack = desc_pack
-        self._desc = torch.as_tensor(desc_pack.desc, dtype=torch.float32,
-                                     device=self.device).contiguous()
+        self._descs = description_inputs(desc_pack, cfg, self.device)
+        self._desc = self._descs["desc"].contiguous()
         self._exchange = make_eval_exchange(self.modules,
                                             use_kernel=use_kernel)
 
@@ -64,8 +72,11 @@ class Predictor:
                    use_kernel=use_kernel)
 
     @torch.inference_mode()
-    def predict(self, features: np.ndarray) -> Dict:
-        """Run conversations for a feature batch ``(B, feat)``.
+    def predict(self, features: np.ndarray,
+                data_context: Optional[np.ndarray] = None) -> Dict:
+        """Run conversations for a feature batch ``(B, feat)`` (``(B,
+        feat, H, W)`` maps under visual attention, with their context
+        ``(B, attn_context_dim)`` under ``attn_extra_context``).
 
         Returns a dict with ``prediction`` (B,), ``log_probs`` (B, D),
         ``conversation_length`` (B,), ``sender_messages`` /
@@ -73,7 +84,14 @@ class Predictor:
         """
         data = torch.as_tensor(np.asarray(features, np.float32),
                                device=self.device).contiguous()
-        ex = self._exchange(data, self._desc)
+        ctx = (None if data_context is None else torch.as_tensor(
+            np.asarray(data_context, np.float32), device=self.device))
+        ex = self._exchange(
+            data, self._desc, data_context=ctx,
+            desc_set_padded=self._descs["desc_set_padded"],
+            desc_set_mask=self._descs["desc_set_mask"],
+            uniforms=philox_eval_uniforms(self.cfg, data.shape[0], 0, 0, 0,
+                                          self.device))
         # Fixed exchanges score the LAST turn, like training and eval
         # (the stop unit gets no training signal in fixed mode).
         y_masks = (None if self.cfg.fixed_exchange
@@ -112,7 +130,10 @@ def main(argv=None, device: Device = None) -> None:
     for batch in load_hdf5(flags.dev_file, flags.batch_size_dev, 0,
                            shuffle=False, truncate_final_batch=True,
                            map_labels=desc_pack.map_labels):
-        out = pred.predict(batch[flags.img_feat])
+        # Attention with context needs the fc column (JAX serve.py:181-185).
+        ctx = (batch[flags.data_context] if pred.cfg.attn_extra_context
+               else None)
+        out = pred.predict(batch[flags.img_feat], data_context=ctx)
         for ex_id, p, true in zip(batch["example_ids"], out["prediction"],
                                   batch["target"]):
             print(json.dumps({

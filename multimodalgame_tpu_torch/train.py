@@ -8,8 +8,10 @@ or, with ``-nofast_driver``, the per-batch loop over the HDF5 file below.
 Both print their interval logs through :func:`emit_log_window`.
 
 ``run`` trains on ``cuda`` unless the caller passes ``device="cpu"``.
-Flags the port does not cover raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Every preset runs, the attention ones (``layer4_2`` maps with the ``fc``
+context) included, and so do ``-desc_attn``, ``-sender_mix mou`` and
+``-flipout_dev``. Flags the port does not cover raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -189,21 +191,12 @@ def check_supported(flags: Flags) -> None:
             "§1.10, scale-out)")
     if flags.images == "cifar":
         raise NotImplementedError(
-            "-images cifar is not ported to PyTorch yet (ROADMAP §1.9, "
-            "breadth)")
-    if flags.visual_attn or flags.desc_attn or flags.sender_mix == "mou":
-        raise NotImplementedError(
-            "attention presets and the mou mix are not ported to PyTorch "
-            "yet (ROADMAP §1.9, breadth)")
-    if flags.flipout_dev and (flags.flipout_sen is not None
-                              or flags.flipout_rec is not None):
-        raise NotImplementedError(
-            "-flipout_dev is not ported to PyTorch yet (ROADMAP §1.9, "
+            "-images cifar is not ported to PyTorch yet (ROADMAP §1.9.4, "
             "breadth)")
     if flags.compute_dtype != "float32":
         raise NotImplementedError(
             "-compute_dtype bfloat16 is not ported to PyTorch yet (ROADMAP "
-            "§1.9, breadth)")
+            "§1.9.3, breadth)")
     if flags.ckpt_format == "orbax":
         raise NotImplementedError(ORBAX_NOT_PORTED)
 
@@ -298,15 +291,21 @@ def run(flags: Flags, max_steps: Optional[int] = None,
             if dev_ds is None:
                 dev_ds = DeviceDataset.from_hdf5(
                     flags.dev_file, flags.img_feat,
-                    map_labels=desc_dev.map_labels, device=device)
+                    map_labels=desc_dev.map_labels,
+                    context_key=(flags.data_context
+                                 if flags.attn_extra_context else None),
+                    device=device)
+            # Keyed by the checkpoint's step, the -flipout_dev draws are
+            # those of the dev sweep that wrote it.
             dev_acc, extra = run_device_dev_eval(
-                flags, modules, eval_exchange, desc_dev, dev_ds, epoch)
+                flags, modules, eval_exchange, desc_dev, dev_ds, epoch,
+                step=step)
         else:
             from multimodalgame_tpu_torch.eval import eval_dev
             dev_acc, extra = eval_dev(
                 flags, modules, eval_exchange, flags.dev_file,
                 flags.batch_size_dev, epoch, flags.shuffle_dev,
-                flags.top_k_dev, desc_dev)
+                flags.top_k_dev, desc_dev, step=step)
         flogger.Log("Dev Accuracy: " + str(dev_acc))
         with open(flags.eval_csv_file, "w") as f:
             f.write("checkpoint,eval_file,topk,step,best_dev_acc,eval_acc,"
@@ -323,7 +322,7 @@ def run(flags: Flags, max_steps: Optional[int] = None,
         from multimodalgame_tpu_torch.extract import extract_binary
         path = extract_binary(flags, modules, eval_exchange, flags.dev_file,
                               flags.batch_size_dev, epoch, flags.shuffle_dev,
-                              desc_dev)
+                              desc_dev, step=step)
         return dict(binary_output=path)
 
     if flags.fast_driver:
@@ -347,20 +346,24 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
     model.py:1190-1592): batches read from the HDF5 file, one training
     step each, the dev evaluation on the host (``eval.py``)."""
     from multimodalgame_tpu_torch.data.hdf5_loader import load_hdf5
-    from multimodalgame_tpu_torch.eval import eval_dev
+    from multimodalgame_tpu_torch.eval import context_of, eval_dev
+    from multimodalgame_tpu_torch.game.exchange import description_inputs
     from multimodalgame_tpu_torch.game.logpack import LogPacker
     from multimodalgame_tpu_torch.game.train import make_train_step
     from multimodalgame_tpu_torch.ops.cuda_exchange import supports_config
+    from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
+                                                     philox_eval_uniforms)
 
     cfg = modules.cfg
     device = next(modules.parameters()).device
+    seed = flags.random_seed + 1
     train_step = make_train_step(
         modules, flags.top_k_train, flags.batch_size,
         fast="kernel" if supports_config(cfg) else "auto",
-        seed=flags.random_seed + 1, uniforms=uniforms, device=device)
+        seed=seed, uniforms=uniforms, device=device)
     packer = LogPacker(cfg, flags.batch_size, flags.exchange_samples)
-    desc = torch.as_tensor(desc_train.desc, dtype=torch.float32,
-                           device=device)
+    descs = description_inputs(desc_train, cfg, device)
+    desc = descs.pop("desc")
 
     epoch = 0
     batch_accuracy = []   # device scalars, then host floats once copied
@@ -390,12 +393,14 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
                 flags.train_file, flags.batch_size, epoch,
                 flags.shuffle_train, map_labels=desc_train.map_labels)):
             data = torch.as_tensor(batch[flags.img_feat], device=device)
+            ctx = context_of(flags, batch, device)
             # One span per sync interval: start at the first step after a
             # sync, stop after the log window's copy to the host.
             if not timer.running:
                 timer.start()
                 steps_in_span = 0
-            m = train_step(opt_states, data, batch["target"], desc, step)
+            m = train_step(opt_states, data, batch["target"], desc, step,
+                           data_context=ctx, **descs)
             steps_in_span += 1
             batch_accuracy.append(m.accuracy)
 
@@ -405,7 +410,11 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
                     # The eval conversation on the same batch
                     # (model.py:1463-1465).
                     with torch.no_grad():
-                        ex_eval = eval_exchange(data, desc)
+                        ex_eval = eval_exchange(
+                            data, desc, data_context=ctx,
+                            uniforms=philox_eval_uniforms(
+                                cfg, data.shape[0], seed, step,
+                                EVAL_DUMP_SLOT, device), **descs)
                 host = packer.unpack(flush_accuracy(packer.pack(m, ex_eval)))
                 timer.stop(steps=steps_in_span)
                 host["target"] = batch["target"]
@@ -420,7 +429,7 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
                 dev_acc, extra = eval_dev(
                     flags, modules, eval_exchange, flags.dev_file,
                     flags.batch_size_dev, epoch, flags.shuffle_dev,
-                    flags.top_k_dev, desc_dev)
+                    flags.top_k_dev, desc_dev, step=step)
                 dev_accuracy.append(dev_acc)
                 logger.log(key="Development Accuracy", val=dev_acc,
                            step=step)

@@ -217,3 +217,115 @@ def test_failed_write_keeps_the_previous_file(tmp_path, monkeypatch):
     assert load_checkpoint(path, fresh, init_opt_states(fresh.cfg,
                                                         fresh))["step"] == 1
     assert torch.equal(fresh.sender.code_bias, mods.sender.code_bias)
+
+
+# ------------------------------------------------ attention, desc_attn, mou
+
+ATTN_DIMS = dict(attn_dim=8, attn_context_dim=20, desc_attn_dim=6)
+ATTN_VARIANTS = {
+    "AdaptiveAttention": dict(visual_attn=True, attn_extra_context=True),
+    "desc_attn": dict(desc_attn=True),
+    "mou_ignore_code": dict(sender_mix="mou", ignore_code=True),
+    "all": dict(visual_attn=True, attn_extra_context=True, desc_attn=True,
+                sender_mix="mou"),
+}
+WORDS = (1, 3, 2, 4, 2)
+# One entry each variant adds to the file.
+NEW_ENTRY = {"AdaptiveAttention": "sender.attn_W_g.weight",
+             "desc_attn": "receiver.d_attn.weight",
+             "mou_ignore_code": "sender.code_bias_mou",
+             "all": "receiver.d_h.bias"}
+
+
+def _attn_kw(name, **kw):
+    return {**BASE, **ATTN_DIMS, **ATTN_VARIANTS[name], **kw}
+
+
+@pytest.mark.parametrize("name", list(ATTN_VARIANTS))
+def test_attention_parameter_order_is_the_references(name):
+    """The new layers' slots sit where JAX's ``_torch_param_entries``
+    puts them: ``code_bias_mou`` after ``code_bias``, the attention layers
+    after ``binary_layer``, ``d_d``/``d_h``/``d_attn`` last."""
+    kw = _attn_kw(name)
+    jmods = JaxModules(JaxConfig(**kw))
+    params = jax_init_params(jmods, jax.random.PRNGKey(0),
+                             num_classes=NUM_CLASSES, max_words=max(WORDS))
+    mods = AgentModules(GameConfig(**kw))
+    for agent in AGENT_NAMES:
+        want = [e[0] for e in jax_interop._torch_param_entries(
+            agent, params[agent])]
+        assert [n for n, _ in getattr(mods, agent).named_parameters()] == \
+            want, agent
+
+
+def _attention_steps(name, optim, steps=2):
+    """The port's agents after ``steps`` updates of ``name`` (CPU, f32),
+    with their optimizer states."""
+    cfg = GameConfig(**_attn_kw(name, optim_type=optim))
+    mods = init_params(AgentModules(cfg), seed=2)
+    chunk = make_multistep_train_step_indexed(mods, TOP_K, BATCH,
+                                              device="cpu")
+    opts = init_opt_states(cfg, mods)
+    rng = np.random.RandomState(6)
+    shape = ((N, cfg.img_feat_dim, 3, 3) if cfg.visual_attn
+             else (N, cfg.img_feat_dim))
+    mask = np.arange(max(WORDS))[None] < np.asarray(WORDS)[:, None]
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    _, targets, desc, idx = _data()
+    chunk(opts, f32(rng.randn(*shape)), torch.tensor(targets),
+          idx[:steps], f32(desc),
+          feats_context=(f32(rng.randn(N, cfg.attn_context_dim))
+                         if cfg.attn_extra_context else None),
+          desc_set_padded=(f32(rng.randn(NUM_CLASSES, max(WORDS),
+                                         cfg.wv_dim) * mask[..., None])
+                           if cfg.desc_attn else None),
+          desc_set_mask=f32(mask) if cfg.desc_attn else None)
+    return cfg, mods, opts
+
+
+@pytest.mark.parametrize("name", list(ATTN_VARIANTS))
+@pytest.mark.parametrize("optim", ["RMSprop", "Adam"])
+def test_attention_checkpoint_round_trips(tmp_path, name, optim):
+    """The port's ``.pt`` with the new entries and their slots: the port
+    reads it back whole, and JAX's ``load_reference_checkpoint`` reads the
+    same weights and slots."""
+    cfg, mods, opts = _attention_steps(name, optim)
+    path = str(tmp_path / "attn.pt")
+    save_checkpoint(path, {"step": 2, "best_dev_acc": 0.5}, mods, opts)
+
+    back = AgentModules(cfg)
+    back_opts = init_opt_states(cfg, back)
+    assert load_checkpoint(path, back, back_opts)["step"] == 2
+    for agent in AGENT_NAMES:
+        a = getattr(mods, agent).state_dict()
+        b = getattr(back, agent).state_dict()
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), (agent, k)
+        for i, (x, y) in enumerate(zip(opts[agent]["nu"],
+                                       back_opts[agent]["nu"])):
+            assert torch.equal(x, y), (agent, i)
+    agent, entry = NEW_ENTRY[name].split(".", 1)
+    assert entry in torch_interop.read_reference_checkpoint(
+        path)["models"][agent]
+
+    jmods = JaxModules(JaxConfig(**_attn_kw(name, optim_type=optim)))
+    template = jax_init_params(jmods, jax.random.PRNGKey(0),
+                               num_classes=NUM_CLASSES,
+                               max_words=max(WORDS))
+    data, params, jopts = jax_interop.load_reference_checkpoint(
+        path, template, jax_init_opt_states(jmods.cfg, template), optim)
+    assert data == {"step": 2, "best_dev_acc": 0.5}
+    got = params_to_torch_state(_np_tree(params))
+    for agent in AGENT_NAMES:
+        for k, v in getattr(mods, agent).state_dict().items():
+            np.testing.assert_array_equal(got[agent][k], v.numpy())
+        theirs = jax_interop.opt_state_to_torch(
+            agent, params[agent], jopts[agent], optim, step=2)["state"]
+        mine = torch_interop.opt_states_to_torch(
+            mods, opts, optim, 2)[agent]["state"]
+        assert theirs.keys() == mine.keys()
+        for i, slots in mine.items():
+            for k, v in slots.items():
+                np.testing.assert_array_equal(np.asarray(theirs[i][k]),
+                                              np.asarray(v), err_msg=k)

@@ -168,3 +168,23 @@ def test_python_m_reaches_the_cli(synthetic_dataset, tmp_path):
         capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("extra", [
+    ["-model_type", "FixedAttention"], ["-model_type", "AdaptiveAttention"],
+    ["-desc_attn"], ["-sender_mix", "mou"], ["-sender_mix", "mou",
+                                             "-ignore_code"],
+    ["-flipout_dev", "-flipout_sen", "0.1", "-flipout_rec", "0.1"]])
+def test_check_supported_takes_attention_mou_and_flipout_dev(extra,
+                                                             tmp_path):
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.train import check_supported
+    flags = flags_from_argv(["-experiment_name", "ok", "-log_path",
+                             str(tmp_path)] + extra)
+    check_supported(flags)
+    for refused, item in ((["-compute_dtype", "bfloat16"], "§1.9.3"),
+                          (["-images", "cifar"], "§1.9.4")):
+        bad = flags_from_argv(["-experiment_name", "no", "-log_path",
+                               str(tmp_path)] + extra + refused)
+        with pytest.raises(NotImplementedError, match=item):
+            check_supported(bad)

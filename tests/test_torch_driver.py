@@ -376,9 +376,7 @@ def test_per_batch_loop_matches_the_driver(synthetic_dataset, tmp_path):
 def test_unported_flags_raise(synthetic_dataset, tmp_path):
     for extra in (["-mesh", "2"], ["-mesh_model", "2"],
                   ["-num_processes", "2"], ["-images", "cifar"],
-                  ["-model_type", "FixedAttention"],
-                  ["-ckpt_format", "orbax"], ["-compute_dtype", "bfloat16"],
-                  ["-flipout_dev", "-flipout_sen", "0.1"]):
+                  ["-ckpt_format", "orbax"], ["-compute_dtype", "bfloat16"]):
         flags = port_flags(small_argv(synthetic_dataset, tmp_path, "x",
                                       extra))
         with pytest.raises(NotImplementedError, match="ROADMAP|orbax"):

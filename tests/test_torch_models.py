@@ -87,8 +87,10 @@ def test_sender_step_matches_jax(variant, t):
     want_logits, want_hx, _ = japply("step", jnp.asarray(x), jnp.asarray(w),
                                      jnp.int32(t), cache)
     pc = mods.sender.precompute(torch.from_numpy(x))
-    logits = mods.sender.step(torch.from_numpy(w), t, pc)
+    logits, h_x, attn = mods.sender.step(torch.from_numpy(w), t, pc)
+    assert attn is None
     np.testing.assert_allclose(_np(pc["h_x"]), _np(want_hx), atol=ATOL)
+    np.testing.assert_allclose(_np(h_x), _np(want_hx), atol=ATOL)
     np.testing.assert_allclose(_np(logits), _np(want_logits), atol=ATOL)
     np.testing.assert_allclose(_np(pc["h_w_first"]),
                                _np(cache["h_w_first"]), atol=ATOL)
@@ -198,11 +200,8 @@ def test_game_config_copies_jax_fields_and_check():
         GameConfig(sender_out_dim=8, rec_w_dim=16)
 
 
-@pytest.mark.parametrize("kw", [dict(visual_attn=True), dict(desc_attn=True),
-                                dict(sender_mix="mou"), dict(rec_out_dim=2),
-                                dict(rec_s_dim=2)],
-                         ids=["visual_attn", "desc_attn", "mou",
-                              "rec_out_dim", "rec_s_dim"])
+@pytest.mark.parametrize("kw", [dict(rec_out_dim=2), dict(rec_s_dim=2)],
+                         ids=["rec_out_dim", "rec_s_dim"])
 def test_unported_variants_raise(kw):
     with pytest.raises(NotImplementedError):
         AgentModules(GameConfig(**_dims(**kw)))
