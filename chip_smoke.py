@@ -80,7 +80,34 @@ result line):
              ``-sender_mix mou``, ``-sender_mix mou -ignore_code`` and
              ``-flipout_dev -flipout_sen 0.1 -flipout_rec 0.1``: finite
              losses, the cadences' counts, no kernel launch;
-11. timing — CUDA-event medians of both kernels and their plain
+11. kernels_cifar — both kernels at the CIFAR width (flat pixels, F =
+             154,587, 10 classes) against their plain versions at batches
+             64 and 100, then their times at batch 64 beside the bound;
+12. bf16    — ``train.run`` with ``-compute_dtype bfloat16`` for 2 epochs:
+             no train-kernel launch (the kernel samples in float32 only),
+             the cadences' eval launches, finite losses, float32
+             parameters and optimizer slots, steps/s;
+13. cifar   — ``train.run`` with ``-images cifar -img_feat_dim 154587`` for
+             1 epoch (156 steps) on 10,000 uint8 images of 3 x 227 x 227
+             made on the card from a seed (1.55 GB staged), with a dev set
+             of the same width in memory: launches and log counts from
+             the cadences, finite losses, steps/s;
+14. population — one step of a 4-member population against four
+             single-game steps with the same weights and uniforms, in
+             float64 (bits and accuracies equal, losses within 1e-5,
+             parameters within 5e-3) and float32 (the same but the losses,
+             which are logged);
+15. sweep   — ``sweep.run_sweep`` with ``-population 16 -lr_scales
+             0.5,1,2,4`` for 10 epochs (460 steps) on the canonical sets:
+             16 member lines and the summary, no kernel launch, the
+             winner's best dev top-6 at least 0.5, ``-eval_only`` on its
+             ``_best`` reproducing its final dev accuracy; then the
+             population step's time, game-steps/s and device busy share
+             beside a single-game step on the same sampler;
+16. sweep_one — ``-population 1 -lr_scales 0.5`` for 2 epochs: 92 train
+             launches, one dev sweep's 6 eval launches, ``-eval_only``
+             agreeing;
+17. timing — CUDA-event medians of both kernels and their plain
              versions around the wrapper call (``ms``: the host's launch
              work included, as every earlier chip_smoke timed it) and, for
              the kernels, of the device's work alone (``device_ms``: the
@@ -97,10 +124,11 @@ result line):
              AdaptiveAttention game of phase 8 (phase A on the plain
              conversation).
 
-``python3 chip_smoke.py --times`` runs only the probe and the batch-64
-times of both kernels (both rulers) and of ``Predictor.predict``, through
-entry points that every tree of the port has, so that two trees can be
-timed in one call.
+``python3 chip_smoke.py --new`` runs only the build and phases 11-16 (no
+result line). ``python3 chip_smoke.py --times`` runs only the probe and
+the batch-64 times of both kernels (both rulers) and of
+``Predictor.predict``, through entry points that every tree of the port
+has, so that two trees can be timed in one call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -166,6 +194,33 @@ VARIANT_ARGV = {
                     "-flipout_rec", "0.1"],
 }
 VARIANT_EPOCHS = 2
+# CIFAR-10 through -images cifar: the test split's 10,000 images of
+# 3 x 227 x 227 pixels (the reference's Scale(227), model.py:1195-1206)
+# in 10 classes, flat as -img_feat avgpool_512 carries them.
+CIFAR_IMAGES, CIFAR_CLASSES, CIFAR_SIZE = 10_000, 10, 227
+CIFAR_FEAT = 3 * CIFAR_SIZE * CIFAR_SIZE
+CIFAR_DEV = 500
+CIFAR_ARGV = ["-images", "cifar", "-img_feat_dim", str(CIFAR_FEAT),
+              "-max_epoch", "1", "-experiment_name", "cifar"]
+BF16_ARGV = ["-compute_dtype", "bfloat16", "-max_epoch",
+             str(VARIANT_EPOCHS), "-experiment_name", "bf16"]
+# The population sweep: 16 members at four learning rates for 10 epochs,
+# and a population of one (the single-game trainer) for 2.
+SWEEP_ARGV = ["-population", "16", "-lr_scales", "0.5,1,2,4",
+              "-max_epoch", "10", "-experiment_name", "sweep"]
+SWEEP_ONE_ARGV = ["-population", "1", "-lr_scales", "0.5", "-max_epoch",
+                  str(VARIANT_EPOCHS), "-experiment_name", "sweep_one"]
+POPULATION_MEMBERS = 4
+# float64: each member's change of weights (new minus start) against its
+# single-game step's, and the losses, absolute. One RMSprop step at lr 1e-4
+# moves a weight by ~1e-3, so only a limit far below that sees a wrong or
+# missing update (tests/test_torch_population.py holds the same 1e-9).
+POPULATION_DELTA_ATOL, POPULATION_LOSS_ATOL = 1e-9, 1e-5
+# float32: the 5e-3 of JAX tests/test_population.py:78-88 on the weights
+# (batched and looped products round differently, and RMSprop's
+# g / sqrt(nu) amplifies that in near-zero-gradient directions), and the
+# losses relative, a few units in the last place (~8 at a loss of ~80).
+POPULATION_PARAM_ATOL, POPULATION_LOSS_RTOL = 5e-3, 1e-6
 WORDS = (3, 12)             # words in a class's set, least and most
 # Random weights stop every conversation after turn 0; this bias on the
 # stop unit makes them run 5-7 of the 10 turns, so the served answers
@@ -944,14 +999,422 @@ def drive_variants(device, workdir, smi):
     return {**totals, "rows": rows}
 
 
-def work(cfg, batch: int, uniform_floats: int = 0):
+def cifar_pixels(n: int, seed: int, device):
+    """``n`` class-conditional uint8 images ``(3, 227, 227)`` made on the
+    card: a prototype per class (``Generator(1234)``) plus uniform noise
+    in [-48, 48] from ``Generator(seed)``, clamped; labels cycle over the
+    10 classes. Returns ``(pixels (n, 3, 227, 227) uint8, labels (n,))``."""
+    import torch
+    shape = (3, CIFAR_SIZE, CIFAR_SIZE)
+    proto = torch.randint(0, 256, (CIFAR_CLASSES,) + shape, device=device,
+                          dtype=torch.int16, generator=torch.Generator(
+                              device=device).manual_seed(1234))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    labels = np.arange(n) % CIFAR_CLASSES
+    lab = torch.from_numpy(labels).to(device)
+    out = torch.empty((n,) + shape, dtype=torch.uint8, device=device)
+    for s0 in range(0, n, 1000):
+        m = min(1000, n - s0)
+        noise = torch.randint(-48, 49, (m,) + shape, device=device,
+                              dtype=torch.int16, generator=gen)
+        out[s0:s0 + m] = (proto[lab[s0:s0 + m]] + noise).clamp_(
+            0, 255).to(torch.uint8)
+    return out, labels
+
+
+def cifar_pack():
+    from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
+    desc = np.random.RandomState(9).randn(CIFAR_CLASSES, 100).astype(
+        np.float32)
+    return DescriptionPack(desc, desc, [1] * CIFAR_CLASSES,
+                           {i: i for i in range(CIFAR_CLASSES)},
+                           {i: f"class{i}" for i in range(CIFAR_CLASSES)})
+
+
+def check_cifar_kernels(device, smi):
+    """Both kernels at the CIFAR width (F = 154,587 flat pixels), at the
+    driver's batch and the dev batch, against their plain versions; then
+    their times at batch 64 beside the bound."""
+    import torch
+    from multimodalgame_tpu_torch.data.cifar import normalize
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        compare_outputs, fused_eval_exchange, fused_eval_exchange_reference,
+        fused_train_forward, fused_train_forward_reference, kernel_params)
+    from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+    cfg = canonical_cfg(**TRAIN_HP, img_feat_dim=CIFAR_FEAT)
+    params = kernel_params(make_agents(cfg, device))
+    desc = torch.from_numpy(cifar_pack().desc).to(device)
+    worst = {"max_abs_err": 0.0, "tie_rows": 0, "cases": 0}
+    for batch in (TRAIN_BATCH, 100):
+        pixels, _ = cifar_pixels(batch, seed=40 + batch, device=device)
+        data = normalize(pixels).reshape(batch, -1).contiguous()
+        u = philox_uniforms(cfg, batch, seed=batch, step=3, device=device)
+        with torch.inference_mode():
+            runs = {
+                "fused_eval_exchange": (
+                    fused_eval_exchange(cfg, params, data, desc),
+                    fused_eval_exchange_reference(cfg, params, data, desc),
+                    None),
+                "fused_train_forward": (
+                    fused_train_forward(cfg, params, data, desc, seed=batch,
+                                        step=3),
+                    fused_train_forward_reference(cfg, params, data, desc,
+                                                  u), u)}
+        torch.cuda.synchronize()
+        for name, (got, want, uu) in runs.items():
+            rep = compare_outputs(cfg, got, want, uniforms=uu)
+            log({"phase": "kernels_cifar", "kernel": name, "batch": batch,
+                 "feat": CIFAR_FEAT, "classes": CIFAR_CLASSES, **rep})
+            if not rep["ok"]:
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"at F = {CIFAR_FEAT}, batch {batch}")
+            worst["max_abs_err"] = max(worst["max_abs_err"],
+                                       rep["max_abs_err"])
+            worst["tie_rows"] += rep["tie_rows"]
+            worst["cases"] += 1
+    pixels, _ = cifar_pixels(TRAIN_BATCH, seed=564, device=device)
+    data = normalize(pixels).reshape(TRAIN_BATCH, -1).contiguous()
+    u = philox_uniforms(cfg, TRAIN_BATCH, 0, 1, device=device)
+    rows = {}
+    with torch.inference_mode():
+        for name, fn, ref in (
+                ("fused_eval_exchange",
+                 lambda: fused_eval_exchange(cfg, params, data, desc),
+                 lambda: fused_eval_exchange_reference(cfg, params, data,
+                                                       desc)),
+                ("fused_train_forward",
+                 lambda: fused_train_forward(cfg, params, data, desc,
+                                             seed=0, step=1),
+                 lambda: fused_train_forward_reference(cfg, params, data,
+                                                       desc, u))):
+            rows[name] = {"feat": CIFAR_FEAT, "batch": TRAIN_BATCH,
+                          "ms": event_median_ms(fn),
+                          "device_ms": device_median_ms(fn),
+                          "plain_ms": event_median_ms(ref),
+                          **work(cfg, TRAIN_BATCH,
+                                 num_desc=CIFAR_CLASSES)}
+            rows[name]["device_over_bound"] = (rows[name]["device_ms"]
+                                               / rows[name]["bound_ms"])
+            log({"phase": "timing", "kernel": name, **rows[name],
+                 "card": smi})
+    log({"phase": "kernels_cifar", **worst})
+    return {"worst": worst, "rows": rows}
+
+
+def canonical_inputs(device, pack=None):
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    dev = DeviceDataset(*synthetic_set(DEV_PER_CLASS, seed=2), device=device)
+    pack = pack or description_pack()
+    return (pack, pack, train, dev)
+
+
+def drive_bf16(device, workdir, smi):
+    """``-compute_dtype bfloat16`` through ``train.run`` for 2 epochs: the
+    plain sampler (no train launch), the eval kernel at the cadences, and
+    float32 parameters and optimizer slots afterwards."""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    flags = flags_from_argv(DEMO_ARGV + BF16_ARGV + [
+        "-log_path", os.path.join(workdir, "bf16")])
+    inputs = canonical_inputs(device)
+    want = dict(cadence_counts(flags, inputs[2].size, inputs[3].size),
+                train_launches=0)
+    summary, secs, counts = run_counted(flags, inputs, device)
+    got, losses, last_dev, _ = read_log(flags, summary)
+    got.update(counts)
+    dtypes = {str(p.dtype) for p in summary["modules"].parameters()}
+    dtypes |= {str(t.dtype) for st in summary["opt_states"].values()
+               for v in st.values() if isinstance(v, list) for t in v}
+    log({"phase": "bf16", **got, "expected": want,
+         "finite_losses": len(losses), "last_dev_top6": last_dev,
+         "parameter_and_slot_dtypes": sorted(dtypes), "seconds": secs,
+         "run_steps_per_s": got["steps"] / secs, "card": smi})
+    check_counts("bf16", got, want, losses)
+    if dtypes != {str(torch.float32)}:
+        raise SystemExit(f"bf16: parameters or slots are {dtypes}")
+    return {**counts, "run_steps_per_s": got["steps"] / secs}
+
+
+def drive_cifar(device, workdir, smi):
+    """``-images cifar`` through ``train.run`` for 1 epoch on 10,000 staged
+    uint8 images of 3 x 227 x 227 (flat features, F = 154,587) in 10
+    classes, with a dev set of the same width in memory."""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.data.cifar import normalize
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    t0 = time.perf_counter()
+    pixels, labels = cifar_pixels(CIFAR_IMAGES, seed=1, device=device)
+    train = DeviceDataset(pixels, labels, device=device)
+    dev_px, dev_labels = cifar_pixels(CIFAR_DEV, seed=2, device=device)
+    dev = DeviceDataset(normalize(dev_px).reshape(CIFAR_DEV, -1),
+                        dev_labels, device=device)
+    del pixels, dev_px
+    torch.cuda.synchronize()
+    set_up = time.perf_counter() - t0
+    flags = flags_from_argv(DEMO_ARGV + CIFAR_ARGV + [
+        "-log_path", os.path.join(workdir, "cifar")])
+    pack = cifar_pack()
+    want = cadence_counts(flags, train.size, dev.size)
+    summary, secs, counts = run_counted(flags, (pack, pack, train, dev),
+                                        device)
+    got, losses, last_dev, timing = read_log(flags, summary)
+    got.update(counts)
+    log({"phase": "cifar", **got, "expected": want,
+         "feats": list(train.feats.shape), "feats_dtype": str(
+             train.feats.dtype), "staged_bytes": train.feats.numel(),
+         "dev_feats": list(dev.feats.shape), "data_set_up_s": set_up,
+         "finite_losses": len(losses), "last_dev_top6": last_dev,
+         "seconds": secs, "run_steps_per_s": got["steps"] / secs,
+         "last_epoch_steps_per_s": timing["steps_per_sec"], "card": smi})
+    check_counts("cifar", got, want, losses)
+    del train, dev, summary
+    torch.cuda.empty_cache()
+    return {**counts, "run_steps_per_s": got["steps"] / secs}
+
+
+def check_population(device, smi, dtype_name: str):
+    """One population step of four canonical members on the card against
+    four single-game steps with the same weights and uniforms (the plain
+    sampler): phase A's bits and the accuracies equal; in float64 each
+    member's change of weights within 1e-9 of its single step's and the
+    losses within 1e-5; in float32 the weights within 5e-3 and the losses
+    within a relative 1e-6 (batched and looped products round
+    differently)."""
+    import torch
+    from multimodalgame_tpu_torch.game.agents import AgentModules
+    from multimodalgame_tpu_torch.game.fast_train import sample_conversation
+    from multimodalgame_tpu_torch.game.train import (init_opt_states,
+                                                     make_train_step_indexed)
+    from multimodalgame_tpu_torch.ops.philox import member_uniforms
+    from multimodalgame_tpu_torch.parallel.population import (
+        init_population, init_population_opt_states,
+        make_population_train_step, member_modules, member_params)
+    dtype = getattr(torch, dtype_name)
+    cfg = canonical_cfg(**TRAIN_HP)
+    n = POPULATION_MEMBERS
+    _, _, train, _ = canonical_inputs(device)
+    feats = train.feats.to(dtype)
+    desc = torch.from_numpy(descriptions()).to(device, dtype)
+    pop = {k: v.to(dtype) for k, v in
+           init_population(cfg, 0, n, device).items()}
+    start = {k: v.clone() for k, v in pop.items()}
+    modules = AgentModules(cfg).to(device, dtype)
+    idx = train.epoch_indices(0, True, TRAIN_BATCH)[:1]
+    u = member_uniforms(cfg, TRAIN_BATCH, 1, 0, n, device)
+    data = feats[torch.as_tensor(idx[0], device=device)]
+
+    def member_bits(params, uu):
+        return torch.func.functional_call(
+            modules, params, (sample_conversation, data, desc, "plain",
+                              uu))[:3]
+
+    bits = torch.func.vmap(member_bits)(pop, u)
+    chunk = make_population_train_step(modules, 6, TRAIN_BATCH,
+                                       uniforms=lambda step: u)
+    new_pop, _, pm = chunk(pop, init_population_opt_states(cfg, pop),
+                           feats, train.targets, idx, desc, 0)
+    f64 = dtype == torch.float64
+    worst = {"loss": 0.0, "loss_rel": 0.0, "param": 0.0, "delta": 0.0}
+    for i in range(n):
+        mods = member_modules(cfg, pop, i)
+        step = make_train_step_indexed(
+            mods, 6, TRAIN_BATCH, fast=True, device=device,
+            uniforms=lambda s, i=i: {k: v[i] for k, v in u.items()})
+        m = step(init_opt_states(cfg, mods), feats, train.targets, idx[0],
+                 desc, 0)
+        ex = m.exchange
+        same_bits = all(torch.equal(a[i], b) for a, b in zip(
+            bits, (ex.sen_feats, ex.rec_feats, ex.stop_feats)))
+        same_acc = float(m.accuracy) == float(pm.accuracy[0, i])
+        losses = {k: (float(getattr(m, k)), float(getattr(pm, k)[0, i]))
+                  for k in ("loss_rec", "loss_sen", "nll_loss",
+                            "loss_bas_rec", "loss_bas_sen")}
+        loss_err = max(abs(a - b) for a, b in losses.values())
+        loss_rel = max(abs(a - b) / max(abs(a), abs(b))
+                       for a, b in losses.values() if a != b) \
+            if loss_err else 0.0
+        got, was = member_params(new_pop, i), member_params(start, i)
+        param_err = max(float((p.detach() - got[k]).abs().max())
+                        for k, p in mods.named_parameters())
+        delta_err = max(float(((got[k] - was[k])
+                               - (p.detach() - was[k])).abs().max())
+                        for k, p in mods.named_parameters())
+        moved = max(float((got[k] - was[k]).abs().max())
+                    for k, _ in mods.named_parameters())
+        for key, val in (("loss", loss_err), ("loss_rel", loss_rel),
+                         ("param", param_err), ("delta", delta_err)):
+            worst[key] = max(worst[key], val)
+        log({"phase": "population", "dtype": dtype_name, "member": i,
+             "bits_equal": same_bits, "accuracy_equal": same_acc,
+             "max_loss_err": loss_err, "max_loss_rel_err": loss_rel,
+             "max_param_err": param_err, "max_delta_err": delta_err,
+             "max_change": moved,
+             "losses_single_population": losses})
+        close = (loss_err <= POPULATION_LOSS_ATOL
+                 and delta_err <= POPULATION_DELTA_ATOL) if f64 else (
+            loss_rel <= POPULATION_LOSS_RTOL
+            and param_err <= POPULATION_PARAM_ATOL)
+        if not (same_bits and same_acc and close and moved > 0):
+            raise SystemExit(f"population: member {i} differs from its "
+                             f"single-game step in {dtype_name}")
+    log({"phase": "population", "dtype": dtype_name, "members": n,
+         "max_loss_err": worst["loss"], "max_loss_rel_err": worst["loss_rel"],
+         "max_param_err": worst["param"], "max_delta_err": worst["delta"],
+         "card": smi})
+    return worst
+
+
+def population_timing(device, smi, n: int = 16):
+    """The canonical population step of ``n`` members at batch 64 (host
+    clock around steps that each end in a synchronize), game-steps/s, and
+    the device's kernels a step and busy share over a few profiled steps;
+    beside it one single-game step on the same plain sampler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from multimodalgame_tpu_torch.game.agents import AgentModules
+    from multimodalgame_tpu_torch.game.train import (
+        init_opt_states, make_multistep_train_step_indexed)
+    from multimodalgame_tpu_torch.parallel.population import (
+        init_population, init_population_opt_states,
+        make_population_train_step, member_modules)
+    cfg = canonical_cfg(**TRAIN_HP)
+    _, _, train, _ = canonical_inputs(device)
+    desc = torch.from_numpy(descriptions()).to(device)
+    plan = train.epoch_indices(0, True, TRAIN_BATCH)
+    state = {"pop": init_population(cfg, 0, n, device), "step": 0}
+    state["opts"] = init_population_opt_states(cfg, state["pop"])
+    chunk = make_population_train_step(AgentModules(cfg).to(device), 6,
+                                       TRAIN_BATCH, seed=1)
+    scale = np.asarray([0.5, 1, 2, 4] * (n // 4), np.float32)
+
+    def pop_step():
+        i = state["step"]
+        state["pop"], state["opts"], _ = chunk(
+            state["pop"], state["opts"], train.feats, train.targets,
+            plan[i % len(plan)][None], desc, i, lr_scale=scale)
+        state["step"] += 1
+        torch.cuda.synchronize()
+
+    mods = member_modules(cfg, state["pop"], 0)
+    single = make_multistep_train_step_indexed(mods, 6, TRAIN_BATCH,
+                                               fast=True, seed=1,
+                                               device=device)
+    opts = init_opt_states(cfg, mods)
+
+    def one_step():
+        i = state["step"]
+        single(opts, train.feats, train.targets, plan[i % len(plan)][None],
+               desc, i)
+        torch.cuda.synchronize()
+
+    pop_ms = host_median_ms(pop_step)
+    one_ms = host_median_ms(one_step)
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            pop_step()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    row = {"phase": "timing", "population": n, "batch": TRAIN_BATCH,
+           "population_step_ms": pop_ms,
+           "game_steps_per_s": 1e3 * n / pop_ms,
+           "single_plain_step_ms": one_ms,
+           "single_plain_steps_per_s": 1e3 / one_ms,
+           "population_over_single": pop_ms / one_ms,
+           "device_kernels_per_step": sum(e.count for e in events) / n_prof,
+           "device_busy_share": (device_us / wall_us) if device_us else None,
+           "top_device_kernels_us_per_step": [
+               [e.key[:60], e.self_device_time_total / n_prof]
+               for e in top],
+           "card": smi}
+    log(row)
+    return row
+
+
+def drive_sweep(device, workdir, smi, argv, phase, min_top6=None):
+    """``sweep.run_sweep`` (what ``python -m multimodalgame_tpu_torch.sweep``
+    calls) on the canonical in-memory sets with both kernels' counts set
+    to 0 just before; then ``-eval_only`` on the winner's ``_best``."""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.sweep import run_sweep
+    log_path = os.path.join(workdir, phase)
+    flags = flags_from_argv(DEMO_ARGV + argv + ["-log_path", log_path])
+    inputs = canonical_inputs(device)
+    train, dev = inputs[2], inputs[3]
+    n = flags.population
+    steps = flags.max_epoch * (train.size // flags.batch_size)
+    sweeps = len(range(flags.log_dev, steps + 1, flags.log_dev)) + (
+        steps % flags.log_dev != 0)
+    dev_batches = -(-dev.size // flags.batch_size_dev)
+    want = {"steps": steps, "members": n,
+            "train_launches": steps if n == 1 else 0,
+            "eval_launches": sweeps * dev_batches if n == 1 else 0}
+    fused_train_forward.launches = 0
+    fused_eval_exchange.launches = 0
+    t0 = time.perf_counter()
+    summary = run_sweep(flags, device=device, inputs=inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {"steps": summary["steps"], "members": len(summary["members"]),
+           "train_launches": fused_train_forward.launches,
+           "eval_launches": fused_eval_exchange.launches}
+    log({"phase": phase, **got, "expected": want,
+         "winner": summary["winner"],
+         "winner_best_dev_acc": summary["winner_best_dev_acc"],
+         "winner_final_dev_acc": summary["winner_final_dev_acc"],
+         "members": summary["members"], "seconds": secs,
+         "steps_per_sec_total": summary["steps_per_sec_total"],
+         "game_steps_per_s": n * steps / secs, "card": smi})
+    for k, v in want.items():
+        if got[k] != v:
+            raise SystemExit(f"{phase}: {k} {got[k]}, expected {v}")
+    accs = [m[k] for m in summary["members"]
+            for k in ("final_dev_acc", "best_dev_acc")]
+    if not all(np.isfinite(accs)):
+        raise SystemExit(f"{phase}: a member's dev accuracy is not finite")
+    if min_top6 is not None and summary["winner_best_dev_acc"] < min_top6:
+        raise SystemExit(f"{phase}: the winner's dev top-6 "
+                         f"{summary['winner_best_dev_acc']} is below "
+                         f"{min_top6}")
+    eval_flags = flags_from_argv(DEMO_ARGV + [
+        "-eval_only", "-checkpoint", summary["checkpoint"], "-log_path",
+        log_path, "-experiment_name", phase + "_eval"])
+    out, _, counts = run_counted(eval_flags, inputs, device)
+    log({"phase": phase, "eval_only_dev_acc": out["dev_acc"],
+         "winner_final_dev_acc": summary["winner_final_dev_acc"],
+         "eval_kernel_launches": counts["eval_launches"]})
+    if out["dev_acc"] != summary["winner_final_dev_acc"]:
+        raise SystemExit(f"{phase}: -eval_only gave {out['dev_acc']} on "
+                         f"_best, the sweep {summary['winner_final_dev_acc']}")
+    return {"train_launches": got["train_launches"],
+            "eval_launches": got["eval_launches"],
+            "game_steps_per_s": n * steps / secs,
+            "steps_per_sec_total": summary["steps_per_sec_total"],
+            "winner_best_dev_acc": summary["winner_best_dev_acc"]}
+
+
+def work(cfg, batch: int, uniform_floats: int = 0,
+         num_desc: int = NUM_CLASSES):
     """Operations and bytes one call needs at these shapes: every product
     of _kernel, each input read once (``uniform_floats`` counts the train
     mode's uniforms where they are read), each output written once.
     Only f32 operations count: Philox's integer work is left out."""
     from multimodalgame_tpu_torch.ops.cuda_exchange import param_shapes
     F, H, W = cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim
-    R, V, D, T, B = cfg.rec_hidden, cfg.wv_dim, NUM_CLASSES, cfg.max_exchange, batch
+    R, V, D, T, B = (cfg.rec_hidden, cfg.wv_dim, num_desc, cfg.max_exchange,
+                     batch)
     flops = 2 * B * F * H + 2 * D * V * R + 2 * W * H
     per_turn = (2 * B * H * W                     # binary layer
                 + 2 * B * (W + R) * 3 * R         # GRU
@@ -1265,9 +1728,10 @@ def step_breakdown(one_step, phase_a, forward) -> dict:
 
 def attention_timing(device, attention):
     """The AdaptiveAttention step at batch 64 on the trained agents:
-    phase A on the plain conversation (uniforms drawn by the host's
-    Philox, as the driver's steps draw them), the forward and backward
-    passes, and the device's share."""
+    phase A on the plain conversation (uniforms drawn by Philox on the
+    card, as the driver's steps draw them; the draw alone is
+    ``philox_ms``), the forward and backward passes, and the device's
+    share."""
     import torch
     from multimodalgame_tpu_torch.game.fast_train import (
         compute_losses_fast, sample_conversation)
@@ -1309,8 +1773,13 @@ def attention_timing(device, attention):
             total.backward()
         torch.cuda.synchronize()
 
+    def draw():
+        philox_uniforms(mods.cfg, TRAIN_BATCH, 0, 1, device)
+        torch.cuda.synchronize()
+
     row = step_breakdown(one_step, phase_a, forward)
     row["config"] = "AdaptiveAttention"
+    row["philox_ms"] = host_median_ms(draw)
     log(row)
     return row
 
@@ -1381,14 +1850,40 @@ def times_only() -> int:
     return 0
 
 
+def run_new_paths(workdir, smi) -> dict:
+    """This slice's paths: bfloat16, CIFAR, the population step against
+    single games, the sweep of 16 members with its step's timing, and
+    the sweep of one."""
+    return {"bf16": drive_bf16("cuda", workdir, smi),
+            "cifar": drive_cifar("cuda", workdir, smi),
+            "population": {d: check_population("cuda", smi, d)
+                           for d in ("float64", "float32")},
+            "sweep": drive_sweep("cuda", workdir, smi, SWEEP_ARGV, "sweep",
+                                 min_top6=MIN_DEV_TOP6),
+            "population_timing": population_timing("cuda", smi),
+            "sweep_one": drive_sweep("cuda", workdir, smi, SWEEP_ONE_ARGV,
+                                     "sweep_one")}
+
+
 def main() -> int:
     import torch
     if sys.argv[1:] == ["--times"]:
         return times_only()
+    if sys.argv[1:] == ["--new"]:
+        # Only the build, the kernels at the CIFAR width and this slice's
+        # paths; no result line.
+        smi = probe()
+        build()
+        check_cifar_kernels("cuda", smi)
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as workdir:
+            run_new_paths(workdir, smi)
+        return 0
     smi = probe()
     build()
     worst = check_kernels("cuda")
     worst_train = check_train_kernels("cuda")
+    cifar_kernels = check_cifar_kernels("cuda", smi)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as workdir:
         served = serve_requests("cuda", workdir)
@@ -1399,13 +1894,20 @@ def main() -> int:
         attention = drive_attention("cuda", workdir, smi)
         served_attn = serve_attention("cuda", attention)
         variants = drive_variants("cuda", workdir, smi)
+        new = run_new_paths(workdir, smi)
     log({"phase": "variants", "steps_per_s": {
         "AdaptiveAttention": attention["run_steps_per_s"],
-        **{k: v["steps_per_s"] for k, v in variants["rows"].items()}},
+        **{k: v["steps_per_s"] for k, v in variants["rows"].items()},
+        "bf16": new["bf16"]["run_steps_per_s"],
+        "cifar": new["cifar"]["run_steps_per_s"]},
         "card": smi})
     log({"phase": "driver", "run_steps_per_s": driven["run_steps_per_s"],
          "last_epoch_steps_per_s": driven["last_epoch_steps_per_s"],
-         "bare_trainer_steps_per_s": trained["steps_per_s"], "card": smi})
+         "bare_trainer_steps_per_s": trained["steps_per_s"],
+         "sweep_game_steps_per_s": new["sweep"]["game_steps_per_s"],
+         "sweep_over_driver": (new["sweep"]["game_steps_per_s"]
+                               / driven["run_steps_per_s"]),
+         "card": smi})
     rows = timing("cuda", served["pred"])
     train_rows = train_timing("cuda", trained)
     attention_row = attention_timing("cuda", attention)
@@ -1417,6 +1919,7 @@ def main() -> int:
     layout = {"cluster": plan.cluster, "rows_per_tile": ROWS,
               "smem_bytes": plan.smem_bytes,
               "latency_floor_ms": rows["floor"]["latency_floor_ms"]}
+    new_paths = ("bf16", "cifar", "sweep", "sweep_one")
     log({"kernels": [{
         "name": "fused_eval_exchange",
         "route": "cuda",
@@ -1427,9 +1930,11 @@ def main() -> int:
             "serve": served["launches"], "driver": driven["eval_launches"],
             "driver_attention": attention["counts"]["eval_launches"],
             "serve_attention": served_attn["launches"],
-            "variants": variants["eval_launches"]},
-        "max_abs_err": worst["max_abs_err"],
-        "tie_rows": worst["tie_rows"],
+            "variants": variants["eval_launches"],
+            **{k: new[k]["eval_launches"] for k in new_paths}},
+        "max_abs_err": max(worst["max_abs_err"],
+                           cifar_kernels["worst"]["max_abs_err"]),
+        "tie_rows": worst["tie_rows"] + cifar_kernels["worst"]["tie_rows"],
         "batch": 64,
         "ms": at["kernel_ms"],
         "device_ms": at["kernel_device_ms"],
@@ -1438,6 +1943,7 @@ def main() -> int:
         "bound_by": at["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
+        "cifar_width": cifar_kernels["rows"]["fused_eval_exchange"],
         "card": smi,
         **kernel_registers(train=False),
         **layout,
@@ -1450,8 +1956,10 @@ def main() -> int:
         "launches_by_path": {
             "train": trained["launches"], "driver": driven["train_launches"],
             "driver_attention": attention["counts"]["train_launches"],
-            "variants": variants["train_launches"]},
-        "max_abs_err": worst_train["max_abs_err"],
+            "variants": variants["train_launches"],
+            **{k: new[k]["train_launches"] for k in new_paths}},
+        "max_abs_err": max(worst_train["max_abs_err"],
+                           cifar_kernels["worst"]["max_abs_err"]),
         "tie_rows": worst_train["tie_rows"],
         "batch": TRAIN_BATCH,
         "rng": "philox",
@@ -1462,6 +1970,7 @@ def main() -> int:
         "bound_by": tat["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
+        "cifar_width": cifar_kernels["rows"]["fused_train_forward"],
         "steps_per_s": train_rows["step"]["steps_per_s"],
         "phase_a_share": train_rows["step"]["phase_a_share"],
         "driver_run_steps_per_s": driven["run_steps_per_s"],
@@ -1469,6 +1978,12 @@ def main() -> int:
         "attention_run_steps_per_s": attention["run_steps_per_s"],
         "attention_step_steps_per_s": attention_row["steps_per_s"],
         "attention_dev_top6": attention["last_dev_top6"],
+        "bf16_run_steps_per_s": new["bf16"]["run_steps_per_s"],
+        "cifar_run_steps_per_s": new["cifar"]["run_steps_per_s"],
+        "sweep_game_steps_per_s": new["sweep"]["game_steps_per_s"],
+        "sweep_winner_dev_top6": new["sweep"]["winner_best_dev_acc"],
+        "population_step_device_busy_share":
+            new["population_timing"]["device_busy_share"],
         "card": smi,
         **kernel_registers(train=True),
         **layout,

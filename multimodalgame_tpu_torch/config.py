@@ -230,8 +230,10 @@ _HELP = {
                    "single-file .pt (atomic rename) under msgpack, the "
                    "default: it has no msgpack writer. orbax is not "
                    "ported and raises.",
-    "compute_dtype": "Conversation compute precision; only float32 is "
-                     "ported (bfloat16 raises).",
+    "compute_dtype": "Training conversation precision: bfloat16 runs the "
+                     "conversation on bfloat16 copies of the float32 "
+                     "parameters (optimizers, losses and evaluation stay "
+                     "float32; phase A takes the plain sampler).",
     "mesh": "Data-parallel mesh size; the port runs on one device "
             "(0 or 1), larger values raise.",
     "mesh_model": "Tensor-parallel axis size; not ported (values above "
@@ -242,10 +244,11 @@ _HELP = {
                      "is ported.",
     "process_id": "This process's index in a multi-host job (0-based; "
                   "process 0 writes the shared artifacts).",
-    "population": "Member count for the JAX package's population sweep "
-                  "(not ported).",
-    "lr_scales": "Per-member learning-rate multipliers of the JAX "
-                 "package's population sweep (not ported).",
+    "population": "Member count of the population sweep (python -m "
+                  "multimodalgame_tpu_torch.sweep): N games trained as "
+                  "one batched step.",
+    "lr_scales": "Per-member learning-rate multipliers of the population "
+                 "sweep, comma-separated, cycled over the members.",
     "env": "Visdom environment name.",
     "visdom": "Enable live Visdom plotting.",
     "use_alpha": "Dump messages as letter groups instead of 0/1 strings.",
@@ -261,8 +264,9 @@ _HELP = {
     "descr_dev": "Class-description CSV for dev evaluation.",
     "train_file": "HDF5 feature file for training.",
     "dev_file": "HDF5 feature file for dev evaluation.",
-    "images": "Image source: packaged mammal features (cifar is not "
-              "ported and raises).",
+    "images": "Image source: packaged mammal features, or the CIFAR-10 "
+              "test split's pixels read from ./cifar-10-batches-py "
+              "(needs PIL).",
     "glove_path": "GloVe text file scanned when wv_type=glove.6B.",
     "shuffle_train": "Shuffle training batches each epoch (seed "
                      "11+epoch). Ignored for CIFAR, which always "

@@ -11,7 +11,16 @@ it, and silent device-memory exhaustion is not.
 (``seed(11 + epoch)`` then ``shuffle`` over ``range(N)``, fixed-size
 batches, ascending indices in a batch, misc.py:269-284), the same plan as
 ``data/hdf5_loader.py`` yields. ``h5py`` is imported only by
-:meth:`DeviceDataset.from_hdf5`. The CIFAR path is not ported yet.
+:meth:`DeviceDataset.from_hdf5`.
+
+A set given uint8 features is a CIFAR pixel set
+(:meth:`DeviceDataset.from_cifar`, or pixels made elsewhere): it holds
+the resized pixels as stored, uint8 ``(N, 3, 227, 227)`` (1.55 GB for the
+10,000 test images), and the driver normalizes each gathered batch on
+the device (``data/cifar.py:normalize``). Its plan is the streaming
+loader's: ``RandomState(11 + epoch)``, unsorted rows, whatever
+``shuffle`` says. The dtype is the one decision: staging and plan both
+follow from it.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ class DeviceDataset:
     Attributes:
         feats: ``(N, ...)`` float32 tensor of the image features:
             ``(N, F)`` vectors, or ``(N, C, H, W)`` maps (``layer4_2``)
-            for visual attention.
+            for visual attention; uint8 ``(N, 3, H, W)`` pixels for a
+            CIFAR set.
         context: optional ``(N, C)`` float32 tensor of the attention
             context features (``fc``), gathered with ``feats`` by the
             same indices, else ``None``.
@@ -45,6 +55,12 @@ class DeviceDataset:
         targets_host: int32 numpy copy of ``targets`` (the log's
             "Predictions" line reads it without a device read).
         size: N.
+        cifar: whether ``feats`` are uint8 pixels, kept as stored and
+            planned by :func:`data.cifar.cifar_epoch_perm` instead of the
+            reference loader's order.
+
+    ``feats`` may be a numpy array or a tensor (made on the device, say);
+    uint8 pixels are kept, any other dtype is stored as float32.
     """
 
     def __init__(self, feats, targets, context=None,
@@ -52,8 +68,11 @@ class DeviceDataset:
         dev = resolve_device(device)
         self.targets_host = np.asarray(targets, dtype=np.int32)
         self.size = int(self.targets_host.shape[0])
-        self.feats = torch.as_tensor(np.asarray(feats, np.float32),
-                                     device=dev)
+        if not isinstance(feats, torch.Tensor):
+            feats = torch.from_numpy(np.ascontiguousarray(feats))
+        self.cifar = feats.dtype == torch.uint8
+        self.feats = feats.to(dev) if self.cifar else feats.to(
+            dev, torch.float32)
         if self.feats.shape[0] != self.size:
             raise ValueError(f"{self.feats.shape[0]} feature rows for "
                              f"{self.size} labels")
@@ -86,11 +105,34 @@ class DeviceDataset:
                 "MMG_DEVICE_DATA_LIMIT or shard the file")
         return cls(feats, targets, context, device=device)
 
+    @classmethod
+    def from_cifar(cls, root: str = "./", image_size: int = 227,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> "DeviceDataset":
+        """Stage the CIFAR-10 test split as resized uint8 pixels with the
+        streaming loader's shuffle (data/cifar.py; PIL needed)."""
+        from multimodalgame_tpu_torch.data.cifar import load_cifar_staged
+        pixels, labels = load_cifar_staged(root, image_size)
+        return cls(pixels, labels, device=device)
+
     def epoch_indices(self, epoch: int, shuffle: bool, batch_size: int,
                       truncate_final_batch: bool = False) -> np.ndarray:
         """The epoch's ``(nb, batch_size)`` int64 batch plan in the
         reference loader's order. With ``truncate_final_batch`` the ragged
-        tail comes too, padded with -1 (training never truncates)."""
+        tail comes too, padded with -1 (training never truncates).
+
+        A CIFAR set (``cifar``) takes the streaming loader's plan
+        and ignores ``shuffle``: neither that loader nor the reference's
+        CIFAR ``DataLoader`` has an unshuffled mode, so
+        ``-noshuffle_train`` cannot change its order either; it has no
+        truncated plan."""
+        if self.cifar:
+            if truncate_final_batch:
+                raise ValueError(
+                    "truncate_final_batch is not defined for CIFAR-staged "
+                    "datasets: the streaming loader drops the ragged tail")
+            from multimodalgame_tpu_torch.data.cifar import cifar_epoch_perm
+            return cifar_epoch_perm(self.size, epoch, batch_size)
         order = list(range(self.size))
         if shuffle:
             random.Random(11 + epoch).shuffle(order)

@@ -55,6 +55,13 @@ class AgentModules(nn.Module):
             hid_dim=cfg.baseline_hid_dim, x_dim=0,
             binary_dim=cfg.rec_w_dim, inp_dim=cfg.rec_hidden)
 
+    def forward(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)``: a function of the four agents
+        run as the module's call, so that ``torch.func.functional_call``
+        can run it on other parameters (bfloat16 copies, or one member of
+        a population under ``torch.func.vmap``)."""
+        return fn(self, *args, **kwargs)
+
 
 def init_params(modules: AgentModules, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None

@@ -25,10 +25,15 @@ The port of ``multimodalgame_tpu/game/driver.py:run_fast``:
   the parameters of its dev step.
 
 On a GPU every training step's phase A is one launch of the train-mode
-kernel (``fast="kernel"`` where ``ops/cuda_exchange.py:supports_config``
-holds) and every eval conversation one launch of the eval-mode kernel.
-The configs it rejects (attention, ``mou``, ``-flipout_dev`` with flipout)
-run both on the plain conversation. Under ``attn_extra_context`` the sets
+kernel (``fast="kernel"`` where
+``ops/cuda_exchange.py:train_kernel_supports`` holds) and every eval
+conversation one launch of the eval-mode kernel. The configs it rejects
+(attention, ``mou``, ``-flipout_dev`` with flipout) run both on the plain
+conversation; a ``-compute_dtype bfloat16`` game samples on the plain
+conversation (the train kernel is float32-only) and evaluates in float32
+through the eval kernel. Under ``-images cifar`` the training set is the
+CIFAR-10 pixels, staged as uint8 and normalized on the device batch by
+batch. Under ``attn_extra_context`` the sets
 stage the ``-data_context`` column beside the features, and under
 description attention the packs' padded word sets go to every step.
 Under ``-flipout_dev`` a log window's eval dump draws its flips from
@@ -44,13 +49,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from multimodalgame_tpu_torch.data.cifar import normalize
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.game.exchange import description_inputs
 from multimodalgame_tpu_torch.game.fast_eval import run_device_dev_eval
 from multimodalgame_tpu_torch.game.logpack import LogPacker
 from multimodalgame_tpu_torch.game.train import (
-    make_multistep_train_step_indexed, make_train_step_indexed)
-from multimodalgame_tpu_torch.ops.cuda_exchange import supports_config
+    gather_batch, make_multistep_train_step_indexed, make_train_step_indexed)
+from multimodalgame_tpu_torch.ops.cuda_exchange import train_kernel_supports
 from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
                                                  philox_eval_uniforms)
 from multimodalgame_tpu_torch.utils.checkpoint import save_checkpoint
@@ -59,6 +65,9 @@ from multimodalgame_tpu_torch.utils.profiling import StepTimer
 # Chunk sizes are drawn from this fixed set, so the number of distinct
 # chunk lengths is bounded by its length, not by the flag values.
 _POW2 = (512, 256, 128, 64, 32, 16, 8, 4, 2, 1)
+
+# The reference's Scale(227) of the CIFAR images (model.py:1195-1206).
+CIFAR_IMAGE_SIZE = 227
 
 # A recurring sub-512 remainder runs as one exact-length piece from its
 # second occurrence on; its first occurrence decomposes into _POW2
@@ -106,7 +115,8 @@ def resolve_mesh(flags) -> None:
     if int(flags.mesh or 0) not in (0, 1) or int(flags.mesh_model or 0) > 1:
         raise NotImplementedError(
             "-mesh/-mesh_model parallelism is not ported to PyTorch yet "
-            "(ROADMAP §1.10, scale-out)")
+            "(ROADMAP §1.10.2: data parallelism and the sharded "
+            "population)")
 
 
 def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
@@ -128,7 +138,28 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     cfg = modules.cfg
     device = next(modules.parameters()).device
     ctx_key = flags.data_context if flags.attn_extra_context else None
-    if train_ds is None:
+    transform = context_fn = None
+    if flags.images == "cifar":
+        # The pixels are staged as resized uint8 and normalized on the
+        # device, batch by batch; the fc context of attn_extra_context is
+        # the same flat pixels, derived from the batch instead of staged
+        # twice (JAX driver.py:190-210). The dev set is a feature file.
+        if train_ds is None:
+            train_ds = DeviceDataset.from_cifar(image_size=CIFAR_IMAGE_SIZE,
+                                                device=device)
+        if not train_ds.cifar:
+            raise ValueError("-images cifar trains on uint8 pixels, got "
+                             f"{train_ds.feats.dtype} features")
+        flat_feat = flags.img_feat != "layer4_2"
+
+        def transform(x):
+            x = normalize(x)
+            return x.reshape(x.shape[0], -1) if flat_feat else x
+
+        if flags.attn_extra_context:
+            def context_fn(data):
+                return data.reshape(data.shape[0], -1)
+    elif train_ds is None:
         train_ds = DeviceDataset.from_hdf5(flags.train_file, flags.img_feat,
                                            map_labels=desc_train.map_labels,
                                            context_key=ctx_key,
@@ -141,9 +172,9 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     desc = descs.pop("desc")
     seed = flags.random_seed + 1
 
-    fast = "kernel" if supports_config(cfg) else "auto"
-    trainer_kw = dict(fast=fast, seed=seed,
-                      uniforms=uniforms, device=device)
+    fast = "kernel" if train_kernel_supports(cfg) else "auto"
+    trainer_kw = dict(fast=fast, seed=seed, uniforms=uniforms, device=device,
+                      transform=transform, context_fn=context_fn)
     full_step = make_train_step_indexed(modules, flags.top_k_train,
                                         flags.batch_size, **trainer_kw)
     chunk_step = make_multistep_train_step_indexed(
@@ -347,10 +378,11 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
                 # The eval conversation on the same batch, for the
                 # inferred-conversation dump (model.py:1463-1465).
                 with torch.no_grad():
+                    data, ctx = gather_batch(train_ds.feats, row,
+                                             train_ds.context, transform,
+                                             context_fn)
                     ex_eval = eval_exchange(
-                        train_ds.feats[row], desc,
-                        data_context=(None if train_ds.context is None
-                                      else train_ds.context[row]),
+                        data, desc, data_context=ctx,
                         uniforms=philox_eval_uniforms(
                             cfg, len(row_np), seed, t, EVAL_DUMP_SLOT,
                             device), **descs)

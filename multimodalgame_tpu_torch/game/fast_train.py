@@ -17,7 +17,10 @@ through time that the backward pass needs is the Receiver's GRU chain:
 
 Configs the kernel does not cover (``supports_config``: attention, ``mou``,
 ``flipout_dev`` with flipout) sample on the plain exchange, as the JAX
-package's phase A does (fast_train.py:96-106).
+package's phase A does (fast_train.py:96-106), and so do bfloat16 games:
+the kernel samples in float32 only (fast_train.py:87-89). Under
+``compute_dtype="bfloat16"`` both phases run on bfloat16 copies of the
+parameters, and the record is cast back to float32 for the losses.
 
 The losses see the same values as the scan path's: the recomputed
 probabilities are the same functions of the same inputs.
@@ -34,6 +37,7 @@ from multimodalgame_tpu_torch.game.exchange import (ExchangeOutputs,
                                                     exchange,
                                                     finalize_stop_masks)
 from multimodalgame_tpu_torch.game.train import (TrainMetrics,
+                                                 in_compute_dtype,
                                                  losses_from_exchange)
 from multimodalgame_tpu_torch.ops.cuda_exchange import (fused_train_forward,
                                                         kernel_params)
@@ -83,7 +87,32 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
                         desc_set_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, TrainMetrics]:
     """The summed loss and the metrics of one training step, by the
-    sample-then-recompute path (fast_train.py:73-172)."""
+    sample-then-recompute path (fast_train.py:73-172). Under
+    ``compute_dtype="bfloat16"`` both phases run in bfloat16 and the loss
+    algebra in float32 (``game/train.py:in_compute_dtype``); the kernel
+    sampler is float32-only and refuses it."""
+    cfg = modules.cfg
+    if cfg.compute_dtype == "bfloat16" and sampler == "kernel":
+        raise ValueError("the kernel sampler is float32-only; use the "
+                         "plain sampler with bfloat16")
+    ex = in_compute_dtype(modules, fast_exchange, data, desc,
+                          sampler=sampler, uniforms=uniforms, seed=seed,
+                          step=step, data_context=data_context,
+                          desc_set_padded=desc_set_padded,
+                          desc_set_mask=desc_set_mask)
+    return losses_from_exchange(cfg, ex, target, top_k, batch_denom)
+
+
+def fast_exchange(modules: AgentModules, data: torch.Tensor,
+                  desc: torch.Tensor, sampler: str = "plain",
+                  uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                  seed: Optional[int] = None, step: Optional[int] = None,
+                  data_context: Optional[torch.Tensor] = None,
+                  desc_set_padded: Optional[torch.Tensor] = None,
+                  desc_set_mask: Optional[torch.Tensor] = None
+                  ) -> ExchangeOutputs:
+    """Phases A and B: the differentiable conversation record that the
+    losses read, in the dtype of ``data`` and the parameters."""
     cfg = modules.cfg
     T = cfg.max_exchange
     batch = data.shape[0]
@@ -129,9 +158,8 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
     bs = modules.baseline_sen(h_x.detach(), w_prev, None)
     br = modules.baseline_rec(None, z_bits, h_stack.detach())
 
-    ex = ExchangeOutputs(
+    return ExchangeOutputs(
         stop_masks=stop_masks, stop_feats=s_bits, stop_probs=s_probs,
         sen_feats=z_bits, sen_probs=z_probs, rec_feats=w_bits,
         rec_probs=w_probs, y=y, bs=bs, br=br, n_steps=n_steps,
         attn_scores=attn)
-    return losses_from_exchange(cfg, ex, target, top_k, batch_denom)

@@ -9,7 +9,15 @@ Every tensor that crosses between the agents is detached, so one
 gradient. Each agent then takes its own clip-by-global-norm(1.0) and
 optimizer step, written out by hand with optax's conventions
 (train.py:42-62): RMSprop with ``alpha = 0.99`` and ``eps`` outside the
-square root, Adam with bias correction, plain SGD.
+square root, Adam with bias correction, plain SGD. The rule is a pure
+function (:func:`optimizer_update`), which the single game applies in
+place and the population (``parallel/population.py``) over its stacked
+members.
+
+With ``compute_dtype="bfloat16"`` the conversation runs on bfloat16
+copies of the float32 parameters and the losses in float32
+(:func:`in_compute_dtype`, JAX train.py:84-120); phase A then samples on
+the plain exchange, as the train kernel is float32-only.
 
 The steps update the modules and the optimizer states in place and
 return the metrics. Randomness is pluggable: by default the uniforms of
@@ -44,9 +52,9 @@ from multimodalgame_tpu_torch.game.losses import (get_rec_outp, loglikelihood,
                                                   multistep_loss_binary,
                                                   nll_loss, topk_accuracy)
 from multimodalgame_tpu_torch.game.masks import assemble_loss_masks
-from multimodalgame_tpu_torch.ops.cuda_exchange import (fused_eval_exchange,
-                                                        kernel_params,
-                                                        supports_config)
+from multimodalgame_tpu_torch.ops.cuda_exchange import (
+    fused_eval_exchange, kernel_params, supports_config,
+    train_kernel_supports)
 from multimodalgame_tpu_torch.ops.philox import philox_uniforms
 from multimodalgame_tpu_torch.utils.device import resolve_device
 
@@ -65,16 +73,23 @@ def init_opt_states(cfg: GameConfig, modules: AgentModules
                     ) -> Dict[str, Dict[str, Any]]:
     """Per-agent optimizer slots, zeros beside each parameter: RMSprop
     ``nu``, Adam ``mu``/``nu``/``count``, nothing for SGD."""
+    return zero_slots(cfg, {name: list(getattr(modules, name).parameters())
+                            for name in AGENT_NAMES})
+
+
+def zero_slots(cfg: GameConfig, params: Dict[str, List[torch.Tensor]]
+               ) -> Dict[str, Dict[str, Any]]:
+    """:func:`init_opt_states` for each agent's list of parameter tensors
+    (a population's stacked ones too)."""
     if cfg.optim_type not in ("SGD", "Adam", "RMSprop"):
         raise NotImplementedError(cfg.optim_type)
     states = {}
-    for name in AGENT_NAMES:
-        params = list(getattr(modules, name).parameters())
+    for name, tensors in params.items():
         state: Dict[str, Any] = {}
         if cfg.optim_type in ("Adam", "RMSprop"):
-            state["nu"] = [torch.zeros_like(p) for p in params]
+            state["nu"] = [torch.zeros_like(p) for p in tensors]
         if cfg.optim_type == "Adam":
-            state["mu"] = [torch.zeros_like(p) for p in params]
+            state["mu"] = [torch.zeros_like(p) for p in tensors]
             state["count"] = 0
         states[name] = state
     return states
@@ -82,13 +97,54 @@ def init_opt_states(cfg: GameConfig, modules: AgentModules
 
 @torch.no_grad()
 def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float = CLIP_NORM) -> List[torch.Tensor]:
+                        max_norm: float = CLIP_NORM,
+                        batch_dims: int = 0) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: ``g`` when ``‖g‖ < max_norm``,
     else ``(g / ‖g‖) · max_norm``. Not torch's ``clip_grad_norm_``, which
-    divides by ``‖g‖ + 1e-6``."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    divides by ``‖g‖ + 1e-6``. With ``batch_dims`` leading axes (a
+    population's member axis) the norm is taken per index of those axes,
+    over every other axis."""
+    def sq(g):
+        return (g * g).sum(dim=tuple(range(batch_dims, g.dim()))) \
+            if g.dim() > batch_dims else g * g
+    norm = torch.sqrt(sum(sq(g) for g in grads))
     keep = norm < max_norm
-    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+
+    def lift(x, g):
+        return x.reshape(x.shape + (1,) * (g.dim() - batch_dims))
+    return [torch.where(lift(keep, g), g, (g / lift(norm, g)) * max_norm)
+            for g in grads]
+
+
+@torch.no_grad()
+def optimizer_update(cfg: GameConfig, grads: List[torch.Tensor],
+                     state: Dict[str, Any], batch_dims: int = 0
+                     ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
+    """One agent's clip-by-global-norm and optimizer rule as a pure
+    function: ``(updates, new_state)``, where the parameter moves by
+    ``-learning_rate * update`` (train.py:42-62, 293-304). ``state`` is
+    not changed. ``batch_dims`` leading axes of every tensor (a
+    population's member axis) are independent problems: the clip norm is
+    taken per member, every other step is elementwise."""
+    grads = clip_by_global_norm(grads, batch_dims=batch_dims)
+    if cfg.optim_type == "SGD":
+        return grads, state
+    if cfg.optim_type == "RMSprop":
+        nu = [(1 - RMS_DECAY) * g ** 2 + RMS_DECAY * v
+              for g, v in zip(grads, state["nu"])]
+        return ([(1 / (torch.sqrt(v) + RMS_EPS)) * g
+                 for g, v in zip(grads, nu)], {**state, "nu": nu})
+    if cfg.optim_type == "Adam":
+        count = state["count"] + 1
+        c1, c2 = 1 - ADAM_B1 ** count, 1 - ADAM_B2 ** count
+        mu = [(1 - ADAM_B1) * g + ADAM_B1 * m
+              for g, m in zip(grads, state["mu"])]
+        nu = [(1 - ADAM_B2) * g ** 2 + ADAM_B2 * v
+              for g, v in zip(grads, state["nu"])]
+        return ([(m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
+                 for m, v in zip(mu, nu)],
+                {**state, "mu": mu, "nu": nu, "count": count})
+    raise NotImplementedError(cfg.optim_type)
 
 
 @torch.no_grad()
@@ -96,32 +152,20 @@ def apply_agent_updates(cfg: GameConfig, update_names, modules: AgentModules,
                         opt_states: Dict[str, Dict[str, Any]]) -> None:
     """One clip + optimizer step per trained agent, in place, from the
     parameters' ``.grad`` (a parameter without one counts as zero)
-    (train.py:293-304)."""
+    (train.py:293-304). The slots' lists are refilled in place, so every
+    holder of ``opt_states`` sees the new state."""
     lr = cfg.learning_rate
     for name in update_names:
         params = list(getattr(modules, name).parameters())
-        grads = clip_by_global_norm(
-            [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params])
+        updates, new = optimizer_update(
+            cfg, [p.grad if p.grad is not None else torch.zeros_like(p)
+                  for p in params], opt_states[name])
         state = opt_states[name]
-        if cfg.optim_type == "SGD":
-            updates = grads
-        elif cfg.optim_type == "RMSprop":
-            updates = []
-            for g, nu in zip(grads, state["nu"]):
-                nu.copy_((1 - RMS_DECAY) * g ** 2 + RMS_DECAY * nu)
-                updates.append((1 / (torch.sqrt(nu) + RMS_EPS)) * g)
-        elif cfg.optim_type == "Adam":
-            state["count"] += 1
-            c1 = 1 - ADAM_B1 ** state["count"]
-            c2 = 1 - ADAM_B2 ** state["count"]
-            updates = []
-            for g, mu, nu in zip(grads, state["mu"], state["nu"]):
-                mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
-                nu.copy_((1 - ADAM_B2) * g ** 2 + ADAM_B2 * nu)
-                updates.append((mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS))
-        else:
-            raise NotImplementedError(cfg.optim_type)
+        for slot in ("mu", "nu"):
+            if slot in state:
+                state[slot][:] = new[slot]
+        if "count" in state:
+            state["count"] = new["count"]
         for p, u in zip(params, updates):
             p.add_(-lr * u)
 
@@ -215,6 +259,42 @@ def losses_from_exchange(cfg: GameConfig, ex: ExchangeOutputs,
     return total, metrics
 
 
+def cast_floating(x, dtype: torch.dtype):
+    """``x`` with every floating tensor cast to ``dtype``: a tensor, or a
+    named tuple of tensors and other values (a conversation record); other
+    values pass through. Differentiable: gradients come back in each
+    source's dtype (JAX game/train.py:84-91)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype) if x.is_floating_point() else x
+    if isinstance(x, tuple):
+        return type(x)(*(cast_floating(v, dtype) for v in x))
+    return x
+
+
+def in_compute_dtype(modules: AgentModules, conversation: Callable,
+                     *tensors, **kwargs) -> ExchangeOutputs:
+    """``conversation(modules, *tensors, **kwargs)``, a function that
+    returns the conversation record, in ``cfg.compute_dtype``.
+
+    Under ``bfloat16`` the agents run on bfloat16 copies of their float32
+    parameters (cast differentiably, so gradients come back float32 to
+    the parameters the optimizers update), the floating ``tensors`` and
+    the attention inputs among ``kwargs`` are cast too, and the record is
+    cast back to float32 before any loss algebra (JAX
+    game/train.py:110-120). The uniforms stay float32 and are compared
+    with the probabilities in float32 (ops/sampling.py)."""
+    if modules.cfg.compute_dtype != "bfloat16":
+        return conversation(modules, *tensors, **kwargs)
+    bf16 = torch.bfloat16
+    kwargs = {k: (v if k == "uniforms" else cast_floating(v, bf16))
+              for k, v in kwargs.items()}
+    params = {k: p.to(bf16) for k, p in modules.named_parameters()}
+    ex = torch.func.functional_call(
+        modules, params, (conversation,) + tuple(
+            cast_floating(t, bf16) for t in tensors), kwargs)
+    return cast_floating(ex, torch.float32)
+
+
 def compute_losses(modules: AgentModules, data: torch.Tensor,
                    target: torch.Tensor, desc: torch.Tensor, top_k: int,
                    batch_denom: int, uniforms: Dict[str, torch.Tensor],
@@ -222,18 +302,19 @@ def compute_losses(modules: AgentModules, data: torch.Tensor,
     """One training forward pass through the plain train-mode exchange,
     baselines scored turn by turn, and every loss term
     (train.py:94-120). ``inputs`` are the exchange's attention inputs
-    (``data_context``, ``desc_set_padded``, ``desc_set_mask``)."""
-    ex = exchange(modules, data, desc, train=True, uniforms=uniforms,
-                  **inputs)
+    (``data_context``, ``desc_set_padded``, ``desc_set_mask``). Under
+    ``compute_dtype="bfloat16"`` the conversation runs in bfloat16 and the
+    losses in float32 (:func:`in_compute_dtype`)."""
+    ex = in_compute_dtype(modules, _train_exchange, data, desc,
+                          uniforms=uniforms, **inputs)
     return losses_from_exchange(modules.cfg, ex, target, top_k, batch_denom)
 
 
+def _train_exchange(modules, data, desc, **kwargs) -> ExchangeOutputs:
+    return exchange(modules, data, desc, train=True, **kwargs)
+
+
 # ------------------------------------------------------------------- trainers
-
-def _rows(feats: Optional[torch.Tensor], idx: torch.Tensor
-          ) -> Optional[torch.Tensor]:
-    return None if feats is None else feats[idx]
-
 
 def _detach(x):
     if isinstance(x, torch.Tensor):
@@ -256,15 +337,13 @@ class _Trainer:
         if not (fast is True or fast is False or fast in ("auto", "kernel")):
             raise ValueError(f"fast must be one of {FAST_MODES}, got "
                              f"{fast!r}")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} training is not "
-                "ported to PyTorch yet")
-        if fast == "kernel" and not supports_config(cfg):
+        if fast == "kernel" and not train_kernel_supports(cfg):
             raise ValueError(
-                "fast='kernel' needs a config the fused kernel supports "
-                "(binary channel, no attention, sum or prod mix, no "
-                "-flipout_dev with flipout)")
+                "fast='kernel' needs a config the train kernel samples: "
+                "binary channel, no attention, sum or prod mix, no "
+                "-flipout_dev with flipout, and float32 compute (the "
+                "kernel samples in float32 only; bfloat16 takes the plain "
+                "sampler)")
         self.modules = modules
         self.cfg = cfg
         self.top_k, self.batch_denom = top_k, batch_denom
@@ -345,28 +424,49 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
     return step
 
 
+def gather_batch(feats, idx, feats_context=None, transform=None,
+                 context_fn=None):
+    """The batch ``feats[idx]`` (through ``transform`` when given) and its
+    context: ``feats_context[idx]``, else ``context_fn`` of the batch."""
+    data = feats[idx]
+    if transform is not None:
+        data = transform(data)
+    if feats_context is not None:
+        return data, feats_context[idx]
+    return data, None if context_fn is None else context_fn(data)
+
+
 def make_train_step_indexed(modules: AgentModules, top_k: int,
                             batch_denom: int,
                             fast: Union[bool, str] = "auto", *,
                             seed: int = 0,
                             uniforms: Optional[UniformSource] = None,
                             device: Optional[Union[str,
-                                                   torch.device]] = None):
+                                                   torch.device]] = None,
+                            transform: Optional[Callable] = None,
+                            context_fn: Optional[Callable] = None):
     """Build ``step(opt_states, feats, targets, idx, desc, step0,
     feats_context=None, desc_set_padded=None, desc_set_mask=None) ->
     TrainMetrics`` over a dataset already on the device
     (data/device_dataset.py): the batch is ``feats[idx]``, its context
     ``feats_context[idx]`` (train.py:412-467). Randomness is keyed by
     ``step0`` as in :func:`make_multistep_train_step_indexed`, so a step
-    run alone equals the same step inside a chunk."""
+    run alone equals the same step inside a chunk.
+
+    ``transform`` maps the gathered batch before the step (the CIFAR
+    pixels' normalization, on the device); ``context_fn`` derives the
+    attention context from the transformed batch where no
+    ``feats_context`` is staged (JAX train.py:432-437)."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
 
     def step(opt_states, feats, targets, idx, desc, step0: int,
              feats_context=None, desc_set_padded=None, desc_set_mask=None
              ) -> TrainMetrics:
         idx = tr.tensor(idx, torch.long)
-        return tr.step(opt_states, feats[idx], targets[idx].long(), desc,
-                       step0, data_context=_rows(feats_context, idx),
+        data, ctx = gather_batch(feats, idx, feats_context, transform,
+                                 context_fn)
+        return tr.step(opt_states, data, targets[idx].long(), desc,
+                       step0, data_context=ctx,
                        desc_set_padded=desc_set_padded,
                        desc_set_mask=desc_set_mask)
 
@@ -379,14 +479,17 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
                                       seed: int = 0,
                                       uniforms: Optional[UniformSource] = None,
                                       device: Optional[Union[
-                                          str, torch.device]] = None):
+                                          str, torch.device]] = None,
+                                      transform: Optional[Callable] = None,
+                                      context_fn: Optional[Callable] = None):
     """Build ``chunk(opt_states, feats, targets, idx (K, B), desc,
     step0=0, feats_context=None, desc_set_padded=None, desc_set_mask=None)
     -> ScanMetrics``: K training steps over a dataset already on the
     device, step ``i`` on batch ``feats[idx[i]]`` (and context
     ``feats_context[idx[i]]``) with the randomness of global step
     ``step0 + i`` (train.py:470-542). The metrics stay on
-    the device until the caller reads them."""
+    the device until the caller reads them. ``transform`` and
+    ``context_fn`` are :func:`make_train_step_indexed`'s."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
 
     def chunk(opt_states, feats, targets, idx, desc, step0: int = 0,
@@ -395,9 +498,10 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
         idx = tr.tensor(idx, torch.long)
         rows = []
         for i in range(idx.shape[0]):
-            m = tr.step(opt_states, feats[idx[i]], targets[idx[i]].long(),
-                        desc, int(step0) + i,
-                        data_context=_rows(feats_context, idx[i]),
+            data, ctx = gather_batch(feats, idx[i], feats_context,
+                                     transform, context_fn)
+            m = tr.step(opt_states, data, targets[idx[i]].long(),
+                        desc, int(step0) + i, data_context=ctx,
                         desc_set_padded=desc_set_padded,
                         desc_set_mask=desc_set_mask)
             rows.append((m.loss_rec, m.loss_sen, m.nll_loss, m.loss_bas_rec,

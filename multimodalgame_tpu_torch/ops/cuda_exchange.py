@@ -263,6 +263,16 @@ def supports_config(cfg: GameConfig) -> bool:
                                           cfg.flipout_rec is not None)))
 
 
+def train_kernel_supports(cfg: GameConfig) -> bool:
+    """The train-mode kernel may sample this config's phase A: one the
+    kernel supports, trained in float32. The kernel samples in float32
+    only, as the JAX package's Pallas sampler does (fast_train.py:87-89);
+    a bfloat16 game samples on the plain exchange, and its eval
+    conversations (float32 in both packages) still take the eval kernel
+    through :func:`supports_config`."""
+    return supports_config(cfg) and cfg.compute_dtype == "float32"
+
+
 def param_shapes(cfg: GameConfig) -> Dict[str, Tuple[int, ...]]:
     F, H, W = cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim
     R, V = cfg.rec_hidden, cfg.wv_dim

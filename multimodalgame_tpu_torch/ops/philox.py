@@ -6,7 +6,8 @@ Counterpart of ``multimodalgame_tpu/ops/pallas_exchange.py:_uniform01``
 cannot reproduce those bits, so the port's kernel (csrc/fused_exchange.cu,
 train mode) runs Philox4x32-10 (Salmon et al., SC'11, the Random123
 generator) keyed by ``(seed, step)``. This module computes the same
-numbers with numpy, for the CPU path and the tests.
+numbers in torch, on any device: the plain sampler's uniforms, the CPU
+path of the kernel's wrapper, and the tests.
 
 Layout, the kernel's own: the uniform of stream ``k``, turn ``t``, global
 batch row ``r`` and column ``c`` is word ``c % 4`` of
@@ -24,13 +25,26 @@ the same generator, on counter words ``8 * (1 + slot) + stream`` that no
 training stream uses (:func:`philox_eval_uniforms`): slot
 :data:`EVAL_DUMP_SLOT` for a log window's eval dump, slot ``1 + i`` for
 batch ``i`` of a dev sweep.
+
+Member ``m`` of a population (``parallel/population.py``) draws what a
+single game draws, training streams and eval slots alike, with the first
+counter word ``c // 4`` raised by ``(m + 1) << 16``
+(:data:`MEMBER_SHIFT`): ``counter = (((m + 1) << 16) + c // 4, r, t, k)``
+under the same key ``(seed, step)``. A single game's first counter word
+is below ``2**16`` for every width below ``2**18``, so no member shares a
+counter with a single game's training streams or eval slots, nor with
+another member. :func:`member_uniforms` draws every member of a step in
+one vectorized call on the population's device.
+
+The words are 32-bit unsigned integers held in int64 tensors. A product
+of two of them wraps around in int64, but its low 64 bits are exact, so
+its high and low words are bits 32-63 and 0-31 (:func:`_mulhilo`).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from multimodalgame_tpu_torch.ops.sampling import uniform_widths
@@ -40,46 +54,80 @@ STREAMS = {"z": 0, "fz": 1, "s": 2, "w": 3, "fw": 4}
 # Counter-word stride between the eval slots, above the training streams.
 EVAL_SLOT_STRIDE = 8
 EVAL_DUMP_SLOT = 0
+# Member m's first counter word is offset by (m + 1) << MEMBER_SHIFT.
+MEMBER_SHIFT = 16
 
-_M0, _M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
-_W0, _W1 = np.uint32(0x9E3779B9), np.uint32(0xBB67AE85)
-_LO = np.uint64(0xFFFFFFFF)
+_MASK32 = 0xFFFFFFFF
 
 
-def philox4x32_10(counter: Tuple[np.ndarray, ...], key: Tuple[int, int]
-                  ) -> Tuple[np.ndarray, ...]:
-    """Philox4x32 with 10 rounds on broadcastable uint32 arrays.
+def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The high and low 32-bit words of ``m * a`` for 32-bit ``a`` held in
+    int64 (the product's low 64 bits survive its wraparound)."""
+    p = a * m
+    return (p >> 32) & _MASK32, p & _MASK32
 
-    ``counter`` is four arrays ``(c0, c1, c2, c3)``, ``key`` two 32-bit
-    integers. Returns the four output words."""
-    c0, c1, c2, c3 = (np.asarray(c, np.uint32) for c in counter)
-    c0, c1, c2, c3 = np.broadcast_arrays(c0, c1, c2, c3)
-    k0, k1 = np.uint32(key[0] & 0xFFFFFFFF), np.uint32(key[1] & 0xFFFFFFFF)
-    with np.errstate(over="ignore"):
-        for _ in range(10):
-            p0 = _M0 * c0.astype(np.uint64)
-            p1 = _M1 * c2.astype(np.uint64)
-            hi0, lo0 = (p0 >> np.uint64(32)).astype(np.uint32), \
-                (p0 & _LO).astype(np.uint32)
-            hi1, lo1 = (p1 >> np.uint64(32)).astype(np.uint32), \
-                (p1 & _LO).astype(np.uint32)
-            c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-            k0, k1 = k0 + _W0, k1 + _W1
+
+def philox4x32_10(counter, key: Tuple[int, int]
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32 with 10 rounds.
+
+    ``counter`` is four broadcastable int64 tensors (or integers) holding
+    32-bit words ``(c0, c1, c2, c3)``, ``key`` two 32-bit integers.
+    Returns the four output words, int64 tensors of the broadcast shape
+    on the counter's device."""
+    dev = next((c.device for c in counter if isinstance(c, torch.Tensor)),
+               None)
+    c0, c1, c2, c3 = torch.broadcast_tensors(*(
+        torch.as_tensor(c, dtype=torch.int64, device=dev) for c in counter))
+    k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, 0xD2511F53)
+        hi1, lo1 = _mulhilo(c2, 0xCD9E8D57)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + 0x9E3779B9) & _MASK32, (k1 + 0xBB67AE85) & _MASK32
     return c0, c1, c2, c3
 
 
+def _draw(streams: Dict[str, int], widths: Dict[str, int], turns: int,
+          batch: int, seed: int, step: int, members: Optional[int],
+          device) -> Dict[str, torch.Tensor]:
+    """Each set ``name``'s ``(turns, batch, widths[name])`` float32
+    uniforms on stream ``streams[name]`` (with a leading ``members`` axis
+    and the member in the first counter word, when ``members`` is given),
+    in one vectorized call on ``device`` (the CPU by default)."""
+    names = list(widths)
+    quads = -(-max(widths.values()) // 4)
+    dev = torch.device(device or "cpu")
+
+    def axis(values, dim):
+        shape = [1] * 5
+        shape[dim] = -1
+        return torch.as_tensor(list(values), dtype=torch.int64,
+                               device=dev).reshape(shape)
+
+    # (streams, members, turns, rows, column quads)
+    q = axis(range(quads), 4)
+    word0 = q if members is None else (
+        (axis(range(members), 1) + 1) << MEMBER_SHIFT) + q
+    shape = (len(names), members or 1, turns, batch, quads)
+    words = philox4x32_10(
+        tuple(w.expand(shape) for w in (
+            word0, axis(range(batch), 3), axis(range(turns), 2),
+            axis([streams[n] for n in names], 0))),
+        (seed, step))
+    x = torch.stack(words, dim=-1).reshape(shape[:-1] + (4 * quads,))
+    u = (x >> 8).to(torch.float32) * (2.0 ** -24)
+    if members is None:
+        u = u[:, 0]
+    return {n: u[i, ..., :widths[n]].contiguous()
+            for i, n in enumerate(names)}
+
+
 def uniforms_for(stream: int, turns: int, batch: int, width: int,
-                 seed: int, step: int) -> np.ndarray:
+                 seed: int, step: int, device=None) -> torch.Tensor:
     """The ``(turns, batch, width)`` float32 uniforms of one stream."""
-    t = np.arange(turns, dtype=np.uint32)[:, None, None]
-    r = np.arange(batch, dtype=np.uint32)[None, :, None]
-    c = np.arange(width, dtype=np.uint32)[None, None, :]
-    words = philox4x32_10((c >> np.uint32(2), r, t, np.uint32(stream)),
-                          (seed, step))
-    stacked = np.stack(words, axis=-1)                  # (T, B, W, 4)
-    x = np.take_along_axis(stacked, (c % 4)[..., None].astype(np.intp),
-                           axis=-1)[..., 0]
-    return (x >> np.uint32(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    return _draw({"u": stream}, {"u": width}, turns, batch, seed, step,
+                 None, device)["u"]
 
 
 def philox_uniforms(cfg, batch: int, seed: int, step: int,
@@ -87,10 +135,14 @@ def philox_uniforms(cfg, batch: int, seed: int, step: int,
     """The uniforms the train-mode kernel draws for ``(seed, step)``:
     ``{s, z, w[, fz, fw]}``, each ``(max_exchange, batch, dim)`` float32,
     on ``device`` (the CPU by default)."""
-    return {name: torch.from_numpy(uniforms_for(
-        STREAMS[name], cfg.max_exchange, batch, width, seed, step)).to(
-            device or "cpu")
-        for name, width in uniform_widths(cfg, train=True).items()}
+    return _draw(STREAMS, uniform_widths(cfg, train=True), cfg.max_exchange,
+                 batch, seed, step, None, device)
+
+
+def _eval_streams(slot: int) -> Dict[str, int]:
+    """The stream numbers of eval slot ``slot``."""
+    return {name: EVAL_SLOT_STRIDE * (1 + slot) + index
+            for name, index in STREAMS.items()}
 
 
 def philox_eval_uniforms(cfg, batch: int, seed: int, step: int, slot: int,
@@ -102,8 +154,22 @@ def philox_eval_uniforms(cfg, batch: int, seed: int, step: int, slot: int,
     widths = uniform_widths(cfg, train=False)
     if not widths:
         return None
-    base = EVAL_SLOT_STRIDE * (1 + slot)
-    return {name: torch.from_numpy(uniforms_for(
-        base + STREAMS[name], cfg.max_exchange, batch, width, seed,
-        step)).to(device or "cpu")
-        for name, width in widths.items()}
+    return _draw(_eval_streams(slot), widths, cfg.max_exchange, batch, seed,
+                 step, None, device)
+
+
+def member_uniforms(cfg, batch: int, seed: int, step: int, members: int,
+                    device=None, slot: Optional[int] = None
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+    """The uniforms of ``members`` population members for ``(seed,
+    step)``, drawn in one vectorized call on ``device`` (the CPU by
+    default): each ``(members, max_exchange, batch, dim)`` float32. With
+    ``slot`` None the training streams (``{s, z, w[, fz, fw]}``), else the
+    eval slot's ``fz``/``fw`` under ``flipout_dev`` (``None`` when the
+    eval conversation draws nothing)."""
+    widths = uniform_widths(cfg, train=slot is None)
+    if not widths:
+        return None
+    streams = STREAMS if slot is None else _eval_streams(slot)
+    return _draw(streams, widths, cfg.max_exchange, batch, seed, step,
+                 members, device)

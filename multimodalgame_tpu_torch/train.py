@@ -9,9 +9,13 @@ Both print their interval logs through :func:`emit_log_window`.
 
 ``run`` trains on ``cuda`` unless the caller passes ``device="cpu"``.
 Every preset runs, the attention ones (``layer4_2`` maps with the ``fc``
-context) included, and so do ``-desc_attn``, ``-sender_mix mou`` and
-``-flipout_dev``. Flags the port does not cover raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+context) included, and so do ``-desc_attn``, ``-sender_mix mou``,
+``-flipout_dev``, ``-compute_dtype bfloat16`` (the conversation in
+bfloat16, parameters, optimizers and losses in float32) and ``-images
+cifar`` (the CIFAR-10 test split's pixels as features; PIL reads and
+resizes them, or the caller stages them through ``inputs``). Flags the
+port does not cover raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -189,14 +193,6 @@ def check_supported(flags: Flags) -> None:
         raise NotImplementedError(
             "-num_processes > 1 is not ported to PyTorch yet (ROADMAP "
             "§1.10, scale-out)")
-    if flags.images == "cifar":
-        raise NotImplementedError(
-            "-images cifar is not ported to PyTorch yet (ROADMAP §1.9.4, "
-            "breadth)")
-    if flags.compute_dtype != "float32":
-        raise NotImplementedError(
-            "-compute_dtype bfloat16 is not ported to PyTorch yet (ROADMAP "
-            "§1.9.3, breadth)")
     if flags.ckpt_format == "orbax":
         raise NotImplementedError(ORBAX_NOT_PORTED)
 
@@ -213,8 +209,11 @@ def run(flags: Flags, max_steps: Optional[int] = None,
 
     ``inputs`` replaces the description and feature file reads with sets
     held in memory (the staged paths only: the fast driver and the
-    device dev sweep); ``uniforms`` (``step -> {s, z, w[, fz, fw]}``)
-    replaces the Philox stream of the training steps."""
+    device dev sweep); under ``-images cifar`` its training set is the
+    uint8 pixel set (a ``DeviceDataset`` of uint8 pixels, as
+    ``DeviceDataset.from_cifar`` stages it).
+    ``uniforms`` (``step -> {s, z, w[, fz, fw]}``) replaces the Philox
+    stream of the training steps."""
     device = resolve_device(device)
     check_supported(flags)
     if inputs is not None and (flags.binary_only or not flags.fast_driver):
@@ -343,14 +342,17 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
                    flogger, logger, eval_exchange, step, best_dev_acc,
                    max_steps, uniforms) -> dict:
     """The per-batch loop of ``-nofast_driver`` (reference
-    model.py:1190-1592): batches read from the HDF5 file, one training
-    step each, the dev evaluation on the host (``eval.py``)."""
+    model.py:1190-1592): batches read from the HDF5 file (or, under
+    ``-images cifar``, streamed from the CIFAR pickle in the working
+    directory, ``data/cifar.py:load_cifar``), one training step each, the
+    dev evaluation on the host (``eval.py``)."""
     from multimodalgame_tpu_torch.data.hdf5_loader import load_hdf5
     from multimodalgame_tpu_torch.eval import context_of, eval_dev
     from multimodalgame_tpu_torch.game.exchange import description_inputs
     from multimodalgame_tpu_torch.game.logpack import LogPacker
     from multimodalgame_tpu_torch.game.train import make_train_step
-    from multimodalgame_tpu_torch.ops.cuda_exchange import supports_config
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        train_kernel_supports)
     from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
                                                      philox_eval_uniforms)
 
@@ -359,7 +361,7 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
     seed = flags.random_seed + 1
     train_step = make_train_step(
         modules, flags.top_k_train, flags.batch_size,
-        fast="kernel" if supports_config(cfg) else "auto",
+        fast="kernel" if train_kernel_supports(cfg) else "auto",
         seed=seed, uniforms=uniforms, device=device)
     packer = LogPacker(cfg, flags.batch_size, flags.exchange_samples)
     descs = description_inputs(desc_train, cfg, device)
@@ -389,9 +391,16 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
 
     while epoch < flags.max_epoch and not done:
         flogger.Log("Starting epoch: {}".format(epoch))
-        for i_batch, batch in enumerate(load_hdf5(
-                flags.train_file, flags.batch_size, epoch,
-                flags.shuffle_train, map_labels=desc_train.map_labels)):
+        if flags.images == "cifar":
+            from multimodalgame_tpu_torch.data.cifar import load_cifar
+            from multimodalgame_tpu_torch.game import driver
+            batches = load_cifar(flags.batch_size, epoch,
+                                 image_size=driver.CIFAR_IMAGE_SIZE)
+        else:
+            batches = load_hdf5(flags.train_file, flags.batch_size, epoch,
+                                flags.shuffle_train,
+                                map_labels=desc_train.map_labels)
+        for i_batch, batch in enumerate(batches):
             data = torch.as_tensor(batch[flags.img_feat], device=device)
             ctx = context_of(flags, batch, device)
             # One span per sync interval: start at the first step after a

@@ -375,8 +375,7 @@ def test_per_batch_loop_matches_the_driver(synthetic_dataset, tmp_path):
 
 def test_unported_flags_raise(synthetic_dataset, tmp_path):
     for extra in (["-mesh", "2"], ["-mesh_model", "2"],
-                  ["-num_processes", "2"], ["-images", "cifar"],
-                  ["-ckpt_format", "orbax"], ["-compute_dtype", "bfloat16"]):
+                  ["-num_processes", "2"], ["-ckpt_format", "orbax"]):
         flags = port_flags(small_argv(synthetic_dataset, tmp_path, "x",
                                       extra))
         with pytest.raises(NotImplementedError, match="ROADMAP|orbax"):

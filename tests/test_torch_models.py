@@ -232,6 +232,9 @@ def test_port_imports_nothing_of_jax():
     files = sorted((root / "multimodalgame_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
     assert len(files) > 20
+    port = root / "multimodalgame_tpu_torch"
+    for module in ("sweep.py", "parallel/population.py", "data/cifar.py"):
+        assert port / module in files, module
     seen = set()
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

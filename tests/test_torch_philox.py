@@ -1,10 +1,12 @@
-"""Philox4x32-10, the train-mode kernel's generator, in its plain numpy
+"""Philox4x32-10, the train-mode kernel's generator, in its plain torch
 version (``ops/philox.py``), on the CPU.
 
 Known answers are Random123's (kat_vectors for philox4x32_10). The layout
 properties are what the trainer relies on: a row's numbers do not depend
 on the batch size, and a step's numbers depend only on its global index,
-so a run split into chunks takes the same trajectory.
+so a run split into chunks takes the same trajectory. Every set (training
+streams, eval slots, population members) is the generator's word at the
+counter the module's docstring gives.
 """
 
 import pathlib
@@ -20,8 +22,9 @@ from multimodalgame_tpu_torch.game.train import (
     make_train_step_indexed)
 from multimodalgame_tpu_torch.ops.cuda_exchange import (
     fused_train_forward, fused_train_forward_reference, kernel_params)
-from multimodalgame_tpu_torch.ops.philox import (STREAMS, philox4x32_10,
-                                                 philox_uniforms, uniforms_for)
+from multimodalgame_tpu_torch.ops.philox import (
+    EVAL_SLOT_STRIDE, MEMBER_SHIFT, STREAMS, member_uniforms,
+    philox4x32_10, philox_eval_uniforms, philox_uniforms, uniforms_for)
 from multimodalgame_tpu_torch.ops.sampling import uniform_widths
 
 SMALL = dict(img_feat_dim=24, img_h_dim=12, sender_out_dim=10, rec_w_dim=10,
@@ -66,7 +69,7 @@ def test_rows_do_not_depend_on_the_batch_size():
 
 
 def test_uniforms_are_24_bit_and_look_uniform():
-    u = uniforms_for(STREAMS["z"], 10, 64, 32, seed=1, step=0)
+    u = uniforms_for(STREAMS["z"], 10, 64, 32, seed=1, step=0).numpy()
     assert u.dtype == np.float32 and u.shape == (10, 64, 32)
     assert u.min() >= 0.0 and u.max() < 1.0
     scaled = u.astype(np.float64) * 2 ** 24
@@ -81,7 +84,41 @@ def test_uniforms_are_24_bit_and_look_uniform():
     for other in (uniforms_for(STREAMS["z"], 10, 64, 32, seed=2, step=0),
                   uniforms_for(STREAMS["z"], 10, 64, 32, seed=1, step=1),
                   uniforms_for(STREAMS["w"], 10, 64, 32, seed=1, step=0)):
-        assert (other != u).mean() > 0.99
+        assert (other.numpy() != u).mean() > 0.99
+
+
+@pytest.mark.parametrize("kind", ["train", "eval_slot", "member",
+                                  "member_eval_slot"])
+def test_sets_are_the_generators_words_at_their_counters(kind):
+    """Uniform ``(t, r, c)`` of stream ``k`` (of member ``m``) is word
+    ``c % 4`` of ``philox4x32_10((c // 4 [+ (m + 1) << 16], r, t, k),
+    (seed, step))``, shifted to 24 bits."""
+    cfg = GameConfig(**SMALL, flipout_sen=0.1, flipout_rec=0.2,
+                     flipout_dev=True)
+    seed, step, batch, members, slot = 0xFFFFFFFF, 77, 5, 3, 2
+    if kind == "train":
+        sets = {k: v[None] for k, v in
+                philox_uniforms(cfg, batch, seed, step).items()}
+    elif kind == "eval_slot":
+        sets = {k: v[None] for k, v in philox_eval_uniforms(
+            cfg, batch, seed, step, slot).items()}
+    else:
+        sets = member_uniforms(cfg, batch, seed, step, members,
+                               slot=slot if kind == "member_eval_slot"
+                               else None)
+    base = EVAL_SLOT_STRIDE * (1 + slot) if "eval" in kind else 0
+    assert set(sets) == set(uniform_widths(cfg, train=base == 0))
+    for name, u in sets.items():
+        assert u.shape[1:3] == (cfg.max_exchange, batch)
+        m, t, r, c = torch.meshgrid(*(torch.arange(n) for n in u.shape),
+                                    indexing="ij")
+        word0 = c // 4
+        if kind.startswith("member"):
+            word0 = word0 + ((m + 1) << MEMBER_SHIFT)
+        words = torch.stack(philox4x32_10(
+            (word0, r, t, base + STREAMS[name]), (seed, step)), dim=-1)
+        want = torch.gather(words, -1, (c % 4)[..., None])[..., 0]
+        assert torch.equal(u, (want >> 8).float() * 2.0 ** -24), name
 
 
 @pytest.mark.parametrize("kw", [{}, dict(flipout_sen=0.1),

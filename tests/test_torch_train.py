@@ -272,9 +272,13 @@ def test_kernel_sampler_rejects_what_it_does_not_cover():
     with pytest.raises(ValueError):
         make_train_step(_small_agents(), TOP_K, BATCH, fast="pallas",
                         device="cpu")
-    with pytest.raises(NotImplementedError):
+    # The train kernel samples in float32 only; bfloat16 takes the plain
+    # sampler.
+    with pytest.raises(ValueError, match="float32"):
         make_train_step(_small_agents(compute_dtype="bfloat16"), TOP_K,
-                        BATCH, device="cpu")
+                        BATCH, fast="kernel", device="cpu")
+    make_train_step(_small_agents(compute_dtype="bfloat16"), TOP_K, BATCH,
+                    device="cpu")
 
 
 def test_four_agent_checkpoint_round_trips_with_jax(tmp_path):
