@@ -234,16 +234,20 @@ _HELP = {
                      "conversation on bfloat16 copies of the float32 "
                      "parameters (optimizers, losses and evaluation stay "
                      "float32; phase A takes the plain sampler).",
-    "mesh": "Data-parallel mesh size; the port runs on one device "
-            "(0 or 1), larger values raise.",
-    "mesh_model": "Tensor-parallel axis size; not ported (values above "
-                  "1 raise).",
-    "coordinator": "Multi-host coordinator address host:port; "
-                   "multi-process runs are not ported.",
-    "num_processes": "Number of processes in a multi-host job; only 1 "
-                     "is ported.",
+    "mesh": "Data-parallel mesh size for training/serving (0 or 1 = "
+            "single device, -1 = all visible devices), one process a "
+            "device. batch_size and batch_size_dev must be divisible by "
+            "it.",
+    "mesh_model": "Tensor-parallel (model) axis size; not ported to "
+                  "PyTorch (values above 1 raise, ROADMAP §1.10.3).",
+    "coordinator": "Multi-host coordinator address host:port "
+                   "(torch.distributed, tcp://). Set with "
+                   "-num_processes > 1.",
+    "num_processes": "Number of processes in a multi-host job (one per "
+                     "host, each spawning a rank per device of its share "
+                     "of -mesh); 1 = single-process.",
     "process_id": "This process's index in a multi-host job (0-based; "
-                  "process 0 writes the shared artifacts).",
+                  "process 0's first rank writes the shared artifacts).",
     "population": "Member count of the population sweep (python -m "
                   "multimodalgame_tpu_torch.sweep): N games trained as "
                   "one batched step.",

@@ -19,7 +19,9 @@
 // tests' bit-exact parity with the plain exchange) or from Philox4x32-10
 // keyed by (seed, step), with the counter (column / 4, global row, turn,
 // stream) and word column % 4, so the numbers depend neither on the row
-// tiling nor on the batch size (ops/philox.py is its plain version).
+// tiling nor on the batch size (ops/philox.py is its plain version). A
+// launch over a data-parallel shard of a batch numbers its row r as the
+// global row row_base + r, so the shards draw the whole batch's numbers.
 //
 // What bounds it on an H100: not bytes and not FLOPs. At the canonical
 // Adaptive dims (feat 512, sender hidden 256, 32-bit messages, receiver
@@ -155,7 +157,7 @@ enum Dim { D_B, D_F, D_H, D_W, D_R, D_D, D_V, D_T,
            D_CLUSTER, D_RESIDENT, D_PULL, D_COMPACT, D_SMEM_BYTES,
            D_COUNT,
            D_PHILOX = D_COUNT, D_SEED, D_STEP, D_FLIP_SEN, D_FLIP_REC,
-           D_TRAIN_COUNT };
+           D_ROW_BASE, D_TRAIN_COUNT };
 
 // The per-turn matrices a plan may keep in shared memory: bit m of
 // D_RESIDENT (ops/cuda_exchange.py:MATRIX_ORDER).
@@ -201,6 +203,7 @@ struct Args {
   int B, F, H, W, R, D, V, T, mix, ignore_receiver, s_prob_prod;
   int cluster, resident, pull, compact, smem_bytes;
   int philox, flip_sen, flip_rec;
+  int row_base;                // global row of the launch's row 0 (Philox)
   unsigned seed, step;
   float p_flip_sen, p_flip_rec;
 };
@@ -674,9 +677,9 @@ __device__ __forceinline__ float unit24(unsigned bits) {
 
 // The uniforms of turn t for the tile's rows < nrows into shared memory,
 // four blocks of (ROWS, W) (z, fz, w, fw) and one of ROWS (s): drawn by
-// Philox (one call per 4 columns) or copied from the given streams with
-// cp.async (in the calling thread's open group). Streams the config does
-// not use are skipped.
+// Philox (one call per 4 columns, the row counted from a.row_base) or
+// copied from the given streams with cp.async (in the calling thread's
+// open group). Streams the config does not use are skipped.
 __device__ void fill_uniforms(const Args& a, float* s_u, int t, int row0,
                               int nrows) {
   const int W = a.W, q4 = ceil_div(W, 4);
@@ -684,20 +687,21 @@ __device__ void fill_uniforms(const Args& a, float* s_u, int t, int row0,
   const bool used[4] = {true, a.flip_sen != 0, true, a.flip_rec != 0};
   if (a.philox) {
     const uint2 key = make_uint2(a.seed, a.step);
+    const unsigned grow0 = static_cast<unsigned>(a.row_base + row0);
     const int n = 4 * ROWS * q4 + ROWS;
     for (int i = threadIdx.x; i < n; i += THREADS) {
       if (i >= 4 * ROWS * q4) {            // the stop stream, width 1
         const int r = i - 4 * ROWS * q4;
         if (r < nrows)
           s_u[4 * ROWS * W + r] = unit24(
-              philox4x32_10(make_uint4(0u, row0 + r, t, S_S), key).x);
+              philox4x32_10(make_uint4(0u, grow0 + r, t, S_S), key).x);
         continue;
       }
       const int b = i / (ROWS * q4), rem = i - b * ROWS * q4;
       const int r = rem / q4, q = rem - r * q4;
       if (!used[b] || r >= nrows) continue;
       const uint4 x = philox4x32_10(
-          make_uint4(q, row0 + r, t, stream_of[b]), key);
+          make_uint4(q, grow0 + r, t, stream_of[b]), key);
       const unsigned words[4] = {x.x, x.y, x.z, x.w};
       float* dst = s_u + b * ROWS * W + r * W;
 #pragma unroll
@@ -1188,7 +1192,7 @@ void fill_args(Args& a, void* const* ptrs, const int* dims) {
   a.pull = dims[D_PULL];
   a.compact = dims[D_COMPACT];
   a.smem_bytes = dims[D_SMEM_BYTES];
-  a.philox = a.flip_sen = a.flip_rec = 0;
+  a.philox = a.flip_sen = a.flip_rec = a.row_base = 0;
   a.seed = a.step = 0u;
   a.p_flip_sen = a.p_flip_rec = 0.f;
 }
@@ -1288,7 +1292,8 @@ int mmg_fused_eval_exchange(void* const* ptrs, int n_ptrs, const int* dims,
 // flipout probabilities (sender, receiver). With dims[D_PHILOX] == 0 the
 // streams s, z, w (and fz, fw where flipout is on) must be given; with 1
 // every stream must be null and Philox keyed by (D_SEED, D_STEP) draws the
-// numbers. Returns 0 or a cudaError_t code.
+// numbers, row r of the launch as the global row D_ROW_BASE + r (0 with
+// given streams). Returns 0 or a cudaError_t code.
 int mmg_fused_train_forward(void* const* ptrs, int n_ptrs, const int* dims,
                             int n_dims, const float* probs, int n_probs,
                             void* stream) {
@@ -1303,6 +1308,9 @@ int mmg_fused_train_forward(void* const* ptrs, int n_ptrs, const int* dims,
   a.step = static_cast<unsigned>(dims[D_STEP]);
   a.flip_sen = dims[D_FLIP_SEN] != 0;
   a.flip_rec = dims[D_FLIP_REC] != 0;
+  a.row_base = dims[D_ROW_BASE];
+  if (a.row_base < 0 || (!a.philox && a.row_base != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.p_flip_sen = probs[0];
   a.p_flip_rec = probs[1];
   const bool need[S_COUNT] = {true, static_cast<bool>(a.flip_sen), true, true,

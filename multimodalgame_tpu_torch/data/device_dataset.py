@@ -81,6 +81,16 @@ class DeviceDataset:
         self.context = (None if context is None else torch.as_tensor(
             np.asarray(context, np.float32), device=dev))
 
+    def to(self, device: Union[str, torch.device]) -> "DeviceDataset":
+        """A copy of the set on ``device`` (the tensors moved, the host
+        labels shared): a data-parallel rank's copy of the same set."""
+        out = object.__new__(DeviceDataset)
+        out.__dict__.update(self.__dict__)
+        dev = torch.device(device)
+        out.feats, out.targets = self.feats.to(dev), self.targets.to(dev)
+        out.context = None if self.context is None else self.context.to(dev)
+        return out
+
     @classmethod
     def from_hdf5(cls, hdf5_file: str, feat_key: str,
                   map_labels: Callable[[int], int] = int,

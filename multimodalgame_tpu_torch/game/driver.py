@@ -39,12 +39,22 @@ description attention the packs' padded word sets go to every step.
 Under ``-flipout_dev`` a log window's eval dump draws its flips from
 Philox keyed by ``(random_seed + 1, step)`` and ``EVAL_DUMP_SLOT``, a dev
 sweep from the same key and one slot a batch.
+
+With ``-mesh N`` every rank of the job (``parallel/distributed.py``)
+runs this same loop on the same sets, plans and seeds, so every rank
+meets every collective in the same order: each step trains on the rank's
+rows of the batch, the log window's metrics come back whole (summed and
+gathered), a log window's eval dump runs on the whole batch, a dev
+sweep on the rank's rows of each dev batch, and only rank 0 writes the
+checkpoints. Each rank prints the same log, rank 0's to ``-log_file``
+(the others to ``.p<rank>`` paths), with the one banner ``Data-parallel
+mesh: N devices (...)`` that JAX prints too.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -60,6 +70,7 @@ from multimodalgame_tpu_torch.ops.cuda_exchange import train_kernel_supports
 from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
                                                  philox_eval_uniforms)
 from multimodalgame_tpu_torch.utils.checkpoint import save_checkpoint
+from multimodalgame_tpu_torch.utils.device import resolve_device
 from multimodalgame_tpu_torch.utils.profiling import StepTimer
 
 # Chunk sizes are drawn from this fixed set, so the number of distinct
@@ -109,14 +120,63 @@ def make_piece_planner(cap: int = _EXACT_CAP):
     return plan
 
 
-def resolve_mesh(flags) -> None:
-    """The port trains on one device: ``-mesh`` and ``-mesh_model`` above
-    1 raise."""
-    if int(flags.mesh or 0) not in (0, 1) or int(flags.mesh_model or 0) > 1:
-        raise NotImplementedError(
-            "-mesh/-mesh_model parallelism is not ported to PyTorch yet "
-            "(ROADMAP §1.10.2: data parallelism and the sharded "
-            "population)")
+MESH_MODEL_NOT_PORTED = (
+    "-mesh_model (tensor parallelism) is not ported to PyTorch yet "
+    "(ROADMAP §1.10.3)")
+
+
+def device_pool(device, count: int) -> List[torch.device]:
+    """The devices ``-mesh`` may take, in order: a list as given; ``cpu``
+    as many CPU ranks as asked (``count``); ``None`` or ``cuda`` every
+    visible card; one explicit device alone. ``count`` -1 (``-mesh -1``)
+    needs cards or a list."""
+    if isinstance(device, (list, tuple)):
+        return [torch.device(d) for d in device]
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        if count < 0:
+            raise ValueError("-mesh -1 counts the visible cards; on the "
+                             "CPU give -mesh N or a device list")
+        return [dev] * count
+    if dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def resolve_mesh(flags, batch_fields=("batch_size", "batch_size_dev"),
+                 device=None) -> Optional[List[torch.device]]:
+    """The devices of this host's ranks for ``-mesh`` (0/1 = one device,
+    N > 1 = the first N of the job's devices, -1 = all of them), or
+    ``None`` for one device (JAX driver.py:130-165). ``device`` is the
+    caller's (:func:`device_pool`); under ``-num_processes P`` each host
+    takes its N / P. Raises ``ValueError`` when a ``batch_fields`` flag
+    does not split over N or fewer devices than asked exist, and
+    ``NotImplementedError`` for ``-mesh_model`` above 1."""
+    if int(flags.mesh_model or 0) > 1:
+        raise NotImplementedError(MESH_MODEL_NOT_PORTED)
+    n = int(flags.mesh or 0)
+    procs = int(flags.num_processes or 1)
+    if n in (0, 1):
+        return None
+    pool = device_pool(device, -1 if n == -1 else max(n // procs, 1))
+    if n == -1:
+        n = len(pool) * procs
+        if n <= 1:
+            return None
+    for fname in batch_fields:
+        b = getattr(flags, fname)
+        if b % n:
+            raise ValueError(f"-{fname} {b} is not divisible by the "
+                             f"data-axis size {n} (-mesh {n})")
+    if n % procs:
+        raise ValueError(f"-mesh {n} does not split over -num_processes "
+                         f"{procs}")
+    local = n // procs
+    if len(pool) < local:
+        raise ValueError(f"requested a {n}-device mesh but only "
+                         f"{len(pool) * procs} devices are available")
+    return pool[:local]
 
 
 def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
@@ -124,7 +184,7 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
              best_dev_acc: float = 0.0, max_steps: Optional[int] = None,
              train_ds: Optional[DeviceDataset] = None,
              dev_ds: Optional[DeviceDataset] = None,
-             uniforms: Optional[Callable] = None) -> dict:
+             uniforms: Optional[Callable] = None, mesh=None) -> dict:
     """Train with the chunked schedule on the modules' device; returns
     the summary dict of the per-batch loop in ``train.py`` plus
     ``seconds``, the wall seconds of the run's step spans, dev sweeps and
@@ -133,8 +193,8 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     ``train_ds``/``dev_ds`` replace the sets read from ``-train_file`` /
     ``-dev_file``, and ``uniforms`` (``step -> {s, z, w[, fz, fw]}``)
     replaces the Philox stream; both are seams for callers that hold the
-    data in memory or replay another package's draws."""
-    resolve_mesh(flags)
+    data in memory or replay another package's draws. ``mesh`` is this
+    rank's place in a data-parallel job (``parallel/mesh.py``)."""
     cfg = modules.cfg
     device = next(modules.parameters()).device
     ctx_key = flags.data_context if flags.attn_extra_context else None
@@ -171,10 +231,13 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     descs = description_inputs(desc_train, cfg, device)
     desc = descs.pop("desc")
     seed = flags.random_seed + 1
+    if mesh is not None:
+        flogger.Log("Data-parallel mesh: {} devices ({}, {})".format(
+            mesh.size, device.type, mesh.backend))
 
     fast = "kernel" if train_kernel_supports(cfg) else "auto"
     trainer_kw = dict(fast=fast, seed=seed, uniforms=uniforms, device=device,
-                      transform=transform, context_fn=context_fn)
+                      transform=transform, context_fn=context_fn, mesh=mesh)
     full_step = make_train_step_indexed(modules, flags.top_k_train,
                                         flags.batch_size, **trainer_kw)
     chunk_step = make_multistep_train_step_indexed(
@@ -253,7 +316,8 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         nonlocal best_dev_acc
         t0 = time.perf_counter()
         dev_acc, extra = run_device_dev_eval(flags, modules, eval_exchange,
-                                             desc_dev, dev_ds, epoch, step=t)
+                                             desc_dev, dev_ds, epoch, step=t,
+                                             mesh=mesh)
         spent["dev_sweeps"] += time.perf_counter() - t0
         restart_timer()   # the sweep's copy to the host was the sync
         logger.log(key="Development Accuracy", val=dev_acc, step=t)
@@ -283,7 +347,7 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
             t0 = time.perf_counter()
             save_checkpoint(flags.checkpoint + "_best",
                             dict(step=t, best_dev_acc=best_dev_acc),
-                            modules, opt_states)
+                            modules, opt_states, mesh)
             spent["checkpoints"] += time.perf_counter() - t0
 
     def run_save(t):
@@ -297,7 +361,7 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         t0 = time.perf_counter()
         save_checkpoint(flags.checkpoint,
                         dict(step=t, best_dev_acc=best_dev_acc),
-                        modules, opt_states)
+                        modules, opt_states, mesh)
         spent["checkpoints"] += time.perf_counter() - t0
         timer.start()
 

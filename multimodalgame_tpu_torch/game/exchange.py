@@ -77,17 +77,25 @@ def finalize_stop_masks(masks: torch.Tensor, fixed_exchange: bool
     (model.py:870). Turn 0 always runs; turn t+1 runs iff some example is
     still active after turn t (model.py:866-867).
     """
-    T, batch = masks.shape[0], masks.shape[1]
+    batch = masks.shape[1]
     stop_masks = torch.cat(
         [torch.ones((1, batch, 1), dtype=masks.dtype, device=masks.device),
          masks], dim=0)
     stop_masks[-1] = 0.0
+    return stop_masks, turns_run(stop_masks, fixed_exchange)
+
+
+def turns_run(stop_masks: torch.Tensor, fixed_exchange: bool
+              ) -> torch.Tensor:
+    """The reference's break-early turn count of a ``(T+1, B, 1)``
+    stop-mask chain: turn 0 always runs, turn t+1 iff some row is still
+    active after turn t (model.py:866-867). A batch-global count: rows
+    gathered from data-parallel shards give the whole batch's."""
+    T = stop_masks.shape[0] - 1
     if fixed_exchange:
-        n_steps = torch.tensor(T, dtype=torch.int32, device=masks.device)
-    else:
-        alive = masks.sum(dim=(1, 2)) > 0
-        n_steps = (1 + alive[:-1].sum()).to(torch.int32)
-    return stop_masks, n_steps
+        return torch.tensor(T, dtype=torch.int32, device=stop_masks.device)
+    alive = stop_masks[1:T].sum(dim=(1, 2)) > 0
+    return (1 + alive.sum()).to(torch.int32)
 
 
 def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,

@@ -15,6 +15,13 @@ The accuracy denominator is ``num_batches * batch_size``, tail included
 Exactly tied class scores (possible only with bit-equal description
 rows) may rank differently from the host ``argsort``.
 
+On a data-parallel mesh (``mesh``, ``parallel/mesh.py``) each rank
+evaluates its rows of each dev batch (a ragged batch whole, on every
+rank), with the eval uniforms of those global rows; the rows' records
+are gathered in rank order, so every rank computes the whole batch's
+statistics, turn count and predictions as one device does (JAX's sharded
+dev sweep, tests/test_mesh_driver.py:191).
+
 Under ``-flipout_dev`` each dev batch's conversation flips bits with
 uniforms of its own: by default Philox keyed by ``(seed, step)`` and slot
 ``1 + i`` for batch ``i`` (``ops/philox.py:philox_eval_uniforms``), the
@@ -36,6 +43,7 @@ from multimodalgame_tpu_torch.eval import (corrupt_mask_for,
 from multimodalgame_tpu_torch.game.exchange import (ExchangeOutputs,
                                                     description_inputs)
 from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
+from multimodalgame_tpu_torch.parallel.mesh import axis_rows, gather_record
 from multimodalgame_tpu_torch.utils.device_pack import PackSpec
 
 # ``(batch index, batch size) -> {fz, fw}``: a dev batch's eval uniforms.
@@ -90,11 +98,12 @@ def eval_dev_device(modules, eval_exchange: Callable, dev_ds: DeviceDataset,
                     desc_set_padded: Optional[torch.Tensor] = None,
                     desc_set_mask: Optional[torch.Tensor] = None,
                     seed: int = 0, step: int = 0,
-                    uniforms: Optional[EvalUniforms] = None
+                    uniforms: Optional[EvalUniforms] = None, mesh=None
                     ) -> Tuple[float, Dict[str, float], np.ndarray,
                                np.ndarray]:
     """Run the dev sweep; returns ``(dev_acc, extra, true_labels,
-    pred_labels)``. The dev set's ``context`` goes with its features."""
+    pred_labels)``. The dev set's ``context`` goes with its features.
+    On ``mesh`` every rank returns the whole sweep's numbers."""
     if dev_ds.size == 0:
         raise ValueError("dev set is empty — nothing to evaluate")
     idx = dev_ds.epoch_indices(epoch, shuffle, batch_size,
@@ -105,16 +114,24 @@ def eval_dev_device(modules, eval_exchange: Callable, dev_ds: DeviceDataset,
     stats = []
     with torch.no_grad():
         for i, r in enumerate(rows):
-            r_t = torch.as_tensor(r, device=dev)
-            u = (uniforms(i, len(r)) if uniforms is not None
-                 else philox_eval_uniforms(cfg, len(r), seed, step, 1 + i,
-                                           dev))
+            part = axis_rows(mesh, len(r))
+            r_t = torch.as_tensor(r[part], device=dev)
+            if uniforms is not None:
+                u = uniforms(i, len(r))
+                u = None if u is None else {k: v[:, part]
+                                            for k, v in u.items()}
+            else:
+                u = philox_eval_uniforms(cfg, len(r_t), seed, step, 1 + i,
+                                         dev, row_base=part.start)
             ex = eval_exchange(
                 dev_ds.feats[r_t], desc, corrupt_mask,
                 data_context=(None if dev_ds.context is None
                               else dev_ds.context[r_t]),
                 desc_set_padded=desc_set_padded,
                 desc_set_mask=desc_set_mask, uniforms=u)
+            if len(r_t) < len(r):
+                ex = gather_record(mesh, ex, cfg.fixed_exchange)
+                r_t = torch.as_tensor(r, device=dev)
             stats.append(batch_statistics(cfg, ex,
                                           dev_ds.targets[r_t], top_k))
         nb, n = len(rows), sum(len(r) for r in rows)
@@ -137,19 +154,20 @@ def eval_dev_device(modules, eval_exchange: Callable, dev_ds: DeviceDataset,
 
 def run_device_dev_eval(flags, modules, eval_exchange: Callable, desc_pack,
                         dev_ds: DeviceDataset, epoch: int, step: int = 0,
-                        uniforms: Optional[EvalUniforms] = None
+                        uniforms: Optional[EvalUniforms] = None, mesh=None
                         ) -> Tuple[float, Dict[str, float]]:
     """The flag-driven dev evaluation of the training driver's cadence and
     of ``-eval_only``: builds the descriptions and the ``-bit_flip`` mask
     on the dev set's device, runs the sweep (``-flipout_dev`` draws keyed
-    by ``(random_seed + 1, step)``) and writes the confusion-matrix CSV.
+    by ``(random_seed + 1, step)``; on ``mesh`` each rank its rows) and
+    writes the confusion-matrix CSV (to this rank's ``-conf_mat`` path).
     Returns ``(dev_acc, extra)``."""
     dev = dev_ds.feats.device
     acc, extra, trues, preds = eval_dev_device(
         modules, eval_exchange, dev_ds, epoch, flags.shuffle_dev,
         flags.batch_size_dev, flags.top_k_dev,
         corrupt_mask=corrupt_mask_for(flags, modules.cfg, dev),
-        seed=flags.random_seed + 1, step=step, uniforms=uniforms,
+        seed=flags.random_seed + 1, step=step, uniforms=uniforms, mesh=mesh,
         **description_inputs(desc_pack, modules.cfg, dev))
     write_confusion_matrix(flags.conf_mat, trues, preds)
     return acc, extra

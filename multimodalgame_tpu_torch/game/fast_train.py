@@ -50,20 +50,24 @@ def sample_conversation(modules: AgentModules, data: torch.Tensor,
                         desc: torch.Tensor, sampler: str = "plain",
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         seed: Optional[int] = None,
-                        step: Optional[int] = None, **inputs
+                        step: Optional[int] = None, row_base: int = 0,
+                        **inputs
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor, torch.Tensor]:
     """Phase A: ``(z_bits, w_bits, s_bits, stop_masks, n_steps)``.
 
-    The kernel sampler takes either ``uniforms`` or ``(seed, step)``; the
-    plain sampler takes ``uniforms`` and the attention ``inputs``
+    The kernel sampler takes either ``uniforms`` or ``(seed, step)``,
+    with ``row_base`` the global row of ``data``'s first row under Philox
+    (a data-parallel shard); the plain sampler takes ``uniforms`` and the
+    attention ``inputs``
     (``data_context``, ``desc_set_padded``, ``desc_set_mask``). The
     kernel-layout weights are packed from the modules on every call, so a
     step always samples with the weights that the previous update left."""
     cfg = modules.cfg
     if sampler == "kernel":
         f = fused_train_forward(cfg, kernel_params(modules), data, desc,
-                                uniforms=uniforms, seed=seed, step=step)
+                                uniforms=uniforms, seed=seed, step=step,
+                                row_base=row_base)
         stop_masks, n_steps = finalize_stop_masks(f.masks,
                                                   cfg.fixed_exchange)
         return f.sen_feats, f.rec_feats, f.stop_feats, stop_masks, n_steps
@@ -84,13 +88,17 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
                         step: Optional[int] = None,
                         data_context: Optional[torch.Tensor] = None,
                         desc_set_padded: Optional[torch.Tensor] = None,
-                        desc_set_mask: Optional[torch.Tensor] = None
+                        desc_set_mask: Optional[torch.Tensor] = None,
+                        row_base: int = 0, reduce=None
                         ) -> Tuple[torch.Tensor, TrainMetrics]:
     """The summed loss and the metrics of one training step, by the
     sample-then-recompute path (fast_train.py:73-172). Under
     ``compute_dtype="bfloat16"`` both phases run in bfloat16 and the loss
     algebra in float32 (``game/train.py:in_compute_dtype``); the kernel
-    sampler is float32-only and refuses it."""
+    sampler is float32-only and refuses it. On a data-parallel mesh the
+    rows are a shard whose first row is global row ``row_base`` and
+    ``reduce`` makes the losses' batch statistics global
+    (``game/losses.py``)."""
     cfg = modules.cfg
     if cfg.compute_dtype == "bfloat16" and sampler == "kernel":
         raise ValueError("the kernel sampler is float32-only; use the "
@@ -99,8 +107,8 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
                           sampler=sampler, uniforms=uniforms, seed=seed,
                           step=step, data_context=data_context,
                           desc_set_padded=desc_set_padded,
-                          desc_set_mask=desc_set_mask)
-    return losses_from_exchange(cfg, ex, target, top_k, batch_denom)
+                          desc_set_mask=desc_set_mask, row_base=row_base)
+    return losses_from_exchange(cfg, ex, target, top_k, batch_denom, reduce)
 
 
 def fast_exchange(modules: AgentModules, data: torch.Tensor,
@@ -109,8 +117,8 @@ def fast_exchange(modules: AgentModules, data: torch.Tensor,
                   seed: Optional[int] = None, step: Optional[int] = None,
                   data_context: Optional[torch.Tensor] = None,
                   desc_set_padded: Optional[torch.Tensor] = None,
-                  desc_set_mask: Optional[torch.Tensor] = None
-                  ) -> ExchangeOutputs:
+                  desc_set_mask: Optional[torch.Tensor] = None,
+                  row_base: int = 0) -> ExchangeOutputs:
     """Phases A and B: the differentiable conversation record that the
     losses read, in the dtype of ``data`` and the parameters."""
     cfg = modules.cfg
@@ -119,7 +127,7 @@ def fast_exchange(modules: AgentModules, data: torch.Tensor,
     descs = dict(desc_set_padded=desc_set_padded,
                  desc_set_mask=desc_set_mask)
     z_bits, w_bits, s_bits, stop_masks, n_steps = sample_conversation(
-        modules, data, desc, sampler, uniforms, seed, step,
+        modules, data, desc, sampler, uniforms, seed, step, row_base,
         data_context=data_context, **descs)
 
     # The query each sender turn saw (model.py:786-787, 803).

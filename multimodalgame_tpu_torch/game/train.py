@@ -27,6 +27,19 @@ so how steps are split into chunks cannot change a run. A caller may
 instead pass ``uniforms``, a function ``step -> {s, z, w[, fz, fw]}``;
 the tests pass one that replays the JAX package's draws.
 
+On a data-parallel mesh (``mesh``, ``parallel/mesh.py``) every rank
+holds the same whole batch and steps on its own rows
+``[r·B/N, (r+1)·B/N)``: its uniforms are those rows of the whole batch's
+(Philox numbers them from the shard's first global row, ``row_base``),
+its losses' batch statistics are global (``game/losses.py``), and one
+all-reduce a step sums the updated agents' gradients, with the step's
+logged scalars in the same buffer, before each agent's clip and
+optimizer step. Every rank then applies the same update, so the
+parameters stay equal without a broadcast. A step that returns the full
+metrics (:func:`make_train_step`, :func:`make_train_step_indexed`)
+gathers the rows' predictions and conversation record in rank order, so
+it returns what the single-device step returns.
+
 Visual attention takes the feature map ``(B, C, H, W)`` as ``data`` and,
 with ``attn_extra_context``, the ``fc`` context; description attention
 the padded word sets. Each factory's step takes them as keyword
@@ -201,17 +214,21 @@ class ScanMetrics(NamedTuple):
 
 
 def losses_from_exchange(cfg: GameConfig, ex: ExchangeOutputs,
-                         target: torch.Tensor, top_k: int, batch_denom: int
-                         ) -> Tuple[torch.Tensor, TrainMetrics]:
+                         target: torch.Tensor, top_k: int, batch_denom: int,
+                         reduce=None) -> Tuple[torch.Tensor, TrainMetrics]:
     """Every loss term from a (differentiable) conversation record, and
-    their sum (train.py:123-186, model.py:1264-1305)."""
+    their sum (train.py:123-186, model.py:1264-1305). On a data-parallel
+    mesh ``reduce`` makes the batch statistics global and the losses,
+    negentropies and accuracy are this rank's shares
+    (``game/losses.py``)."""
     T = cfg.max_exchange
     masks = None if cfg.fixed_exchange else assemble_loss_masks(ex.stop_masks)
 
-    outp, ent_y = get_rec_outp(ex.y, None if masks is None else masks.y)
+    outp, ent_y = get_rec_outp(ex.y, None if masks is None else masks.y,
+                               reduce)
     dist = torch.log_softmax(outp, dim=-1)
     argmax = dist.argmax(dim=-1)
-    nll = nll_loss(dist, target)
+    nll = nll_loss(dist, target, reduce)
     logs = loglikelihood(dist, target).detach()     # reward (model.py:1274)
 
     zero = dist.new_zeros(())
@@ -225,21 +242,22 @@ def losses_from_exchange(cfg: GameConfig, ex: ExchangeOutputs,
         if not cfg.fixed_exchange:
             loss_binary_s, ent_s = multistep_loss_binary(
                 ex.stop_feats, ex.stop_probs, logs, ex.br,
-                masks.binary_s, cfg.entropy_s)
+                masks.binary_s, cfg.entropy_s, reduce)
         if T > 1:
             # No receiver z-loss when the conversation stops after the
             # first sender message (model.py:1284-1289).
             loss_binary_rec, ent_rec = multistep_loss_binary(
                 ex.rec_feats[:-1], ex.rec_probs[:-1], logs, ex.br[:-1],
                 None if masks is None else masks.binary_rec,
-                cfg.entropy_rec)
+                cfg.entropy_rec, reduce)
         loss_binary_sen, ent_sen = multistep_loss_binary(
             ex.sen_feats, ex.sen_probs, logs, ex.bs,
-            None if masks is None else masks.binary_sen, cfg.entropy_sen)
+            None if masks is None else masks.binary_sen, cfg.entropy_sen,
+            reduce)
         loss_bas_rec = multistep_loss_bas(
-            ex.br, logs, None if masks is None else masks.bas_rec)
+            ex.br, logs, None if masks is None else masks.bas_rec, reduce)
         loss_bas_sen = multistep_loss_bas(
-            ex.bs, logs, None if masks is None else masks.bas_sen)
+            ex.bs, logs, None if masks is None else masks.bas_sen, reduce)
 
     loss_rec = nll
     if cfg.use_binary:
@@ -298,16 +316,19 @@ def in_compute_dtype(modules: AgentModules, conversation: Callable,
 def compute_losses(modules: AgentModules, data: torch.Tensor,
                    target: torch.Tensor, desc: torch.Tensor, top_k: int,
                    batch_denom: int, uniforms: Dict[str, torch.Tensor],
-                   **inputs) -> Tuple[torch.Tensor, TrainMetrics]:
+                   reduce=None, **inputs
+                   ) -> Tuple[torch.Tensor, TrainMetrics]:
     """One training forward pass through the plain train-mode exchange,
     baselines scored turn by turn, and every loss term
     (train.py:94-120). ``inputs`` are the exchange's attention inputs
     (``data_context``, ``desc_set_padded``, ``desc_set_mask``). Under
     ``compute_dtype="bfloat16"`` the conversation runs in bfloat16 and the
-    losses in float32 (:func:`in_compute_dtype`)."""
+    losses in float32 (:func:`in_compute_dtype`). ``reduce`` is the
+    data-parallel seam of :func:`losses_from_exchange`."""
     ex = in_compute_dtype(modules, _train_exchange, data, desc,
                           uniforms=uniforms, **inputs)
-    return losses_from_exchange(modules.cfg, ex, target, top_k, batch_denom)
+    return losses_from_exchange(modules.cfg, ex, target, top_k, batch_denom,
+                                reduce)
 
 
 def _train_exchange(modules, data, desc, **kwargs) -> ExchangeOutputs:
@@ -327,12 +348,13 @@ def _detach(x):
 
 class _Trainer:
     """The state every factory shares: the loss function for ``fast``,
-    the device, the uniform source and the agents to update."""
+    the device, the uniform source, the agents to update and, on a
+    data-parallel mesh, this rank's place in it."""
 
     def __init__(self, modules: AgentModules, top_k: int, batch_denom: int,
                  fast: Union[bool, str], seed: int,
                  uniforms: Optional[UniformSource],
-                 device: Optional[Union[str, torch.device]]):
+                 device: Optional[Union[str, torch.device]], mesh=None):
         cfg = modules.cfg
         if not (fast is True or fast is False or fast in ("auto", "kernel")):
             raise ValueError(f"fast must be one of {FAST_MODES}, got "
@@ -350,7 +372,9 @@ class _Trainer:
         self.fast = fast is not False
         self.sampler = "kernel" if fast == "kernel" else "plain"
         self.seed, self.uniforms = int(seed), uniforms
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device)
         modules.to(self.device)
         self.dtype = next(modules.parameters()).dtype
         self.update_names = AGENT_NAMES if cfg.use_binary else ("receiver",)
@@ -359,42 +383,75 @@ class _Trainer:
         return torch.as_tensor(x, dtype=dtype or self.dtype,
                                device=self.device)
 
-    def randomness(self, step: int, batch: int) -> Dict[str, Any]:
-        """The uniforms of global step ``step``, or ``(seed, step)`` for
-        the kernel to draw them itself."""
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a batch of ``batch`` (all of them off the
+        mesh); a training batch must split evenly over the ranks."""
+        if self.mesh is None:
+            return slice(0, batch)
+        if batch % self.mesh.size:
+            raise ValueError(f"a training batch of {batch} does not split "
+                             f"over {self.mesh.size} ranks")
+        return slice(*self.mesh.rows(batch))
+
+    def randomness(self, step: int, rows: slice) -> Dict[str, Any]:
+        """The uniforms of global step ``step`` for the batch rows
+        ``rows``, or ``(seed, step, row_base)`` for the kernel to draw
+        them itself."""
         if self.uniforms is not None:
-            return {"uniforms": {k: v.to(self.device)
-                                 for k, v in self.uniforms(step).items()}}
+            u = self.uniforms(step)
+            if self.mesh is not None:
+                u = {k: v[:, rows] for k, v in u.items()}
+            return {"uniforms": {k: v.to(self.device) for k, v in u.items()}}
         if self.sampler == "kernel":
-            return {"seed": self.seed, "step": int(step)}
-        return {"uniforms": philox_uniforms(self.cfg, batch, self.seed,
-                                            int(step), self.device)}
+            return {"seed": self.seed, "step": int(step),
+                    "row_base": rows.start}
+        return {"uniforms": philox_uniforms(
+            self.cfg, rows.stop - rows.start, self.seed, int(step),
+            self.device, row_base=rows.start)}
 
     def step(self, opt_states, data: torch.Tensor, target: torch.Tensor,
-             desc: torch.Tensor, step: int, **inputs) -> TrainMetrics:
-        """One update; ``inputs`` are the attention inputs."""
+             desc: torch.Tensor, step: int, rows: Optional[slice] = None,
+             full: bool = False, **inputs) -> TrainMetrics:
+        """One update on ``data``, the batch rows ``rows`` (all of them by
+        default); ``inputs`` are the attention inputs. On the mesh the
+        gradients and the logged scalars are summed over the ranks and,
+        with ``full``, the rows' predictions and record gathered."""
         from multimodalgame_tpu_torch.game.fast_train import (
             compute_losses_fast)
-        rand = self.randomness(step, data.shape[0])
+        rows = slice(0, data.shape[0]) if rows is None else rows
+        rand = self.randomness(step, rows)
         self.modules.zero_grad(set_to_none=True)
         if self.fast:
             total, metrics = compute_losses_fast(
                 self.modules, data, target, desc, self.top_k,
-                self.batch_denom, sampler=self.sampler, **rand, **inputs)
+                self.batch_denom, sampler=self.sampler, reduce=self.mesh,
+                **rand, **inputs)
         else:
             total, metrics = compute_losses(
                 self.modules, data, target, desc, self.top_k,
-                self.batch_denom, rand["uniforms"], **inputs)
+                self.batch_denom, rand["uniforms"], reduce=self.mesh,
+                **inputs)
         total.backward()
+        metrics = _detach(metrics)
+        if self.mesh is not None:
+            from multimodalgame_tpu_torch.parallel.mesh import (
+                gather_metrics, reduce_step)
+            metrics = reduce_step(self.mesh, [
+                p for name in self.update_names
+                for p in getattr(self.modules, name).parameters()], metrics)
+            if full:
+                metrics = gather_metrics(self.mesh, metrics,
+                                         self.cfg.fixed_exchange)
         apply_agent_updates(self.cfg, self.update_names, self.modules,
                             opt_states)
-        return _detach(metrics)
+        return metrics
 
 
 def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
                     fast: Union[bool, str] = "auto", *, seed: int = 0,
                     uniforms: Optional[UniformSource] = None,
-                    device: Optional[Union[str, torch.device]] = None):
+                    device: Optional[Union[str, torch.device]] = None,
+                    mesh=None):
     """Build ``step(opt_states, data, target, desc, step,
     desc_set_padded=None, desc_set_mask=None, data_context=None) ->
     TrainMetrics`` (train.py:216-248), which updates ``modules`` and
@@ -407,17 +464,24 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
     train-mode CUDA kernel (for CUDA tensors; its plain version for CPU
     ones). ``device`` defaults to ``cuda``; the modules are moved there.
     Make the optimizer states (:func:`init_opt_states`) after this call.
+    With ``mesh`` (``parallel/mesh.py``) the step takes the whole batch
+    and trains on this rank's rows, on the mesh's device.
     """
-    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
+    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
+                  mesh)
 
     def step(opt_states, data, target, desc, step: int,
              desc_set_padded=None, desc_set_mask=None, data_context=None
              ) -> TrainMetrics:
+        rows = tr.rows(len(data))
+
         def opt(x):
             return None if x is None else tr.tensor(x)
-        return tr.step(opt_states, tr.tensor(data), tr.tensor(target,
-                                                              torch.long),
-                       tr.tensor(desc), step, data_context=opt(data_context),
+        return tr.step(opt_states, tr.tensor(data[rows]),
+                       tr.tensor(target[rows], torch.long),
+                       tr.tensor(desc), step, rows=rows, full=True,
+                       data_context=opt(None if data_context is None
+                                        else data_context[rows]),
                        desc_set_padded=opt(desc_set_padded),
                        desc_set_mask=opt(desc_set_mask))
 
@@ -444,7 +508,8 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
                             device: Optional[Union[str,
                                                    torch.device]] = None,
                             transform: Optional[Callable] = None,
-                            context_fn: Optional[Callable] = None):
+                            context_fn: Optional[Callable] = None,
+                            mesh=None):
     """Build ``step(opt_states, feats, targets, idx, desc, step0,
     feats_context=None, desc_set_padded=None, desc_set_mask=None) ->
     TrainMetrics`` over a dataset already on the device
@@ -456,17 +521,21 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
     ``transform`` maps the gathered batch before the step (the CIFAR
     pixels' normalization, on the device); ``context_fn`` derives the
     attention context from the transformed batch where no
-    ``feats_context`` is staged (JAX train.py:432-437)."""
-    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
+    ``feats_context`` is staged (JAX train.py:432-437). With ``mesh``
+    the step trains on this rank's share of ``idx`` and returns the
+    whole batch's metrics (:func:`make_train_step`)."""
+    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
+                  mesh)
 
     def step(opt_states, feats, targets, idx, desc, step0: int,
              feats_context=None, desc_set_padded=None, desc_set_mask=None
              ) -> TrainMetrics:
-        idx = tr.tensor(idx, torch.long)
+        rows = tr.rows(len(idx))
+        idx = tr.tensor(idx[rows], torch.long)
         data, ctx = gather_batch(feats, idx, feats_context, transform,
                                  context_fn)
         return tr.step(opt_states, data, targets[idx].long(), desc,
-                       step0, data_context=ctx,
+                       step0, rows=rows, full=True, data_context=ctx,
                        desc_set_padded=desc_set_padded,
                        desc_set_mask=desc_set_mask)
 
@@ -481,7 +550,8 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
                                       device: Optional[Union[
                                           str, torch.device]] = None,
                                       transform: Optional[Callable] = None,
-                                      context_fn: Optional[Callable] = None):
+                                      context_fn: Optional[Callable] = None,
+                                      mesh=None):
     """Build ``chunk(opt_states, feats, targets, idx (K, B), desc,
     step0=0, feats_context=None, desc_set_padded=None, desc_set_mask=None)
     -> ScanMetrics``: K training steps over a dataset already on the
@@ -489,24 +559,28 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
     ``feats_context[idx[i]]``) with the randomness of global step
     ``step0 + i`` (train.py:470-542). The metrics stay on
     the device until the caller reads them. ``transform`` and
-    ``context_fn`` are :func:`make_train_step_indexed`'s."""
-    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device)
+    ``context_fn`` are :func:`make_train_step_indexed`'s. With ``mesh``
+    each step trains on this rank's share of its row of ``idx``; the
+    metrics are the whole batch's."""
+    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
+                  mesh)
 
     def chunk(opt_states, feats, targets, idx, desc, step0: int = 0,
               feats_context=None, desc_set_padded=None, desc_set_mask=None
               ) -> ScanMetrics:
-        idx = tr.tensor(idx, torch.long)
-        rows = []
+        rows = tr.rows(idx.shape[1])
+        idx = tr.tensor(idx[:, rows], torch.long)
+        out = []
         for i in range(idx.shape[0]):
             data, ctx = gather_batch(feats, idx[i], feats_context,
                                      transform, context_fn)
             m = tr.step(opt_states, data, targets[idx[i]].long(),
-                        desc, int(step0) + i, data_context=ctx,
+                        desc, int(step0) + i, rows=rows, data_context=ctx,
                         desc_set_padded=desc_set_padded,
                         desc_set_mask=desc_set_mask)
-            rows.append((m.loss_rec, m.loss_sen, m.nll_loss, m.loss_bas_rec,
-                         m.loss_bas_sen, m.accuracy))
-        return ScanMetrics(*(torch.stack(v) for v in zip(*rows)))
+            out.append((m.loss_rec, m.loss_sen, m.nll_loss, m.loss_bas_rec,
+                        m.loss_bas_sen, m.accuracy))
+        return ScanMetrics(*(torch.stack(v) for v in zip(*out)))
 
     return chunk
 

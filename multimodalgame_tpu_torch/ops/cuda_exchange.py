@@ -31,6 +31,12 @@ The train mode samples ``u < p``. Its uniforms are either given, in the
 JAX exchange's layout (``{s, z, w[, fz, fw]}``, each ``(T, B, dim)``
 float32), or drawn in the kernel by Philox4x32-10 keyed by
 ``(seed, step)``; ``ops/philox.py`` computes the same numbers on the CPU.
+A launch over a data-parallel shard of a batch passes ``row_base``, the
+global row of its first row, so that the shards draw the whole batch's
+numbers. The eval mode reads nothing that is numbered by row: its
+corrupt mask is one vector for every row, and the configs whose eval
+conversation draws (``-flipout_dev`` with flipout) never reach it
+(:func:`supports_config`).
 
 Unlike the JAX kernel, every batch size is served, 1 and 100 included:
 the batch is tiled over clusters and the last tile is masked.
@@ -71,7 +77,8 @@ _MIX_IGNORE_CODE = 2
 DIM_ORDER = ("B", "F", "H", "W", "R", "D", "V", "T", "MIX",
              "IGNORE_RECEIVER", "S_PROB_PROD", "CLUSTER", "RESIDENT",
              "PULL", "COMPACT", "SMEM_BYTES")
-TRAIN_DIM_ORDER = ("PHILOX", "SEED", "STEP", "FLIP_SEN", "FLIP_REC")
+TRAIN_DIM_ORDER = ("PHILOX", "SEED", "STEP", "FLIP_SEN", "FLIP_REC",
+                   "ROW_BASE")
 # The pointer table, in the order of enum Ptr: inputs, PARAM_ORDER, the
 # outputs (FusedEvalOutputs' order), then the uniform streams.
 OUTPUT_ORDER = ("o_sfeat", "o_sprob", "o_zfeat", "o_zprob", "o_wfeat",
@@ -672,14 +679,19 @@ def fused_train_forward(cfg: GameConfig, params: Dict[str, torch.Tensor],
                         data: torch.Tensor, desc: torch.Tensor, *,
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         seed: Optional[int] = None,
-                        step: Optional[int] = None) -> FusedEvalOutputs:
+                        step: Optional[int] = None,
+                        row_base: int = 0) -> FusedEvalOutputs:
     """Run the whole sampled (train-mode) conversation, without
     gradients: in one kernel launch for CUDA tensors, through
     :func:`fused_train_forward_reference` for CPU ones.
 
     The randomness is either ``uniforms`` (``{s, z, w[, fz, fw]}``, each
     ``(T, B, dim)`` float32 on the data's device) or ``seed`` and
-    ``step`` (each in ``[0, 2**32)``) for Philox, never both.
+    ``step`` (each in ``[0, 2**32)``) for Philox, never both. Under
+    Philox, ``row_base`` is the global row of ``data``'s first row (a
+    data-parallel shard's offset in its batch): row ``r`` draws global
+    row ``row_base + r``'s numbers. Given uniforms are the rows' own, and
+    take ``row_base`` 0.
     """
     if not supports_config(cfg):
         raise ValueError("config not supported by the fused kernel")
@@ -688,12 +700,18 @@ def fused_train_forward(cfg: GameConfig, params: Dict[str, torch.Tensor],
     if seed is not None and (step is None or not 0 <= seed < 2 ** 32
                              or not 0 <= step < 2 ** 32):
         raise ValueError("Philox needs a seed and a step in [0, 2**32)")
+    if not 0 <= row_base < 2 ** 31 - data.shape[0] or (
+            uniforms is not None and row_base):
+        raise ValueError("row_base numbers Philox's rows: in [0, 2**31 - "
+                         "batch), and 0 with given uniforms")
     if data.device.type == "cpu":
         if uniforms is None:
-            uniforms = philox_uniforms(cfg, data.shape[0], seed, step)
+            uniforms = philox_uniforms(cfg, data.shape[0], seed, step,
+                                       row_base=row_base)
         return fused_train_forward_reference(cfg, params, data, desc,
                                              uniforms)
-    outs = _train_launch(cfg, params, data, desc, uniforms, seed, step)
+    outs = _train_launch(cfg, params, data, desc, uniforms, seed, step,
+                         row_base=row_base)
     fused_train_forward.launches += 1
     return outs
 
@@ -703,7 +721,8 @@ def _train_launch(cfg: GameConfig, params: Dict[str, torch.Tensor],
                   uniforms: Optional[Dict[str, torch.Tensor]],
                   seed: Optional[int], step: Optional[int],
                   plan: Optional[LaunchPlan] = None,
-                  extra_flags: Tuple[str, ...] = ()) -> FusedEvalOutputs:
+                  extra_flags: Tuple[str, ...] = (),
+                  row_base: int = 0) -> FusedEvalOutputs:
     if data.device.type != "cuda":
         raise ValueError(f"no kernel for device {data.device}")
     dev = data.device
@@ -722,7 +741,8 @@ def _train_launch(cfg: GameConfig, params: Dict[str, torch.Tensor],
     dims = _dims(cfg, batch, desc.shape[0], plan) + [
         int(philox), as_int(seed) if philox else 0,
         as_int(step) if philox else 0,
-        int(cfg.flipout_sen is not None), int(cfg.flipout_rec is not None)]
+        int(cfg.flipout_sen is not None), int(cfg.flipout_rec is not None),
+        int(row_base)]
     probs = (ctypes.c_float * 2)(
         0.0 if cfg.flipout_sen is None else cfg.flipout_sen,
         0.0 if cfg.flipout_rec is None else cfg.flipout_rec)

@@ -26,6 +26,11 @@ training stream uses (:func:`philox_eval_uniforms`): slot
 :data:`EVAL_DUMP_SLOT` for a log window's eval dump, slot ``1 + i`` for
 batch ``i`` of a dev sweep.
 
+A shard of a data-parallel batch (``parallel/mesh.py``) whose first row
+is global row ``row_base`` draws with ``row_base``: its row ``r`` takes
+the counter of global row ``row_base + r``, so the shards' draws are the
+rows of the whole batch's draw.
+
 Member ``m`` of a population (``parallel/population.py``) draws what a
 single game draws, training streams and eval slots alike, with the first
 counter word ``c // 4`` raised by ``(m + 1) << 16``
@@ -34,7 +39,8 @@ under the same key ``(seed, step)``. A single game's first counter word
 is below ``2**16`` for every width below ``2**18``, so no member shares a
 counter with a single game's training streams or eval slots, nor with
 another member. :func:`member_uniforms` draws every member of a step in
-one vectorized call on the population's device.
+one vectorized call on the population's device; a shard of the member
+axis whose first member is ``member_base`` draws those members' numbers.
 
 The words are 32-bit unsigned integers held in int64 tensors. A product
 of two of them wraps around in int64, but its low 64 bits are exact, so
@@ -90,11 +96,13 @@ def philox4x32_10(counter, key: Tuple[int, int]
 
 def _draw(streams: Dict[str, int], widths: Dict[str, int], turns: int,
           batch: int, seed: int, step: int, members: Optional[int],
-          device) -> Dict[str, torch.Tensor]:
+          device, row_base: int = 0, member_base: int = 0
+          ) -> Dict[str, torch.Tensor]:
     """Each set ``name``'s ``(turns, batch, widths[name])`` float32
     uniforms on stream ``streams[name]`` (with a leading ``members`` axis
     and the member in the first counter word, when ``members`` is given),
-    in one vectorized call on ``device`` (the CPU by default)."""
+    in one vectorized call on ``device`` (the CPU by default). Rows are
+    the global rows ``row_base + r``, members ``member_base + m``."""
     names = list(widths)
     quads = -(-max(widths.values()) // 4)
     dev = torch.device(device or "cpu")
@@ -108,11 +116,13 @@ def _draw(streams: Dict[str, int], widths: Dict[str, int], turns: int,
     # (streams, members, turns, rows, column quads)
     q = axis(range(quads), 4)
     word0 = q if members is None else (
-        (axis(range(members), 1) + 1) << MEMBER_SHIFT) + q
+        (axis(range(member_base, member_base + members), 1) + 1)
+        << MEMBER_SHIFT) + q
     shape = (len(names), members or 1, turns, batch, quads)
     words = philox4x32_10(
         tuple(w.expand(shape) for w in (
-            word0, axis(range(batch), 3), axis(range(turns), 2),
+            word0, axis(range(row_base, row_base + batch), 3),
+            axis(range(turns), 2),
             axis([streams[n] for n in names], 0))),
         (seed, step))
     x = torch.stack(words, dim=-1).reshape(shape[:-1] + (4 * quads,))
@@ -124,19 +134,23 @@ def _draw(streams: Dict[str, int], widths: Dict[str, int], turns: int,
 
 
 def uniforms_for(stream: int, turns: int, batch: int, width: int,
-                 seed: int, step: int, device=None) -> torch.Tensor:
-    """The ``(turns, batch, width)`` float32 uniforms of one stream."""
+                 seed: int, step: int, device=None,
+                 row_base: int = 0) -> torch.Tensor:
+    """The ``(turns, batch, width)`` float32 uniforms of one stream, for
+    global rows ``row_base`` on."""
     return _draw({"u": stream}, {"u": width}, turns, batch, seed, step,
-                 None, device)["u"]
+                 None, device, row_base)["u"]
 
 
 def philox_uniforms(cfg, batch: int, seed: int, step: int,
-                    device=None) -> Dict[str, torch.Tensor]:
+                    device=None, row_base: int = 0
+                    ) -> Dict[str, torch.Tensor]:
     """The uniforms the train-mode kernel draws for ``(seed, step)``:
     ``{s, z, w[, fz, fw]}``, each ``(max_exchange, batch, dim)`` float32,
-    on ``device`` (the CPU by default)."""
+    on ``device`` (the CPU by default), for global rows ``row_base`` to
+    ``row_base + batch - 1`` (a data-parallel shard's rows)."""
     return _draw(STREAMS, uniform_widths(cfg, train=True), cfg.max_exchange,
-                 batch, seed, step, None, device)
+                 batch, seed, step, None, device, row_base)
 
 
 def _eval_streams(slot: int) -> Dict[str, int]:
@@ -146,30 +160,34 @@ def _eval_streams(slot: int) -> Dict[str, int]:
 
 
 def philox_eval_uniforms(cfg, batch: int, seed: int, step: int, slot: int,
-                         device=None) -> Optional[Dict[str, torch.Tensor]]:
+                         device=None, row_base: int = 0
+                         ) -> Optional[Dict[str, torch.Tensor]]:
     """The ``fz``/``fw`` uniforms of one eval conversation under
     ``flipout_dev``, keyed by ``(seed, step)`` and ``slot``, each
-    ``(max_exchange, batch, dim)`` float32 on ``device``; ``None`` when the
-    config's eval conversation draws nothing."""
+    ``(max_exchange, batch, dim)`` float32 on ``device``, for global rows
+    ``row_base`` on; ``None`` when the config's eval conversation draws
+    nothing."""
     widths = uniform_widths(cfg, train=False)
     if not widths:
         return None
     return _draw(_eval_streams(slot), widths, cfg.max_exchange, batch, seed,
-                 step, None, device)
+                 step, None, device, row_base)
 
 
 def member_uniforms(cfg, batch: int, seed: int, step: int, members: int,
-                    device=None, slot: Optional[int] = None
+                    device=None, slot: Optional[int] = None,
+                    member_base: int = 0
                     ) -> Optional[Dict[str, torch.Tensor]]:
-    """The uniforms of ``members`` population members for ``(seed,
-    step)``, drawn in one vectorized call on ``device`` (the CPU by
-    default): each ``(members, max_exchange, batch, dim)`` float32. With
-    ``slot`` None the training streams (``{s, z, w[, fz, fw]}``), else the
-    eval slot's ``fz``/``fw`` under ``flipout_dev`` (``None`` when the
-    eval conversation draws nothing)."""
+    """The uniforms of population members ``member_base`` to
+    ``member_base + members - 1`` for ``(seed, step)``, drawn in one
+    vectorized call on ``device`` (the CPU by default): each ``(members,
+    max_exchange, batch, dim)`` float32. With ``slot`` None the training
+    streams (``{s, z, w[, fz, fw]}``), else the eval slot's ``fz``/``fw``
+    under ``flipout_dev`` (``None`` when the eval conversation draws
+    nothing)."""
     widths = uniform_widths(cfg, train=slot is None)
     if not widths:
         return None
     streams = STREAMS if slot is None else _eval_streams(slot)
     return _draw(streams, widths, cfg.max_exchange, batch, seed, step,
-                 members, device)
+                 members, device, member_base=member_base)

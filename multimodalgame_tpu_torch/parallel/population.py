@@ -24,13 +24,21 @@ Phase A is the plain exchange under ``vmap``, as in the JAX package
 kernel is a ctypes call, which ``vmap`` cannot batch, and the JAX
 package has no kernel with a member axis.
 
-Not ported: JAX's ``flat=True`` carry (no entry point reaches it) and
-``shard_population*`` (they need a device mesh; ROADMAP §1.10.2).
+On a data-parallel mesh the member axis is split over the ranks, JAX's
+``shard_population`` / ``shard_population_keys`` (population.py:211-236):
+rank ``r`` of ``W`` holds members ``[r·N/W, (r+1)·N/W)`` (:func:`member_block`),
+initialized as those members (``init_population(..., first=lo)``) and
+drawing their uniforms (``member_base``). Members are independent, so a
+step needs no collective.
+
+Not ported: JAX's ``flat=True`` carry (no entry point reaches it, and JAX
+measured it slower than the stacked carry).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -60,13 +68,27 @@ def stack_members(members: Sequence[AgentModules]) -> PopParams:
 
 
 def init_population(cfg, seed: int, n: int,
-                    device: Optional[Union[str, torch.device]] = None
-                    ) -> PopParams:
-    """``n`` members' stacked parameters on ``device``; member ``i``
-    equals ``init_params(AgentModules(cfg), seed=seed + i)``."""
+                    device: Optional[Union[str, torch.device]] = None,
+                    first: int = 0) -> PopParams:
+    """``n`` members' stacked parameters on ``device``, members ``first``
+    to ``first + n - 1`` of the population; member ``i`` equals
+    ``init_params(AgentModules(cfg), seed=seed + i)``."""
     dev = resolve_device(device)
     return stack_members([init_params(AgentModules(cfg), seed=seed + i,
-                                      device=dev) for i in range(n)])
+                                      device=dev)
+                          for i in range(first, first + n)])
+
+
+def member_block(n: int, mesh) -> Tuple[int, int]:
+    """The members ``[lo, hi)`` of a population of ``n`` that this rank
+    of ``mesh`` holds (all of them off the mesh); the ranks must divide
+    ``n``."""
+    if mesh is None:
+        return 0, n
+    if n % mesh.size:
+        raise ValueError(f"{mesh.size} ranks do not divide a population "
+                         f"of {n}")
+    return mesh.rows(n)
 
 
 def _agent_names(pop_params: PopParams, agent: str) -> List[str]:
@@ -126,7 +148,8 @@ def make_population_train_step(modules: AgentModules, top_k: int,
                                batch_denom: int, *, seed: int = 0,
                                uniforms: Optional[Callable] = None,
                                transform: Optional[Callable] = None,
-                               context_fn: Optional[Callable] = None):
+                               context_fn: Optional[Callable] = None,
+                               member_base: int = 0):
     """Build ``chunk(pop_params, pop_opts, feats, targets, idx (K, B),
     desc, step0=0, lr_scale=None, feats_context=None,
     desc_set_padded=None, desc_set_mask=None) -> (pop_params, pop_opts,
@@ -136,7 +159,9 @@ def make_population_train_step(modules: AgentModules, top_k: int,
     uniforms of global step ``step0 + i``: by default
     ``member_uniforms(cfg, B, seed, step0 + i, N)``; ``uniforms``, a
     function ``step -> {s, z, w[, fz, fw]}`` of ``(N, T, B, dim)``
-    tensors, replaces them (the tests replay JAX's per-member keys).
+    tensors, replaces them (the tests replay JAX's per-member keys). The
+    members are those from ``member_base`` on (a rank's block of a
+    sharded population): their uniforms are drawn as those members'.
     ``lr_scale`` ``(N,)`` multiplies each member's updates after the
     optimizer. ``modules`` is the structure the members share (on their
     device); its own parameters are not read. ``transform`` and
@@ -184,7 +209,7 @@ def make_population_train_step(modules: AgentModules, top_k: int,
             target = targets[idx[i]].long()
             u = (uniforms(step) if uniforms is not None
                  else member_uniforms(cfg, data.shape[0], seed, step, n,
-                                      dev))
+                                      dev, member_base=member_base))
             u = {k: v.to(dev) for k, v in u.items()}
             grads, metrics = member_grads(
                 {k: v.detach() for k, v in pop_params.items()}, data,

@@ -11,6 +11,16 @@ sets. Under ``-flipout_dev`` every request flips bits with the same draws
 (Philox keyed by ``(0, 0)``, slot 0), as the JAX Predictor's fixed key
 does.
 
+Several devices (JAX's ``Predictor(mesh=...)``, serve.py:36-71): the
+modules and descriptions are replicated on each device of a list, and a
+request's rows are split into one block a device (a batch the devices do
+not divide runs whole on the first, where JAX replicates it). There are
+no collectives, and one process drives every device: the blocks' launches
+go out back to back, and their records are joined on the first device,
+where the answer is computed as for one device. ``-mesh N`` (``-1``: every
+card) serves on the first N visible cards, and raises when there are
+fewer.
+
 CLI: ``python -m multimodalgame_tpu_torch.serve -checkpoint <path.pt>
 -log_load <train json> -dev_file <hdf5>`` prints JSONL predictions, the
 same lines as the JAX package's serve.
@@ -18,9 +28,10 @@ same lines as the JAX package's serve.
 
 from __future__ import annotations
 
+import copy
 import json
 import sys
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -29,7 +40,8 @@ from multimodalgame_tpu_torch.config import Flags
 from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
 from multimodalgame_tpu_torch.game.agents import AgentModules
 from multimodalgame_tpu_torch.game.config import GameConfig
-from multimodalgame_tpu_torch.game.exchange import description_inputs
+from multimodalgame_tpu_torch.game.exchange import (description_inputs,
+                                                    turns_run)
 from multimodalgame_tpu_torch.game.losses import get_rec_outp
 from multimodalgame_tpu_torch.game.masks import assemble_loss_masks
 from multimodalgame_tpu_torch.game.train import make_eval_exchange
@@ -39,31 +51,47 @@ from multimodalgame_tpu_torch.utils.torch_interop import (
     load_reference_checkpoint)
 
 Device = Optional[Union[str, torch.device]]
+Devices = Union[Device, Sequence[Union[str, torch.device]]]
+# The record fields a prediction reads.
+_ANSWER = ("y", "stop_masks", "stop_feats", "sen_feats", "rec_feats")
 
 
 class Predictor:
     """Checkpoint-backed batched game predictor.
 
     ``device`` defaults to ``cuda`` (and raises without a GPU); pass
-    ``device="cpu"`` for the plain PyTorch path on the CPU. ``use_kernel``
-    routes supported configs through the fused CUDA kernel.
+    ``device="cpu"`` for the plain PyTorch path on the CPU, or a list of
+    devices (one may repeat) to split each request's rows over them.
+    ``use_kernel`` routes supported configs through the fused CUDA kernel.
     """
 
     def __init__(self, cfg: GameConfig, modules: AgentModules,
-                 desc_pack: DescriptionPack, device: Device = None,
+                 desc_pack: DescriptionPack, device: Devices = None,
                  use_kernel: bool = True):
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in (
+            device if isinstance(device, (list, tuple)) else [device])]
+        self.device = self.devices[0]
         self.cfg = cfg
-        self.modules = modules.to(self.device).eval()
         self.desc_pack = desc_pack
-        self._descs = description_inputs(desc_pack, cfg, self.device)
+        # One replica a distinct device: the modules, the descriptions
+        # and the eval conversation.
+        self._replicas = {}
+        for dev in self.devices:
+            if dev in self._replicas:
+                continue
+            mods = (modules if not self._replicas
+                    else copy.deepcopy(modules)).to(dev).eval()
+            descs = description_inputs(desc_pack, cfg, dev)
+            self._replicas[dev] = (mods, descs,
+                                   make_eval_exchange(mods,
+                                                      use_kernel=use_kernel))
+        self.modules, self._descs, self._exchange = \
+            self._replicas[self.device]
         self._desc = self._descs["desc"].contiguous()
-        self._exchange = make_eval_exchange(self.modules,
-                                            use_kernel=use_kernel)
 
     @classmethod
     def from_checkpoint(cls, flags: Flags, desc_pack: DescriptionPack,
-                        device: Device = None,
+                        device: Devices = None,
                         use_kernel: bool = True) -> "Predictor":
         """Load ``flags.checkpoint``, a reference-layout ``.pt``."""
         cfg = GameConfig.from_flags(flags)
@@ -82,16 +110,20 @@ class Predictor:
         ``conversation_length`` (B,), ``sender_messages`` /
         ``receiver_messages`` (n, B, W), and ``n_steps``.
         """
-        data = torch.as_tensor(np.asarray(features, np.float32),
-                               device=self.device).contiguous()
-        ctx = (None if data_context is None else torch.as_tensor(
-            np.asarray(data_context, np.float32), device=self.device))
-        ex = self._exchange(
-            data, self._desc, data_context=ctx,
-            desc_set_padded=self._descs["desc_set_padded"],
-            desc_set_mask=self._descs["desc_set_mask"],
-            uniforms=philox_eval_uniforms(self.cfg, data.shape[0], 0, 0, 0,
-                                          self.device))
+        features = np.asarray(features, np.float32)
+        batch = features.shape[0]
+        nd = len(self.devices)
+        per = batch // nd if nd > 1 and batch % nd == 0 else batch
+        blocks = [self._block(features, data_context, lo, lo + per, dev)
+                  for lo, dev in zip(range(0, batch, per), self.devices)]
+        if len(blocks) == 1:
+            ex = blocks[0]
+        else:
+            ex = blocks[0]._replace(**{k: torch.cat(
+                [getattr(b, k).to(self.device) for b in blocks], dim=1)
+                for k in _ANSWER})
+            ex = ex._replace(n_steps=turns_run(ex.stop_masks,
+                                               self.cfg.fixed_exchange))
         # Fixed exchanges score the LAST turn, like training and eval
         # (the stop unit gets no training signal in fixed mode).
         y_masks = (None if self.cfg.fixed_exchange
@@ -109,24 +141,53 @@ class Predictor:
             "n_steps": n,
         }
 
+    def _block(self, features: np.ndarray,
+               data_context: Optional[np.ndarray], lo: int, hi: int,
+               dev: torch.device):
+        """The eval conversation of rows ``[lo, hi)`` on ``dev``'s replica,
+        with those rows' ``-flipout_dev`` draws."""
+        mods, descs, run = self._replicas[dev]
+        data = torch.as_tensor(features[lo:hi], device=dev).contiguous()
+        ctx = (None if data_context is None else torch.as_tensor(
+            np.asarray(data_context, np.float32)[lo:hi], device=dev))
+        return run(data, descs["desc"].contiguous(), data_context=ctx,
+                   desc_set_padded=descs["desc_set_padded"],
+                   desc_set_mask=descs["desc_set_mask"],
+                   uniforms=philox_eval_uniforms(self.cfg, hi - lo, 0, 0, 0,
+                                                 dev, row_base=lo))
 
-def main(argv=None, device: Device = None) -> None:
+
+def serving_devices(mesh: int, device: Devices = None) -> List[torch.device]:
+    """The devices ``-mesh`` serves on (``game/driver.py:device_pool``):
+    one for 0 or 1, the first ``mesh`` (-1: all) of the pool otherwise;
+    ``ValueError`` when it has fewer."""
+    from multimodalgame_tpu_torch.game.driver import device_pool
+    if mesh in (0, 1):
+        return [resolve_device(device[0] if isinstance(device, (list, tuple))
+                               else device)]
+    pool = device_pool(device, mesh)
+    if mesh == -1:
+        return pool
+    if len(pool) < mesh:
+        raise ValueError(f"requested a {mesh}-device mesh but only "
+                         f"{len(pool)} devices are available")
+    return pool[:mesh]
+
+
+def main(argv=None, device: Devices = None) -> None:
     from multimodalgame_tpu_torch.config import flags_from_argv
     from multimodalgame_tpu_torch.data.descriptions import load_descriptions
     from multimodalgame_tpu_torch.data.hdf5_loader import load_hdf5
 
     flags = flags_from_argv(argv)
-    device = resolve_device(device)
     if int(flags.mesh_model or 0) > 1:
         raise ValueError(
             "-mesh_model is a training option; serving shards "
             "the request batch axis only — drop -mesh_model")
-    if int(flags.mesh or 0) not in (0, 1):
-        raise NotImplementedError(
-            "-mesh serving is not ported to PyTorch yet")
+    devices = serving_devices(int(flags.mesh or 0), device)
     desc_pack = load_descriptions(flags.descr_dev, flags.wv_type,
                                   flags.wv_dim, glove_path=flags.glove_path)
-    pred = Predictor.from_checkpoint(flags, desc_pack, device=device)
+    pred = Predictor.from_checkpoint(flags, desc_pack, device=devices)
     for batch in load_hdf5(flags.dev_file, flags.batch_size_dev, 0,
                            shuffle=False, truncate_final_batch=True,
                            map_labels=desc_pack.map_labels):

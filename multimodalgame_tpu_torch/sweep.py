@@ -28,6 +28,17 @@ uniforms are Philox keyed by ``(random_seed + 1, step)`` with the member
 in the counter (``ops/philox.py:member_uniforms``), where JAX splits
 PRNG keys. It runs on ``cuda`` unless the caller passes ``device``.
 ``-images cifar`` raises: the sweep stages feature files only.
+
+Several devices: as JAX's sweep does (sweep.py:121-145), with no flag,
+the member axis is split over the largest number of the visible cards
+(or of the devices in a ``device`` list, where one may repeat) that
+divides N, one rank a device (``parallel/distributed.py``; each rank
+holds its members, ``parallel/population.py:member_block``), and a
+smaller such number than the devices is logged. The members are
+independent: the ranks meet only to gather each dev sweep's accuracies
+and the timings; the rank that holds the winner writes its ``_best``,
+and rank 0 prints the lines. ``-num_processes`` (a multi-host training
+job) is not a sweep flag and raises.
 """
 
 from __future__ import annotations
@@ -47,7 +58,8 @@ from multimodalgame_tpu_torch.data.descriptions import load_descriptions
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.game.agents import AgentModules, init_params
 from multimodalgame_tpu_torch.game.config import GameConfig
-from multimodalgame_tpu_torch.game.driver import decompose_chunks
+from multimodalgame_tpu_torch.game.driver import (decompose_chunks,
+                                                  device_pool)
 from multimodalgame_tpu_torch.game.exchange import description_inputs
 from multimodalgame_tpu_torch.game.fast_eval import batch_statistics
 from multimodalgame_tpu_torch.game.train import (
@@ -55,12 +67,13 @@ from multimodalgame_tpu_torch.game.train import (
 from multimodalgame_tpu_torch.ops.cuda_exchange import train_kernel_supports
 from multimodalgame_tpu_torch.ops.philox import (member_uniforms,
                                                  philox_eval_uniforms)
+from multimodalgame_tpu_torch.parallel.distributed import host_view
 from multimodalgame_tpu_torch.parallel.population import (
     init_population, init_population_opt_states, make_population_eval,
-    make_population_train_step, member_modules, member_opt_states)
+    make_population_train_step, member_block, member_modules,
+    member_opt_states)
 from multimodalgame_tpu_torch.train import check_supported
 from multimodalgame_tpu_torch.utils.checkpoint import save_checkpoint
-from multimodalgame_tpu_torch.utils.device import resolve_device
 from multimodalgame_tpu_torch.utils.logging import FileLogger
 
 
@@ -79,8 +92,8 @@ def run_sweep(flags: Flags, max_steps: Optional[int] = None,
     """Train the population; returns the summary dict (per-member dev
     accuracies, the winner, timings). ``inputs`` (``(desc_train,
     desc_dev, train_ds, dev_ds)``) replaces the file reads with sets held
-    in memory, as ``train.run``'s does."""
-    device = resolve_device(device)
+    in memory, as ``train.run``'s does. ``device`` is a device, or a list
+    of devices to split the members over (see the module's notes)."""
     check_supported(flags)
     if flags.images == "cifar":
         raise NotImplementedError(
@@ -89,10 +102,53 @@ def run_sweep(flags: Flags, max_steps: Optional[int] = None,
     if int(flags.population) < 1:
         raise ValueError(f"-population must be at least 1, got "
                          f"{flags.population}")
+    if int(flags.num_processes or 1) > 1:
+        raise ValueError("the sweep splits its members over this host's "
+                         "devices; -num_processes is a flag of a "
+                         "multi-host training job")
     if flags.log_file:
         os.makedirs(os.path.dirname(flags.log_file) or ".", exist_ok=True)
+    n = int(flags.population)
+    devices = device_pool(device, 1)
+    # The largest number of devices that divides the members (JAX
+    # sweep.py:124-134).
+    n_dev = next((d for d in range(len(devices), 1, -1) if n % d == 0), 1)
+    if n > 1 and n_dev < len(devices):
+        FileLogger(flags.log_file).Log(
+            "Population {} not divisible by {} devices; sharding over a "
+            "{}-device mesh instead".format(n, len(devices), n_dev))
+    if n_dev == 1:
+        return _sweep(flags, max_steps, eval_every, devices[0], inputs)
+    from multimodalgame_tpu_torch.parallel.distributed import launch
+    if inputs is not None:
+        inputs = tuple(x.to("cpu") if isinstance(x, DeviceDataset) else x
+                       for x in inputs)
+    ranks = launch(_sweep_rank, devices[:n_dev],
+                   (flags, max_steps, eval_every, inputs))
+    return dict(ranks[0], ranks=ranks)
+
+
+def _sweep_rank(mesh, flags: Flags, max_steps, eval_every, inputs) -> dict:
+    """One rank of a sweep whose members are split over ``mesh``."""
+    from multimodalgame_tpu_torch.parallel.distributed import rank_path
+    flags.log_file = rank_path(flags.log_file, mesh)
+    if inputs is not None:
+        inputs = tuple(x.to(mesh.device) if isinstance(x, DeviceDataset)
+                       else x for x in inputs)
+    out = _sweep(flags, max_steps, eval_every, mesh.device, inputs, mesh)
+    out["collectives"] = {"seconds": mesh.seconds, "calls": mesh.calls}
+    out["rank"] = mesh.rank
+    return out
+
+
+def _sweep(flags: Flags, max_steps: Optional[int],
+           eval_every: Optional[int], device: torch.device, inputs,
+           mesh=None) -> dict:
+    """:func:`run_sweep` on one device, or as one rank of ``mesh``
+    holding its block of the members."""
     flogger = FileLogger(flags.log_file)
     n = int(flags.population)
+    lo, hi = member_block(n, mesh)
     single = n == 1
     cfg = GameConfig.from_flags(flags)
     lr_scale = parse_lr_scales(flags.lr_scales, n)
@@ -135,21 +191,26 @@ def run_sweep(flags: Flags, max_steps: Optional[int] = None,
         eval_exchange = make_eval_exchange(modules)
     else:
         modules = AgentModules(cfg).to(device)
-        pop = init_population(cfg, flags.random_seed, n, device)
+        pop = init_population(cfg, flags.random_seed, hi - lo, device,
+                              first=lo)
         state = {"pop": pop, "opts": init_population_opt_states(cfg, pop)}
         chunk = make_population_train_step(modules, flags.top_k_train,
-                                           flags.batch_size, seed=seed)
+                                           flags.batch_size, seed=seed,
+                                           member_base=lo)
         batch_eval = make_population_eval(modules, flags.top_k_dev)
+        if lr_scale is not None:
+            lr_scale = lr_scale[lo:hi]
 
     def dev_accuracy(step: int) -> np.ndarray:
-        """Each member's dev top-k over the dev set, one copy at the end;
-        under ``-flipout_dev`` batch ``i`` draws from eval slot ``1 + i``
-        of ``(seed, step)``."""
+        """Each member's dev top-k over the dev set, one copy at the end
+        (on the mesh, after the ranks' members are gathered); under
+        ``-flipout_dev`` batch ``i`` draws from eval slot ``1 + i`` of
+        ``(seed, step)``."""
         if dev_ds.size == 0:
             raise ValueError("dev set is empty — nothing to evaluate")
         idx = dev_ds.epoch_indices(0, False, flags.batch_size_dev,
                                    truncate_final_batch=True)
-        correct = torch.zeros((n,), dtype=torch.int64, device=device)
+        correct = torch.zeros((hi - lo,), dtype=torch.int64, device=device)
         total = 0
         with torch.no_grad():
             for i, row in enumerate(idx):
@@ -169,10 +230,12 @@ def run_sweep(flags: Flags, max_steps: Optional[int] = None,
                     correct += batch_eval(
                         state["pop"], data, target, desc_dev_t,
                         uniforms=member_uniforms(cfg, len(row), seed, step,
-                                                 n, device, slot=1 + i),
+                                                 hi - lo, device, slot=1 + i,
+                                                 member_base=lo),
                         data_context=ctx, **dev_descs)
                 total += len(row)
-        return correct.cpu().numpy() / float(total)
+        got = host_view(correct, mesh, sharded=True)
+        return got / float(total)
 
     flogger.Log("Population sweep: {} members, {} steps/epoch, flags: {}"
                 .format(n, train_ds.size // flags.batch_size,
@@ -236,29 +299,41 @@ def run_sweep(flags: Flags, max_steps: Optional[int] = None,
         accs = dev_accuracy(step)
         best = np.maximum(best, accs)
     elapsed = time.perf_counter() - t0
+    if mesh is not None:
+        # The slowest rank's time is the sweep's.
+        elapsed = float(host_view(torch.tensor(
+            [elapsed], dtype=torch.float64, device=device), mesh,
+            sharded=True).max())
+    scales = parse_lr_scales(flags.lr_scales, n)
+    printer = mesh is None or mesh.writer
 
     members = []
     for i in range(n):
         members.append({
             "member": i,
-            "lr_scale": float(lr_scale[i]) if lr_scale is not None else 1.0,
+            "lr_scale": float(scales[i]) if scales is not None else 1.0,
             "final_dev_acc": float(accs[i]),
             "best_dev_acc": float(best[i]),
         })
-        print(json.dumps(members[-1]))
+        if printer:
+            print(json.dumps(members[-1]))
     # The winner has the best dev accuracy over training (the driver's
     # best-checkpoint rule, model.py:1569-1576); its checkpoint holds its
     # final weights and live optimizer slots, and records both accuracies.
+    # On the mesh the rank that holds it writes it.
     winner = int(np.argmax(best))
     if single:
         win_mods, win_opts = modules, state["opts"]
-    else:
-        win_mods = member_modules(cfg, state["pop"], winner)
-        win_opts = member_opt_states(state["opts"], winner)
-    save_checkpoint(flags.checkpoint + "_best",
-                    dict(step=step, best_dev_acc=float(best[winner]),
-                         final_dev_acc=float(accs[winner])),
-                    win_mods, win_opts)
+    elif lo <= winner < hi:
+        win_mods = member_modules(cfg, state["pop"], winner - lo)
+        win_opts = member_opt_states(state["opts"], winner - lo)
+    if lo <= winner < hi:
+        save_checkpoint(flags.checkpoint + "_best",
+                        dict(step=step, best_dev_acc=float(best[winner]),
+                             final_dev_acc=float(accs[winner])),
+                        win_mods, win_opts)
+    if mesh is not None:
+        mesh.barrier()
 
     summary = {
         "population": n,
@@ -270,7 +345,8 @@ def run_sweep(flags: Flags, max_steps: Optional[int] = None,
         "steps_per_sec_total": round(step * n / elapsed, 1),
         "checkpoint": flags.checkpoint + "_best",
     }
-    print(json.dumps(summary))
+    if printer:
+        print(json.dumps(summary))
     flogger.Log("Sweep summary: " + json.dumps(summary))
     summary["members"] = members
     return summary

@@ -16,6 +16,16 @@ cifar`` (the CIFAR-10 test split's pixels as features; PIL reads and
 resizes them, or the caller stages them through ``inputs``). Flags the
 port does not cover raise ``NotImplementedError`` naming the ROADMAP
 item that ports them.
+
+``-mesh N`` trains (or, with ``-eval_only``, evaluates) data-parallel,
+one process a device (``parallel/distributed.py``): alone, ``run``
+spawns N ranks on the visible cards (``device`` a list names them, a
+device may repeat; ``cpu`` gives N CPU ranks) and returns rank 0's
+summary; with ``-num_processes P -coordinator host:port -process_id i``
+each host's ``run`` joins the job with its N / P ranks. The flags are
+checked before any process starts, as JAX checks them before joining
+(train.py:186-202). ``-binary_only`` extraction and ``-nofast_driver``
+run on one device and refuse ``-mesh``, as JAX's do.
 """
 
 from __future__ import annotations
@@ -33,7 +43,8 @@ from multimodalgame_tpu_torch.data.descriptions import (DescriptionPack,
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.game.agents import AgentModules, init_params
 from multimodalgame_tpu_torch.game.config import GameConfig
-from multimodalgame_tpu_torch.game.driver import resolve_mesh
+from multimodalgame_tpu_torch.game.driver import (MESH_MODEL_NOT_PORTED,
+                                                  resolve_mesh)
 from multimodalgame_tpu_torch.game.train import (init_opt_states,
                                                  make_eval_exchange)
 from multimodalgame_tpu_torch.utils.checkpoint import (ORBAX_NOT_PORTED,
@@ -188,13 +199,38 @@ def emit_log_window(flags: Flags, flogger, logger, epoch: int, step: int,
 def check_supported(flags: Flags) -> None:
     """Raise ``NotImplementedError`` for flags the port does not cover,
     naming the ROADMAP item that ports them."""
-    resolve_mesh(flags)
-    if int(flags.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "-num_processes > 1 is not ported to PyTorch yet (ROADMAP "
-            "§1.10, scale-out)")
+    if int(flags.mesh_model or 0) > 1:
+        raise NotImplementedError(MESH_MODEL_NOT_PORTED)
     if flags.ckpt_format == "orbax":
         raise NotImplementedError(ORBAX_NOT_PORTED)
+
+
+def job_devices(flags: Flags, device=None) -> Optional[list]:
+    """This host's rank devices for ``-mesh`` and ``-num_processes``, or
+    ``None`` for a single-device run. Raises ``ValueError`` for a
+    multi-host job without ``-coordinator`` or ``-mesh`` (before any
+    process tries to join it, so a bad flag fails instead of hanging;
+    JAX train.py:192-202), for ``-mesh`` outside the chunked driver and
+    the device ``-eval_only`` sweep (JAX train.py:249-258), for a batch
+    size the mesh does not divide and for too few devices."""
+    if int(flags.num_processes or 1) > 1:
+        if not flags.coordinator:
+            raise ValueError(
+                "-num_processes > 1 requires -coordinator host:port")
+        if int(flags.mesh or 0) in (0, 1):
+            raise ValueError(
+                "-num_processes > 1 requires -mesh (e.g. -mesh -1 for "
+                "every device in the job)")
+    if int(flags.mesh or 0) not in (0, 1) and (
+            not flags.fast_driver or flags.binary_only):
+        raise ValueError(
+            "-mesh parallelism is implemented for the chunked training "
+            "driver (-fast_driver) and the device-sweep -eval_only path; "
+            "drop -mesh or use the fast driver")
+    # An eval-only run shards only the dev batches (JAX train.py:368).
+    fields = (("batch_size_dev",) if flags.eval_only
+              else ("batch_size", "batch_size_dev"))
+    return resolve_mesh(flags, fields, device)
 
 
 def param_count(module: torch.nn.Module) -> int:
@@ -213,12 +249,62 @@ def run(flags: Flags, max_steps: Optional[int] = None,
     uint8 pixel set (a ``DeviceDataset`` of uint8 pixels, as
     ``DeviceDataset.from_cifar`` stages it).
     ``uniforms`` (``step -> {s, z, w[, fz, fw]}``) replaces the Philox
-    stream of the training steps."""
-    device = resolve_device(device)
+    stream of the training steps.
+
+    With ``-mesh`` (see the module's notes) ``device`` may be a list of
+    the ranks' devices; ``inputs`` and ``uniforms`` go to every rank (the
+    sets as CPU copies, ``uniforms`` pickled, giving the whole batch's
+    numbers). The summary is rank 0's, its modules and tensors on the
+    CPU, with every rank's summary under ``ranks``: each with its
+    ``launches`` of both kernels and its ``collectives`` (seconds and
+    calls, the gradient all-reduces apart)."""
     check_supported(flags)
     if inputs is not None and (flags.binary_only or not flags.fast_driver):
         raise ValueError("in-memory inputs serve the staged paths only; "
                          "-binary_only and -nofast_driver read the files")
+    devices = job_devices(flags, device)
+    if devices is None:
+        return _run(flags, max_steps, resolve_device(device), inputs,
+                    uniforms)
+    from multimodalgame_tpu_torch.parallel.distributed import launch
+    if inputs is not None:
+        inputs = tuple(x.to("cpu") if isinstance(x, DeviceDataset) else x
+                       for x in inputs)
+    multi = int(flags.num_processes or 1) > 1
+    ranks = launch(_run_rank, devices, (flags, max_steps, inputs, uniforms),
+                   coordinator=flags.coordinator if multi else None,
+                   num_processes=int(flags.num_processes or 1),
+                   process_id=int(flags.process_id or 0))
+    return dict(ranks[0], ranks=ranks)
+
+
+def _run_rank(mesh, flags: Flags, max_steps, inputs, uniforms) -> dict:
+    """One rank of a ``-mesh`` run: its log paths, its copy of the
+    in-memory sets on its device, the run, and its counters."""
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.parallel.distributed import rank_path
+    # Rank 0 owns the shared files; the others keep their host logs
+    # apart (JAX train.py:212-215).
+    for attr in ("log_file", "json_file", "eval_csv_file", "conf_mat"):
+        setattr(flags, attr, rank_path(getattr(flags, attr), mesh))
+    if inputs is not None:
+        inputs = tuple(x.to(mesh.device) if isinstance(x, DeviceDataset)
+                       else x for x in inputs)
+    out = _run(flags, max_steps, mesh.device, inputs, uniforms, mesh)
+    out["launches"] = {"train": fused_train_forward.launches,
+                       "eval": fused_eval_exchange.launches}
+    out["collectives"] = {"seconds": mesh.seconds, "calls": mesh.calls,
+                          "grad_seconds": mesh.grad_seconds,
+                          "grad_calls": mesh.grad_calls}
+    out["rank"] = mesh.rank
+    return out
+
+
+def _run(flags: Flags, max_steps: Optional[int], device: torch.device,
+         inputs: Optional[Inputs], uniforms: Optional[Callable],
+         mesh=None) -> dict:
+    """:func:`run` on one device, or as one rank of ``mesh``."""
     # The first Log() appends to flags.log_file: create its directory.
     if flags.log_file:
         os.makedirs(os.path.dirname(flags.log_file) or ".", exist_ok=True)
@@ -294,11 +380,14 @@ def run(flags: Flags, max_steps: Optional[int] = None,
                     context_key=(flags.data_context
                                  if flags.attn_extra_context else None),
                     device=device)
+            if mesh is not None:
+                flogger.Log("Data-parallel mesh: {} devices ({}, {})".format(
+                    mesh.size, device.type, mesh.backend))
             # Keyed by the checkpoint's step, the -flipout_dev draws are
             # those of the dev sweep that wrote it.
             dev_acc, extra = run_device_dev_eval(
                 flags, modules, eval_exchange, desc_dev, dev_ds, epoch,
-                step=step)
+                step=step, mesh=mesh)
         else:
             from multimodalgame_tpu_torch.eval import eval_dev
             dev_acc, extra = eval_dev(
@@ -330,7 +419,7 @@ def run(flags: Flags, max_steps: Optional[int] = None,
                            flogger, logger, eval_exchange, step=step,
                            best_dev_acc=best_dev_acc, max_steps=max_steps,
                            train_ds=train_ds, dev_ds=dev_ds,
-                           uniforms=uniforms)
+                           uniforms=uniforms, mesh=mesh)
         flogger.Log("Finished training.")
         return summary
     return _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,

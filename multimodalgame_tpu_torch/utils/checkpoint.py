@@ -30,14 +30,19 @@ ORBAX_NOT_PORTED = (
 
 
 def save_checkpoint(filename: str, data: Dict[str, Any],
-                    modules: AgentModules, opt_states: Dict[str, Any]
-                    ) -> None:
+                    modules: AgentModules, opt_states: Dict[str, Any],
+                    mesh=None) -> None:
     """Write ``{data, models, optimizers}`` to ``filename`` as a
     reference-layout ``.pt``, by a temporary file and a rename.
     (``train.check_supported`` refuses ``-ckpt_format orbax`` before a
-    run starts.)"""
-    save_reference_checkpoint(filename, data, modules, opt_states,
-                              modules.cfg.optim_type)
+    run starts.) On a data-parallel ``mesh`` (whose ranks hold equal
+    parameters) rank 0 writes, and every rank waits for the write, so
+    none reads a half-written file."""
+    if mesh is None or mesh.writer:
+        save_reference_checkpoint(filename, data, modules, opt_states,
+                                  modules.cfg.optim_type)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_checkpoint(filename: str, modules: AgentModules,

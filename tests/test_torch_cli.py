@@ -182,12 +182,16 @@ def test_check_supported_takes_attention_mou_and_flipout_dev(extra,
     flags = flags_from_argv(["-experiment_name", "ok", "-log_path",
                              str(tmp_path)] + extra)
     check_supported(flags)
-    # bfloat16 and CIFAR are ported too; a mesh is not.
-    for ported in (["-compute_dtype", "bfloat16"], ["-images", "cifar"]):
+    # bfloat16, CIFAR and a data-parallel mesh are ported too; tensor
+    # parallelism and Orbax are not.
+    for ported in (["-compute_dtype", "bfloat16"], ["-images", "cifar"],
+                   ["-mesh", "2"]):
         check_supported(flags_from_argv(["-experiment_name", "ok",
                                          "-log_path", str(tmp_path)]
                                         + extra + ported))
-    bad = flags_from_argv(["-experiment_name", "no", "-log_path",
-                           str(tmp_path)] + extra + ["-mesh", "2"])
-    with pytest.raises(NotImplementedError, match="§1.10"):
-        check_supported(bad)
+    for refused, match in ((["-mesh_model", "2"], "§1.10.3"),
+                           (["-ckpt_format", "orbax"], "orbax")):
+        bad = flags_from_argv(["-experiment_name", "no", "-log_path",
+                               str(tmp_path)] + extra + refused)
+        with pytest.raises(NotImplementedError, match=match):
+            check_supported(bad)

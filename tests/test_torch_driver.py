@@ -374,9 +374,14 @@ def test_per_batch_loop_matches_the_driver(synthetic_dataset, tmp_path):
 
 
 def test_unported_flags_raise(synthetic_dataset, tmp_path):
-    for extra in (["-mesh", "2"], ["-mesh_model", "2"],
-                  ["-num_processes", "2"], ["-ckpt_format", "orbax"]):
+    """Tensor parallelism and Orbax still raise before a run starts; a
+    data-parallel mesh passes ``check_supported``."""
+    from multimodalgame_tpu_torch.train import check_supported
+    for extra, match in ((["-mesh_model", "2"], "§1.10.3"),
+                         (["-ckpt_format", "orbax"], "orbax")):
         flags = port_flags(small_argv(synthetic_dataset, tmp_path, "x",
                                       extra))
-        with pytest.raises(NotImplementedError, match="ROADMAP|orbax"):
+        with pytest.raises(NotImplementedError, match=match):
             run(flags, device="cpu")
+    check_supported(port_flags(small_argv(synthetic_dataset, tmp_path, "x",
+                                          ["-mesh", "2"])))

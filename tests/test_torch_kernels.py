@@ -206,6 +206,40 @@ def test_train_kernel_matches_plain_version_canonical_width(cuda, mode):
     assert (got.sen_feats != torch.floor(got.sen_probs + 0.5)).any()
 
 
+@pytest.mark.parametrize("dims, batch, split", [(SMALL, 13, 6),
+                                                 (CANON, 64, 32)],
+                         ids=["small_ragged", "canonical"])
+def test_train_kernel_row_base_numbers_a_shards_rows(cuda, dims, batch,
+                                                     split):
+    """Two Philox launches over a batch's rows, the second numbered from
+    ``row_base``, equal one launch over the batch, and each its plain
+    version at that ``row_base``."""
+    cfg, mods, data, desc = _case(dims, batch, 5, stop_bias=0.0)
+    params = kernel_params(mods)
+    with torch.inference_mode():
+        whole = fused_train_forward(cfg, params, data, desc, seed=7,
+                                    step=3)
+        parts = []
+        for lo, hi in ((0, split), (split, batch)):
+            got = fused_train_forward(cfg, params, data[lo:hi], desc,
+                                      seed=7, step=3, row_base=lo)
+            u = philox_uniforms(cfg, hi - lo, 7, 3, device="cuda",
+                                row_base=lo)
+            want = fused_train_forward_reference(cfg, params, data[lo:hi],
+                                                 desc, u)
+            rep = compare_outputs(cfg, got, want, uniforms=u)
+            assert rep["ok"], rep
+            parts.append(got)
+    torch.cuda.synchronize()
+    for k in ("sen_feats", "rec_feats", "stop_feats", "masks"):
+        assert torch.equal(torch.cat([getattr(p, k) for p in parts], 1),
+                           getattr(whole, k)), k
+    for k in ("sen_probs", "rec_probs", "stop_probs", "y"):
+        torch.testing.assert_close(
+            torch.cat([getattr(p, k) for p in parts], 1), getattr(whole, k),
+            rtol=0, atol=1e-5)
+
+
 def test_train_kernel_each_call_is_one_launch(cuda):
     cfg, mods, data, desc = _case(SMALL, 8, 5)
     params = kernel_params(mods)
@@ -230,6 +264,8 @@ def test_train_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         dict(),
         dict(seed=1),
         dict(seed=2 ** 32, step=0),
+        dict(seed=1, step=0, row_base=-1),
+        dict(uniforms=u, row_base=8),
     ]
     for kw in bad:
         with pytest.raises(ValueError):

@@ -191,11 +191,19 @@ def test_set_smaller_than_a_batch(synthetic_dataset, tmp_path):
 
 
 def test_sweep_refuses_a_mesh(synthetic_dataset, tmp_path):
-    for extra in (["-mesh", "2"], ["-mesh_model", "2"]):
+    """The sweep refuses tensor parallelism and Orbax; ``-mesh`` passes
+    ``check_supported`` (the sweep splits its members over its devices
+    without it, tests/test_torch_mesh_sweep.py)."""
+    from multimodalgame_tpu_torch.train import check_supported
+    for extra, match in ((["-mesh_model", "2"], "§1.10.3"),
+                         (["-ckpt_format", "orbax"], "orbax")):
         pf = port_flags(sweep_argv(synthetic_dataset, tmp_path, "mesh",
                                    ["-population", "2"] + extra))
-        with pytest.raises(NotImplementedError, match="§1.10.2"):
+        with pytest.raises(NotImplementedError, match=match):
             run_sweep(pf, device="cpu")
+    check_supported(port_flags(sweep_argv(synthetic_dataset, tmp_path,
+                                          "mesh", ["-population", "2",
+                                                   "-mesh", "2"])))
 
 
 def test_sweep_refuses_cifar(synthetic_dataset, tmp_path):
