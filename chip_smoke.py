@@ -131,7 +131,8 @@ result line):
              held the same way after 46; steps/s and the gradient
              all-reduce's ms a step;
 19. mesh_driver — ``train.run`` with the demo's argv and ``-mesh 2`` over
-             the two ranks on the card, the demo's 30 epochs: on each rank
+             the two ranks on the card, 15 of the demo's 30 epochs
+             (MESH_DRIVER_EPOCHS' note): on each rank
              the driver phase's launches, the cadences' log counts, rank
              0's log line for line the ``driver`` phase's (numbers aside,
              the mesh banner left out), a last dev top-6 of at least 0.5,
@@ -274,6 +275,11 @@ POPULATION_PARAM_ATOL, POPULATION_LOSS_RTOL = 5e-3, 1e-6
 # (tests/test_mesh_driver.py:80-93).
 MESH_DEVICES = ["cuda:0", "cuda:0"]
 MESH_STEP_STEPS = 46
+# The mesh driver runs the demo's argv for 15 of its 30 epochs (690
+# steps), which keeps the whole script near 700 s on a slow host (931 s
+# there with all 30): its log is the driver phase's first 690 steps,
+# message for message.
+MESH_DRIVER_EPOCHS = 15
 # JAX's mesh tolerance holds the weights after 8 steps
 # (tests/test_mesh_driver.py:73-93); the two-rank step is held there too,
 # and its use after the 46 steps is reported: RMSprop turns the rounding
@@ -293,6 +299,23 @@ MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-3, 1e-5
 # on the CPU the two agree exactly (tests/test_torch_mesh_sweep.py).
 SWEEP_MESH_ARGV = ["-population", "4", "-experiment_name", "sweep_mesh"]
 SWEEP_MESH_STEPS, SWEEP_MESH_EVERY, SWEEP_MESH_TIE_ROWS = 10, 5, 1
+# Tensor parallelism on ranks that share the card: a (1 data x 2
+# model) grid for the step, the driver (5 epochs = 230 steps, so that a
+# dev sweep at step 200 writes _best) and the big game, and a (2 x 2)
+# grid for TP_GRID_STEPS steps. A fast-path step makes TP_MODEL_CALLS
+# collectives on the model axis at the canonical width
+# (tests/tp_cases.py counts them).
+TP_ARGV = ["-mesh", "2", "-mesh_model", "2"]
+TP_EPOCHS, TP_GRID_STEPS, TP_MODEL_CALLS = 5, 10, 10
+# The big game (bench.py:511-520): 128-bit messages, sender hidden 1024,
+# receiver hidden 256, GloVe-300, 1,000 classes, batch 256, float32; no
+# launch plan of the kernel fits it. 6 examples a class (23 steps an
+# epoch), 20 steps.
+BIG_ARGV = ["-sender_out_dim", "128", "-rec_w_dim", "128", "-img_h_dim",
+            "1024", "-rec_hidden", "256", "-wv_dim", "300", "-batch_size",
+            "256", "-experiment_name", "big"]
+BIG_CLASSES, BIG_BATCH, BIG_TRAIN_PER_CLASS, BIG_STEPS = 1000, 256, 6, 20
+EXTRACT_IMAGES = 64
 WORDS = (3, 12)             # words in a class's set, least and most
 # Random weights stop every conversation after turn 0; this bias on the
 # stop unit makes them run 5-7 of the 10 turns, so the served answers
@@ -1584,12 +1607,15 @@ def gloo_cuda_collectives(mesh) -> dict:
     return out
 
 
-def mesh_train_rank(mesh, steps: int, device: str = "cuda") -> dict:
+def mesh_train_rank(mesh, steps: int, device: str = "cuda",
+                    n_model: int = 1) -> dict:
     """``steps`` steps of the canonical Adaptive game through the train
     kernel (``make_multistep_train_step_indexed(fast="kernel")``) from
-    seed 0, on ``mesh`` (its rows of each batch of 64) or, with ``mesh``
-    None, on ``device`` alone: the accuracy stream, the weights, the
-    train kernel's launches and the seconds, with the collectives'."""
+    seed 0, on ``mesh`` (its rows of each batch of 64; with ``n_model``
+    above 1 a ``(data, model)`` grid of the ranks, tensor-parallel) or,
+    with ``mesh`` None, on ``device`` alone: the accuracy stream, the
+    weights, the train kernel's launches and the seconds, with the
+    collectives' (each axis's)."""
     import torch
     from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
     from multimodalgame_tpu_torch.game.agents import (AgentModules,
@@ -1600,16 +1626,24 @@ def mesh_train_rank(mesh, steps: int, device: str = "cuda") -> dict:
         fused_train_forward)
     dev = torch.device(device if mesh is None else mesh.device)
     probe = (gloo_cuda_collectives(mesh) if mesh is not None
-             and mesh.backend == "gloo" and dev.type == "cuda" else None)
+             and n_model == 1 and mesh.backend == "gloo"
+             and dev.type == "cuda" else None)
     cfg = canonical_cfg(**TRAIN_HP)
     mods = init_params(AgentModules(cfg), seed=0, device=dev)
     train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
                           device=dev)
     desc = torch.from_numpy(descriptions()).to(dev)
+    tp = None
+    if n_model > 1:
+        from multimodalgame_tpu_torch.parallel.tensor import (
+            TensorParallel, init_tp_opt_states, make_mesh_2d)
+        mesh = make_mesh_2d(mesh, n_model)
+        tp = TensorParallel(mesh, mods, num_classes=NUM_CLASSES)
     chunk = make_multistep_train_step_indexed(
         mods, top_k=6, batch_denom=TRAIN_BATCH, fast="kernel", seed=0,
-        device=dev, mesh=mesh)
-    opts = init_opt_states(cfg, mods)
+        device=dev, mesh=mesh, tp=tp)
+    opts = (init_opt_states(cfg, mods) if tp is None
+            else init_tp_opt_states(cfg, tp))
     plan = train.epoch_indices(0, True, TRAIN_BATCH)[:steps]
     fused_train_forward.launches = 0
     # The first step (the process's lazy set-up with it) apart; the
@@ -1617,9 +1651,11 @@ def mesh_train_rank(mesh, steps: int, device: str = "cuda") -> dict:
     # read after MESH_PARAM_STEPS steps and at the end.
     first = chunk(opts, train.feats, train.targets, plan[:1], desc, 0)
     first.accuracy.cpu()
-    if mesh is not None:
-        mesh.seconds = mesh.grad_seconds = 0.0
-        mesh.calls = mesh.grad_calls = 0
+    axes = [] if mesh is None else [mesh] + (
+        [] if mesh.model is None else [mesh.model])
+    for axis in axes:
+        axis.seconds = axis.grad_seconds = 0.0
+        axis.calls = axis.grad_calls = 0
     t0 = time.perf_counter()
     k = MESH_PARAM_STEPS
     early = chunk(opts, train.feats, train.targets, plan[1:k], desc, 1)
@@ -1634,13 +1670,18 @@ def mesh_train_rank(mesh, steps: int, device: str = "cuda") -> dict:
            "launches": fused_train_forward.launches, "seconds": secs,
            "steps_per_s": (len(plan) - 1) / secs}
     if mesh is not None:
-        out.update(rank=mesh.rank, backend=mesh.backend,
+        out.update(rank=mesh.global_rank, backend=mesh.backend,
                    collective_ms_per_step=1e3 * mesh.seconds
                    / (len(plan) - 1),
                    collective_calls_per_step=mesh.calls / (len(plan) - 1),
                    grad_reduce_ms_per_step=1e3 * mesh.grad_seconds
                    / max(mesh.grad_calls, 1),
                    gloo_cuda=probe)
+    if tp is not None:
+        out.update(model_collective_ms_per_step=1e3 * mesh.model.seconds
+                   / (len(plan) - 1),
+                   model_collective_calls_per_step=mesh.model.calls
+                   / (len(plan) - 1))
     return out
 
 
@@ -1753,9 +1794,9 @@ def mesh_drive(device, workdir, smi, driven):
     then ``-eval_only -mesh 2`` on its ``_best``."""
     from multimodalgame_tpu_torch.config import flags_from_argv
     from multimodalgame_tpu_torch.train import run
-    flags = flags_from_argv(DEMO_ARGV + ["-mesh", "2", "-log_path",
-                                         os.path.join(workdir, "mesh"),
-                                         "-experiment_name", "mesh"])
+    flags = flags_from_argv(DEMO_ARGV + [
+        "-mesh", "2", "-max_epoch", str(MESH_DRIVER_EPOCHS), "-log_path",
+        os.path.join(workdir, "mesh"), "-experiment_name", "mesh"])
     inputs = canonical_inputs("cpu")
     want = cadence_counts(flags, inputs[2].size, inputs[3].size)
     t0 = time.perf_counter()
@@ -1791,8 +1832,14 @@ def mesh_drive(device, workdir, smi, driven):
         raise SystemExit(f"mesh_driver: launches {launches}, expected "
                          f"{want['train_launches']} and "
                          f"{want['eval_launches']} on each rank")
+    # The run's messages are the driver phase's first ones, but for its
+    # closing two ("Final step timing", "Finished training.").
     got_kinds = message_kinds(flags.log_file)
-    want_kinds = message_kinds(driven["log_file"])
+    want_kinds = message_kinds(driven["log_file"])[:len(got_kinds) - 2] \
+        + got_kinds[-2:]
+    if not (got_kinds[-2].startswith("Final step timing")
+            and got_kinds[-1] == "Finished training."):
+        raise SystemExit(f"mesh_driver: the log ends in {got_kinds[-2:]}")
     if got_kinds != want_kinds:
         first = next((i for i, (a, b) in enumerate(zip(got_kinds,
                                                        want_kinds))
@@ -1913,6 +1960,327 @@ def run_mesh_paths(workdir, smi, served, driven) -> dict:
             "mesh_driver": mesh_drive("cuda", workdir, smi, driven),
             "sweep_mesh": sweep_mesh("cuda", workdir, smi),
             "serve_mesh": serve_mesh("cuda", served)}
+
+
+# ------------------------------------ the kernel route, tensor parallelism,
+# ------------------------------------ the feature extractor
+
+def big_inputs(device):
+    """The big game's sets (BIG_CLASSES classes of BIG_TRAIN_PER_CLASS
+    and 1 example, features made as ``features`` makes them) and its
+    GloVe-300 descriptions, random from seeds."""
+    from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    proto = np.random.RandomState(1234).randn(BIG_CLASSES, 512)
+
+    def split(per_class, seed):
+        rng = np.random.RandomState(seed)
+        labels = np.repeat(np.arange(BIG_CLASSES), per_class)
+        feats = np.abs(proto[labels] + 0.3 * rng.randn(len(labels), 512))
+        return DeviceDataset(feats.astype(np.float32), labels,
+                             device=device)
+
+    desc = np.random.RandomState(7).randn(BIG_CLASSES, 300).astype(
+        np.float32)
+    pack = DescriptionPack(desc, desc, [1] * BIG_CLASSES,
+                           {i: i for i in range(BIG_CLASSES)},
+                           {i: f"class{i}" for i in range(BIG_CLASSES)})
+    return (pack, pack, split(BIG_TRAIN_PER_CLASS, 11), split(1, 12))
+
+
+def run_big(flags, inputs, device, phase, smi):
+    """``train.run`` of the big game for BIG_STEPS steps with both
+    kernels' counts set to 0 just before it: its log's counts, losses
+    and sampler line, the last epoch's steps/s and each rank's (or this
+    process's) peak memory."""
+    import torch
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.train import run
+    fused_train_forward.launches = fused_eval_exchange.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = run(flags, max_steps=BIG_STEPS, device=device, inputs=inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ranks = summary.get("ranks")
+    launches = ({k: [r["launches"][k] for r in ranks]
+                 for k in ("train", "eval")} if ranks else
+                {"train": [fused_train_forward.launches],
+                 "eval": [fused_eval_exchange.launches]})
+    peak = ([r["peak_memory_bytes"] for r in ranks] if ranks
+            else [torch.cuda.max_memory_allocated()])
+    got, losses, _, timing = read_log(flags, summary)
+    text = open(flags.log_file).read()
+    row = {"phase": phase, "steps": summary["step"],
+           "launches_per_rank": launches,
+           "sampler_line": "Phase A sampler: plain" in text,
+           "finite_losses": len(losses),
+           "all_losses_finite": bool(losses) and bool(
+               np.all(np.isfinite(losses))),
+           "last_epoch_steps_per_s": timing["steps_per_sec"],
+           "seconds": secs, "peak_memory_bytes_per_rank": peak,
+           "card": smi}
+    if ranks:
+        row["model_collective_calls_per_step"] = [
+            r["collectives"]["model"]["calls"] / summary["step"]
+            for r in ranks]
+        row["model_collective_ms_per_step"] = [
+            1e3 * r["collectives"]["model"]["seconds"] / summary["step"]
+            for r in ranks]
+    log(row)
+    if (summary["step"] != BIG_STEPS or not row["sampler_line"]
+            or not row["all_losses_finite"]
+            or any(n for v in launches.values() for n in v)):
+        raise SystemExit(f"{phase}: the big game did not train {BIG_STEPS} "
+                         f"steps on the plain conversation with finite "
+                         f"losses and no kernel launch: {row}")
+    return summary, row
+
+
+def route_big(device, workdir, smi):
+    """The big game (bench.py:514-520) at float32, batch 256, 1,000
+    classes: no launch plan of either kernel fits, so ``train.run``
+    trains it on the plain conversation and ``Predictor`` answers on it."""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.game.config import GameConfig
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        eval_kernel_supports, find_plan, fused_eval_exchange,
+        supports_config, train_kernel_supports)
+    from multimodalgame_tpu_torch.serve import Predictor
+    flags = flags_from_argv(DEMO_ARGV + BIG_ARGV + ["-log_path", workdir])
+    cfg = GameConfig.from_flags(flags)
+    sizes = (cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim,
+             cfg.rec_hidden, BIG_CLASSES, cfg.wv_dim, flags.batch_size)
+    route = {"supports_config": supports_config(cfg),
+             "plan": find_plan(*sizes),
+             "eval_kernel": eval_kernel_supports(cfg, flags.batch_size,
+                                                 BIG_CLASSES),
+             "train_kernel": train_kernel_supports(cfg, flags.batch_size,
+                                                   BIG_CLASSES)}
+    log({"phase": "route_big", "sizes_FHWRDVB": sizes, **route})
+    if route["plan"] is not None or route["eval_kernel"] \
+            or route["train_kernel"] or not route["supports_config"]:
+        raise SystemExit(f"route_big: expected a supported config with no "
+                         f"launch plan: {route}")
+    inputs = big_inputs(device)
+    summary, row = run_big(flags, inputs, device, "route_big", smi)
+    pred = Predictor(cfg, summary["modules"], inputs[1], device=device)
+    x = inputs[3].feats[:BIG_BATCH].cpu().numpy()
+    fused_eval_exchange.launches = 0
+    out = pred.predict(x)
+    torch.cuda.synchronize()
+    served = {"batch": len(x), "eval_launches": fused_eval_exchange.launches,
+              "finite": bool(np.isfinite(out["log_probs"]).all()),
+              "log_probs_shape": list(out["log_probs"].shape)}
+    log({"phase": "route_big", "predictor": served, "card": smi})
+    if served["eval_launches"] or not served["finite"] or \
+            served["log_probs_shape"] != [BIG_BATCH, BIG_CLASSES]:
+        raise SystemExit(f"route_big: the Predictor request {served}")
+    return {"train_launches": 0, "eval_launches": 0,
+            "steps_per_s": row["last_epoch_steps_per_s"],
+            "peak_memory_bytes": row["peak_memory_bytes_per_rank"][0]}
+
+
+def tp_step(device, smi):
+    """Two ranks sharing the card as a (1 data x 2 model) grid train one
+    epoch of the canonical game through the train kernel against one
+    device from the same seed, as ``mesh_step`` holds data parallelism."""
+    from multimodalgame_tpu_torch.parallel.distributed import launch
+    steps = MESH_STEP_STEPS
+    one = mesh_train_rank(None, steps, device)
+    ranks = launch(mesh_train_rank, MESH_DEVICES, (steps, "cuda", 2))
+    acc_err = max(float((r["accuracy"] - one["accuracy"]).abs().max())
+                  for r in ranks)
+    same = all(all(bool((r["params"][k] == ranks[0]["params"][k]).all())
+                   for k in r["params"]) for r in ranks[1:])
+    excess, worst = params_close(ranks[0]["params_early"],
+                                 one["params_early"])
+    late, late_worst = params_close(ranks[0]["params"], one["params"])
+    row = {"phase": "tp_step", "steps": steps, "grid": [1, 2],
+           "backend": ranks[0]["backend"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "accuracy_max_err": acc_err, "ranks_bit_identical": same,
+           "param_tolerance_use": excess, "param_worst": worst,
+           "param_steps": MESH_PARAM_STEPS,
+           "param_tolerance_use_after_all_steps": late,
+           "param_worst_after_all_steps": late_worst,
+           "steps_per_s_one_device": one["steps_per_s"],
+           "steps_per_s_per_rank": [r["steps_per_s"] for r in ranks],
+           "model_collective_calls_per_step": [
+               r["model_collective_calls_per_step"] for r in ranks],
+           "model_collective_ms_per_step": [
+               r["model_collective_ms_per_step"] for r in ranks],
+           "data_collective_calls_per_step": [
+               r["collective_calls_per_step"] for r in ranks],
+           "card": smi}
+    log(row)
+    if (acc_err > 1e-6 or not same or excess > 1
+            or any(r["launches"] != steps for r in ranks)
+            or any(r["model_collective_calls_per_step"] != TP_MODEL_CALLS
+                   for r in ranks)):
+        raise SystemExit(f"tp_step: the grid does not reproduce the "
+                         f"single device: {row}")
+    return {"train_launches": sum(r["launches"] for r in ranks),
+            "eval_launches": 0, **row}
+
+
+def tp_drive(device, workdir, smi):
+    """``train.run`` with the demo's argv on a (1 data x 2 model) grid of
+    two ranks sharing the card for TP_EPOCHS epochs, then ``-eval_only``
+    on the same grid reproducing _best's ``best_dev_acc``; the .pt files
+    reload in the single-device layout."""
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.train import run
+    flags = flags_from_argv(DEMO_ARGV + TP_ARGV + [
+        "-max_epoch", str(TP_EPOCHS), "-log_path",
+        os.path.join(workdir, "tp"), "-experiment_name", "tp"])
+    inputs = canonical_inputs("cpu")
+    want = cadence_counts(flags, inputs[2].size, inputs[3].size)
+    t0 = time.perf_counter()
+    summary = run(flags, device=MESH_DEVICES, inputs=inputs)
+    secs = time.perf_counter() - t0
+    got, losses, last_dev, timing = read_log(flags, summary)
+    ranks = summary["ranks"]
+    launches = {k: [r["launches"][k] for r in ranks]
+                for k in ("train", "eval")}
+    row = {"phase": "tp_driver", **got, "expected": want,
+           "launches_per_rank": launches, "finite_losses": len(losses),
+           "last_dev_top6": last_dev, "best_dev_acc": summary["best_dev_acc"],
+           "seconds": secs, "run_steps_per_s": want["steps"] / secs,
+           "last_epoch_steps_per_s": timing["steps_per_sec"],
+           "model_collective_calls_per_step": [
+               r["collectives"]["model"]["calls"] / want["steps"]
+               for r in ranks],
+           "model_collective_ms_per_step": [
+               1e3 * r["collectives"]["model"]["seconds"] / want["steps"]
+               for r in ranks],
+           "banner": "Mesh: 2 devices = 1 data x 2 model" in open(
+               flags.log_file).read(), "card": smi}
+    log(row)
+    check_counts("tp_driver", got, want, losses)
+    if not row["banner"] or any(
+            n != want["train_launches"] for n in launches["train"]) or any(
+            n != want["eval_launches"] for n in launches["eval"]):
+        raise SystemExit(f"tp_driver: launches {launches} or the banner, "
+                         f"expected {want['train_launches']} and "
+                         f"{want['eval_launches']} on each rank")
+    best = check_reloads("tp_driver", flags, device)
+    eval_flags = flags_from_argv(["-log_load", flags.json_file,
+                                  "-eval_only", "-checkpoint",
+                                  flags.checkpoint + "_best"] + TP_ARGV)
+    out = run(eval_flags, device=MESH_DEVICES, inputs=inputs)
+    evals = [r["launches"]["eval"] for r in out["ranks"]]
+    log({"phase": "tp_driver", "eval_only_grid_dev_acc": out["dev_acc"],
+         "best_dev_acc": best["best_dev_acc"],
+         "eval_only_launches_per_rank": evals})
+    if out["dev_acc"] != best["best_dev_acc"]:
+        raise SystemExit(f"tp_driver: -eval_only on the grid gave "
+                         f"{out['dev_acc']} on _best, which recorded "
+                         f"{best['best_dev_acc']}")
+    return {"train_launches": sum(launches["train"]),
+            "eval_launches": sum(launches["eval"]) + sum(evals), **row}
+
+
+def tp_grid(device, workdir, smi):
+    """``train.run`` on a (2 data x 2 model) grid of four ranks sharing
+    the card for TP_GRID_STEPS steps: both axes' collectives run."""
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.train import run
+    flags = flags_from_argv(DEMO_ARGV + [
+        "-mesh", "4", "-mesh_model", "2", "-log_path",
+        os.path.join(workdir, "tp_grid"), "-experiment_name", "tp_grid"])
+    summary = run(flags, max_steps=TP_GRID_STEPS, device=MESH_DEVICES * 2,
+                  inputs=canonical_inputs("cpu"))
+    ranks = summary["ranks"]
+    row = {"phase": "tp_grid", "grid": [2, 2], "steps": summary["step"],
+           "launches_per_rank": [r["launches"]["train"] for r in ranks],
+           "data_grad_calls_per_rank": [r["collectives"]["grad_calls"]
+                                        for r in ranks],
+           "model_calls_per_rank": [r["collectives"]["model"]["calls"]
+                                    for r in ranks],
+           "accuracy": summary["batch_accuracy"], "card": smi}
+    log(row)
+    if (summary["step"] != TP_GRID_STEPS
+            or any(n != TP_GRID_STEPS for n in row["launches_per_rank"])
+            or any(n != TP_GRID_STEPS
+                   for n in row["data_grad_calls_per_rank"])
+            or any(n < TP_GRID_STEPS * TP_MODEL_CALLS
+                   for n in row["model_calls_per_rank"])
+            or not np.all(np.isfinite(summary["batch_accuracy"]))):
+        raise SystemExit(f"tp_grid: {row}")
+    return {"train_launches": sum(row["launches_per_rank"]),
+            "eval_launches": sum(r["launches"]["eval"] for r in ranks),
+            **row}
+
+
+def tp_big(device, workdir, smi, routed):
+    """The big game on a (1 data x 2 model) grid of two ranks sharing the
+    card for BIG_STEPS steps: the plain conversation on both ranks, the
+    class head split 500/500; steps/s beside ``route_big``'s."""
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    flags = flags_from_argv(DEMO_ARGV + BIG_ARGV + TP_ARGV + [
+        "-log_path", os.path.join(workdir, "tp_big"), "-experiment_name",
+        "tp_big"])
+    inputs = big_inputs("cpu")
+    _, row = run_big(flags, inputs, MESH_DEVICES, "tp_big", smi)
+    out = {"steps_per_s": row["last_epoch_steps_per_s"],
+           "over_one_device": row["last_epoch_steps_per_s"]
+           / routed["steps_per_s"],
+           "peak_memory_bytes_per_rank": row["peak_memory_bytes_per_rank"],
+           "peak_over_one_device": [
+               p / routed["peak_memory_bytes"]
+               for p in row["peak_memory_bytes_per_rank"]]}
+    log({"phase": "tp_big", **out, "card": smi})
+    return {"train_launches": 0, "eval_launches": 0, **out}
+
+
+def extract(device, smi):
+    """``resnet34_features`` at ``random_state_dict(0)`` on EXTRACT_IMAGES
+    images of 3 x 227 x 227: the card against the port on the CPU for
+    ``layer4_2``, ``avgpool_512`` and ``fc`` (rtol/atol 1e-3, JAX's
+    tests/test_resnet.py:88-99), and images/s on the card."""
+    import torch
+    from multimodalgame_tpu_torch.models.resnet import (random_params,
+                                                        resnet34_features)
+    taps = ("layer4_2", "avgpool_512", "fc")
+    x = (np.random.RandomState(0).randn(EXTRACT_IMAGES, 3, 227, 227)
+         * 0.25).astype(np.float32)
+    cpu = resnet34_features(random_params(0, "cpu"), torch.from_numpy(x),
+                            taps)
+    params = random_params(0, device)
+    xd = torch.from_numpy(x).to(device)
+    got = resnet34_features(params, xd, taps)
+    errs = {}
+    for k in taps:
+        a, b = got[k].cpu().double(), cpu[k].double()
+        errs[k] = {"max_abs_err": float((a - b).abs().max()),
+                   "tolerance_use": float(((a - b).abs()
+                                           / (1e-3 + 1e-3 * b.abs())).max()),
+                   "shape": list(a.shape)}
+    ms = host_median_ms(lambda: (resnet34_features(params, xd, taps),
+                                 torch.cuda.synchronize()))
+    row = {"phase": "extract", "images": EXTRACT_IMAGES, "taps": errs,
+           "ms": ms, "images_per_s": EXTRACT_IMAGES / ms * 1e3,
+           "tf32": False, "card": smi}
+    log(row)
+    if any(v["tolerance_use"] > 1 for v in errs.values()):
+        raise SystemExit(f"extract: the card parts from the CPU: {errs}")
+    return row
+
+
+def run_tp_paths(workdir, smi) -> dict:
+    """This slice's paths: the kernel route at the big game, tensor
+    parallelism (the step, the driver and -eval_only, a 2 x 2 grid, the
+    big game) and the feature extractor."""
+    routed = route_big("cuda", workdir, smi)
+    return {"route_big": routed,
+            "tp_step": tp_step("cuda", smi),
+            "tp_driver": tp_drive("cuda", workdir, smi),
+            "tp_grid": tp_grid("cuda", workdir, smi),
+            "tp_big": tp_big("cuda", workdir, smi, routed),
+            "extract": extract("cuda", smi)}
 
 
 def work(cfg, batch: int, uniform_floats: int = 0,
@@ -2379,6 +2747,14 @@ def main() -> int:
     import torch
     if sys.argv[1:] == ["--times"]:
         return times_only()
+    if sys.argv[1:] == ["--tp"]:
+        # Only the build and this slice's phases; no result line.
+        smi = probe()
+        build()
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as workdir:
+            run_tp_paths(workdir, smi)
+        return 0
     if sys.argv[1:] == ["--mesh"]:
         # Only the build, the serving and driver phases the mesh phases
         # are held against, and the mesh phases; no result line.
@@ -2406,6 +2782,7 @@ def main() -> int:
         variants = drive_variants("cuda", workdir, smi)
         new = run_new_paths(workdir, smi)
         mesh = run_mesh_paths(workdir, smi, served, driven)
+        tp = run_tp_paths(workdir, smi)
     log({"phase": "variants", "steps_per_s": {
         "AdaptiveAttention": attention["run_steps_per_s"],
         **{k: v["steps_per_s"] for k, v in variants["rows"].items()},
@@ -2440,6 +2817,15 @@ def main() -> int:
               "latency_floor_ms": rows["floor"]["latency_floor_ms"]}
     new_paths = ("bf16", "cifar", "sweep", "sweep_one")
     mesh_paths = ("mesh_step", "mesh_driver", "sweep_mesh", "serve_mesh")
+    tp_paths = ("route_big", "tp_step", "tp_driver", "tp_grid", "tp_big")
+    log({"phase": "tp", "steps_per_s": {
+        "route_big": tp["route_big"]["steps_per_s"],
+        "tp_big": tp["tp_big"]["steps_per_s"],
+        "tp_step_per_rank": tp["tp_step"]["steps_per_s_per_rank"],
+        "tp_step_one_device": tp["tp_step"]["steps_per_s_one_device"]},
+        "extract_images_per_s": tp["extract"]["images_per_s"],
+        "note": "ranks share one card: correctness and overhead, not "
+                "scaling", "card": smi})
     log({"kernels": [{
         "name": "fused_eval_exchange",
         "route": "cuda",
@@ -2452,7 +2838,8 @@ def main() -> int:
             "serve_attention": served_attn["launches"],
             "variants": variants["eval_launches"],
             **{k: new[k]["eval_launches"] for k in new_paths},
-            **{k: mesh[k]["eval_launches"] for k in mesh_paths}},
+            **{k: mesh[k]["eval_launches"] for k in mesh_paths},
+            **{k: tp[k]["eval_launches"] for k in tp_paths}},
         "max_abs_err": max(worst["max_abs_err"],
                            cifar_kernels["worst"]["max_abs_err"]),
         "tie_rows": worst["tie_rows"] + cifar_kernels["worst"]["tie_rows"],
@@ -2479,7 +2866,8 @@ def main() -> int:
             "driver_attention": attention["counts"]["train_launches"],
             "variants": variants["train_launches"],
             **{k: new[k]["train_launches"] for k in new_paths},
-            **{k: mesh[k]["train_launches"] for k in mesh_paths}},
+            **{k: mesh[k]["train_launches"] for k in mesh_paths},
+            **{k: tp[k]["train_launches"] for k in tp_paths}},
         "max_abs_err": max(worst_train["max_abs_err"],
                            cifar_kernels["worst"]["max_abs_err"]),
         "tie_rows": worst_train["tie_rows"],
@@ -2512,6 +2900,11 @@ def main() -> int:
         "mesh_driver_dev_top6": mesh["mesh_driver"]["last_dev_top6"],
         "mesh_grad_reduce_ms_per_step":
             mesh["mesh_driver"]["grad_reduce_ms_per_step"],
+        "tp_step_steps_per_s_per_rank":
+            tp["tp_step"]["steps_per_s_per_rank"],
+        "tp_driver_dev_top6": tp["tp_driver"]["last_dev_top6"],
+        "big_game_steps_per_s": {"one_device": tp["route_big"]["steps_per_s"],
+                                 "tp_1x2": tp["tp_big"]["steps_per_s"]},
         "card": smi,
         **kernel_registers(train=True),
         **layout,

@@ -238,8 +238,10 @@ _HELP = {
             "single device, -1 = all visible devices), one process a "
             "device. batch_size and batch_size_dev must be divisible by "
             "it.",
-    "mesh_model": "Tensor-parallel (model) axis size; not ported to "
-                  "PyTorch (values above 1 raise, ROADMAP §1.10.3).",
+    "mesh_model": "Tensor-parallel (model) axis size M of the training "
+                  "driver: the -mesh ranks form an (N/M data, M model) "
+                  "grid; M must divide -mesh and the batches split over "
+                  "N/M. The sweep and serving refuse it.",
     "coordinator": "Multi-host coordinator address host:port "
                    "(torch.distributed, tcp://). Set with "
                    "-num_processes > 1.",

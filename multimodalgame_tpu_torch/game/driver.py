@@ -26,10 +26,12 @@ The port of ``multimodalgame_tpu/game/driver.py:run_fast``:
 
 On a GPU every training step's phase A is one launch of the train-mode
 kernel (``fast="kernel"`` where
-``ops/cuda_exchange.py:train_kernel_supports`` holds) and every eval
-conversation one launch of the eval-mode kernel. The configs it rejects
-(attention, ``mou``, ``-flipout_dev`` with flipout) run both on the plain
-conversation; a ``-compute_dtype bfloat16`` game samples on the plain
+``ops/cuda_exchange.py:train_kernel_supports`` holds for the config, a
+rank's rows and the class count; the log names the sampler) and every
+eval conversation one launch of the eval-mode kernel. The configs it
+rejects (attention, ``mou``, ``-flipout_dev`` with flipout) and the sizes
+that no launch plan fits (the big game's 1,000 classes) run both on the
+plain conversation; a ``-compute_dtype bfloat16`` game samples on the plain
 conversation (the train kernel is float32-only) and evaluates in float32
 through the eval kernel. Under ``-images cifar`` the training set is the
 CIFAR-10 pixels, staged as uint8 and normalized on the device batch by
@@ -120,9 +122,11 @@ def make_piece_planner(cap: int = _EXACT_CAP):
     return plan
 
 
-MESH_MODEL_NOT_PORTED = (
-    "-mesh_model (tensor parallelism) is not ported to PyTorch yet "
-    "(ROADMAP §1.10.3)")
+# The driver's line naming phase A's sampler: "kernel" where
+# ``ops/cuda_exchange.py:train_kernel_supports`` holds for the config, a
+# rank's rows and the class count, else "plain". The JAX package prints
+# no such line.
+SAMPLER_LINE = "Phase A sampler: {}"
 
 
 def device_pool(device, count: int) -> List[torch.device]:
@@ -150,25 +154,41 @@ def resolve_mesh(flags, batch_fields=("batch_size", "batch_size_dev"),
     N > 1 = the first N of the job's devices, -1 = all of them), or
     ``None`` for one device (JAX driver.py:130-165). ``device`` is the
     caller's (:func:`device_pool`); under ``-num_processes P`` each host
-    takes its N / P. Raises ``ValueError`` when a ``batch_fields`` flag
-    does not split over N or fewer devices than asked exist, and
-    ``NotImplementedError`` for ``-mesh_model`` above 1."""
-    if int(flags.mesh_model or 0) > 1:
-        raise NotImplementedError(MESH_MODEL_NOT_PORTED)
+    takes its N / P. With ``-mesh_model M`` (M > 1) the N ranks form a
+    ``(data = N / M, model = M)`` grid (``parallel/tensor.py:
+    make_mesh_2d``, built by each rank): batches split over the data axis
+    only, so the ``batch_fields`` must divide N / M. Raises
+    ``ValueError`` with JAX's messages: ``-mesh_model`` without a mesh of
+    more than one device, M not dividing N, a batch field that does not
+    split over the data axis; and for fewer devices than asked."""
     n = int(flags.mesh or 0)
+    m = int(flags.mesh_model or 0)
     procs = int(flags.num_processes or 1)
-    if n in (0, 1):
-        return None
-    pool = device_pool(device, -1 if n == -1 else max(n // procs, 1))
+    pool = None
     if n == -1:
+        pool = device_pool(device, -1)
         n = len(pool) * procs
-        if n <= 1:
-            return None
+    if m > 1 and n <= 1:
+        raise ValueError(
+            "-mesh_model requires -mesh to resolve to more than one "
+            "device (the device set the model axis splits)")
+    if n <= 1:
+        return None
+    if pool is None:
+        pool = device_pool(device, max(n // procs, 1))
+    n_data = n
+    if m > 1:
+        if n % m:
+            raise ValueError(
+                f"-mesh_model {m} does not divide the -mesh size {n}")
+        n_data = n // m
     for fname in batch_fields:
         b = getattr(flags, fname)
-        if b % n:
-            raise ValueError(f"-{fname} {b} is not divisible by the "
-                             f"data-axis size {n} (-mesh {n})")
+        if b % n_data:
+            raise ValueError(
+                f"-{fname} {b} is not divisible by the data-axis size "
+                f"{n_data} (-mesh {n}"
+                + (f" / -mesh_model {m})" if m > 1 else ")"))
     if n % procs:
         raise ValueError(f"-mesh {n} does not split over -num_processes "
                          f"{procs}")
@@ -179,12 +199,24 @@ def resolve_mesh(flags, batch_fields=("batch_size", "batch_size_dev"),
     return pool[:local]
 
 
+def mesh_banner(mesh, device) -> str:
+    """The log's one line about the mesh (JAX driver.py:239-256), with
+    the process group's backend."""
+    if mesh.model is not None:
+        return "Mesh: {} devices = {} data x {} model ({}, {})".format(
+            mesh.size * mesh.model.size, mesh.size, mesh.model.size,
+            device.type, mesh.backend)
+    return "Data-parallel mesh: {} devices ({}, {})".format(
+        mesh.size, device.type, mesh.backend)
+
+
 def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
              logger, eval_exchange: Callable, step: int = 0,
              best_dev_acc: float = 0.0, max_steps: Optional[int] = None,
              train_ds: Optional[DeviceDataset] = None,
              dev_ds: Optional[DeviceDataset] = None,
-             uniforms: Optional[Callable] = None, mesh=None) -> dict:
+             uniforms: Optional[Callable] = None, mesh=None,
+             tp=None) -> dict:
     """Train with the chunked schedule on the modules' device; returns
     the summary dict of the per-batch loop in ``train.py`` plus
     ``seconds``, the wall seconds of the run's step spans, dev sweeps and
@@ -194,7 +226,10 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     ``-dev_file``, and ``uniforms`` (``step -> {s, z, w[, fz, fw]}``)
     replaces the Philox stream; both are seams for callers that hold the
     data in memory or replay another package's draws. ``mesh`` is this
-    rank's place in a data-parallel job (``parallel/mesh.py``)."""
+    rank's place in a data-parallel job (``parallel/mesh.py``), or the
+    data axis of a ``(data, model)`` grid whose tensor-parallel state is
+    ``tp`` (``parallel/tensor.py``: ``modules`` are its whole agents,
+    ``opt_states`` its shards' slots)."""
     cfg = modules.cfg
     device = next(modules.parameters()).device
     ctx_key = flags.data_context if flags.attn_extra_context else None
@@ -232,12 +267,16 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     desc = descs.pop("desc")
     seed = flags.random_seed + 1
     if mesh is not None:
-        flogger.Log("Data-parallel mesh: {} devices ({}, {})".format(
-            mesh.size, device.type, mesh.backend))
+        flogger.Log(mesh_banner(mesh, device))
 
-    fast = "kernel" if train_kernel_supports(cfg) else "auto"
+    rows = flags.batch_size // (1 if mesh is None else mesh.size)
+    sampler = ("kernel" if train_kernel_supports(cfg, rows, desc.shape[0])
+               else "plain")
+    flogger.Log(SAMPLER_LINE.format(sampler))
+    fast = "kernel" if sampler == "kernel" else "auto"
     trainer_kw = dict(fast=fast, seed=seed, uniforms=uniforms, device=device,
-                      transform=transform, context_fn=context_fn, mesh=mesh)
+                      transform=transform, context_fn=context_fn, mesh=mesh,
+                      tp=tp)
     full_step = make_train_step_indexed(modules, flags.top_k_train,
                                         flags.batch_size, **trainer_kw)
     chunk_step = make_multistep_train_step_indexed(
@@ -347,7 +386,7 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
             t0 = time.perf_counter()
             save_checkpoint(flags.checkpoint + "_best",
                             dict(step=t, best_dev_acc=best_dev_acc),
-                            modules, opt_states, mesh)
+                            modules, opt_states, mesh, tp)
             spent["checkpoints"] += time.perf_counter() - t0
 
     def run_save(t):
@@ -361,7 +400,7 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         t0 = time.perf_counter()
         save_checkpoint(flags.checkpoint,
                         dict(step=t, best_dev_acc=best_dev_acc),
-                        modules, opt_states, mesh)
+                        modules, opt_states, mesh, tp)
         spent["checkpoints"] += time.perf_counter() - t0
         timer.start()
 

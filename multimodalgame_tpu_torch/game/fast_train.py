@@ -28,7 +28,7 @@ probabilities are the same functions of the same inputs.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,15 +45,22 @@ from multimodalgame_tpu_torch.ops.cuda_exchange import (fused_train_forward,
 SAMPLERS = ("plain", "kernel")
 
 
+class Sampled(NamedTuple):
+    """Phase A's record: the sampled bits and the stop-mask chain."""
+    z_bits: torch.Tensor       # (T, B, sender_out_dim)
+    w_bits: torch.Tensor       # (T, B, rec_w_dim)
+    s_bits: torch.Tensor       # (T, B, 1)
+    stop_masks: torch.Tensor   # (T+1, B, 1)
+    n_steps: torch.Tensor      # () int32
+
+
 @torch.no_grad()
 def sample_conversation(modules: AgentModules, data: torch.Tensor,
                         desc: torch.Tensor, sampler: str = "plain",
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         seed: Optional[int] = None,
                         step: Optional[int] = None, row_base: int = 0,
-                        **inputs
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                   torch.Tensor, torch.Tensor]:
+                        **inputs) -> Sampled:
     """Phase A: ``(z_bits, w_bits, s_bits, stop_masks, n_steps)``.
 
     The kernel sampler takes either ``uniforms`` or ``(seed, step)``,
@@ -70,13 +77,14 @@ def sample_conversation(modules: AgentModules, data: torch.Tensor,
                                 row_base=row_base)
         stop_masks, n_steps = finalize_stop_masks(f.masks,
                                                   cfg.fixed_exchange)
-        return f.sen_feats, f.rec_feats, f.stop_feats, stop_masks, n_steps
+        return Sampled(f.sen_feats, f.rec_feats, f.stop_feats, stop_masks,
+                       n_steps)
     if sampler != "plain":
         raise ValueError(f"sampler must be one of {SAMPLERS}")
     ex = exchange(modules, data, desc, train=True, uniforms=uniforms,
                   score_baselines=False, **inputs)
-    return ex.sen_feats, ex.rec_feats, ex.stop_feats, ex.stop_masks, \
-        ex.n_steps
+    return Sampled(ex.sen_feats, ex.rec_feats, ex.stop_feats, ex.stop_masks,
+                   ex.n_steps)
 
 
 def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
@@ -89,7 +97,8 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
                         data_context: Optional[torch.Tensor] = None,
                         desc_set_padded: Optional[torch.Tensor] = None,
                         desc_set_mask: Optional[torch.Tensor] = None,
-                        row_base: int = 0, reduce=None
+                        row_base: int = 0, reduce=None,
+                        sample_modules: Optional[AgentModules] = None
                         ) -> Tuple[torch.Tensor, TrainMetrics]:
     """The summed loss and the metrics of one training step, by the
     sample-then-recompute path (fast_train.py:73-172). Under
@@ -98,16 +107,25 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
     sampler is float32-only and refuses it. On a data-parallel mesh the
     rows are a shard whose first row is global row ``row_base`` and
     ``reduce`` makes the losses' batch statistics global
-    (``game/losses.py``)."""
+    (``game/losses.py``). ``sample_modules`` runs phase A in place of
+    ``modules`` (tensor parallelism: the whole agents sample, the shards
+    recompute)."""
     cfg = modules.cfg
     if cfg.compute_dtype == "bfloat16" and sampler == "kernel":
         raise ValueError("the kernel sampler is float32-only; use the "
                          "plain sampler with bfloat16")
+    inputs = dict(data_context=data_context, desc_set_padded=desc_set_padded,
+                  desc_set_mask=desc_set_mask)
+    sampled = None
+    if sample_modules is not None:
+        sampled = in_compute_dtype(sample_modules, sample_conversation, data,
+                                   desc, sampler=sampler, uniforms=uniforms,
+                                   seed=seed, step=step, row_base=row_base,
+                                   **inputs)
     ex = in_compute_dtype(modules, fast_exchange, data, desc,
                           sampler=sampler, uniforms=uniforms, seed=seed,
-                          step=step, data_context=data_context,
-                          desc_set_padded=desc_set_padded,
-                          desc_set_mask=desc_set_mask, row_base=row_base)
+                          step=step, row_base=row_base, sampled=sampled,
+                          **inputs)
     return losses_from_exchange(cfg, ex, target, top_k, batch_denom, reduce)
 
 
@@ -118,17 +136,23 @@ def fast_exchange(modules: AgentModules, data: torch.Tensor,
                   data_context: Optional[torch.Tensor] = None,
                   desc_set_padded: Optional[torch.Tensor] = None,
                   desc_set_mask: Optional[torch.Tensor] = None,
-                  row_base: int = 0) -> ExchangeOutputs:
+                  row_base: int = 0, sampled: Optional[Sampled] = None
+                  ) -> ExchangeOutputs:
     """Phases A and B: the differentiable conversation record that the
-    losses read, in the dtype of ``data`` and the parameters."""
+    losses read, in the dtype of ``data`` and the parameters. A phase A
+    already run elsewhere comes in as ``sampled``."""
     cfg = modules.cfg
     T = cfg.max_exchange
     batch = data.shape[0]
     descs = dict(desc_set_padded=desc_set_padded,
                  desc_set_mask=desc_set_mask)
-    z_bits, w_bits, s_bits, stop_masks, n_steps = sample_conversation(
-        modules, data, desc, sampler, uniforms, seed, step, row_base,
-        data_context=data_context, **descs)
+    if sampled is None:
+        sampled = sample_conversation(modules, data, desc, sampler, uniforms,
+                                      seed, step, row_base,
+                                      data_context=data_context, **descs)
+    z_bits, w_bits, s_bits, stop_masks = (
+        x.to(data.dtype) for x in sampled[:4])
+    n_steps = sampled.n_steps
 
     # The query each sender turn saw (model.py:786-787, 803).
     w_prev = torch.cat(

@@ -66,8 +66,8 @@ from multimodalgame_tpu_torch.game.losses import (get_rec_outp, loglikelihood,
                                                   nll_loss, topk_accuracy)
 from multimodalgame_tpu_torch.game.masks import assemble_loss_masks
 from multimodalgame_tpu_torch.ops.cuda_exchange import (
-    fused_eval_exchange, kernel_params, supports_config,
-    train_kernel_supports)
+    eval_kernel_supports, fused_eval_exchange, kernel_params,
+    supports_config, train_kernel_supports)
 from multimodalgame_tpu_torch.ops.philox import philox_uniforms
 from multimodalgame_tpu_torch.utils.device import resolve_device
 
@@ -111,16 +111,20 @@ def zero_slots(cfg: GameConfig, params: Dict[str, List[torch.Tensor]]
 @torch.no_grad()
 def clip_by_global_norm(grads: List[torch.Tensor],
                         max_norm: float = CLIP_NORM,
-                        batch_dims: int = 0) -> List[torch.Tensor]:
+                        batch_dims: int = 0,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: ``g`` when ``‖g‖ < max_norm``,
     else ``(g / ‖g‖) · max_norm``. Not torch's ``clip_grad_norm_``, which
     divides by ``‖g‖ + 1e-6``. With ``batch_dims`` leading axes (a
     population's member axis) the norm is taken per index of those axes,
-    over every other axis."""
+    over every other axis. ``norm`` is ``‖g‖`` where the caller took it
+    (tensor parallelism: over the whole agent, not this rank's blocks)."""
     def sq(g):
         return (g * g).sum(dim=tuple(range(batch_dims, g.dim()))) \
             if g.dim() > batch_dims else g * g
-    norm = torch.sqrt(sum(sq(g) for g in grads))
+    if norm is None:
+        norm = torch.sqrt(sum(sq(g) for g in grads))
     keep = norm < max_norm
 
     def lift(x, g):
@@ -131,15 +135,17 @@ def clip_by_global_norm(grads: List[torch.Tensor],
 
 @torch.no_grad()
 def optimizer_update(cfg: GameConfig, grads: List[torch.Tensor],
-                     state: Dict[str, Any], batch_dims: int = 0
+                     state: Dict[str, Any], batch_dims: int = 0,
+                     norm: Optional[torch.Tensor] = None
                      ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
     """One agent's clip-by-global-norm and optimizer rule as a pure
     function: ``(updates, new_state)``, where the parameter moves by
     ``-learning_rate * update`` (train.py:42-62, 293-304). ``state`` is
     not changed. ``batch_dims`` leading axes of every tensor (a
     population's member axis) are independent problems: the clip norm is
-    taken per member, every other step is elementwise."""
-    grads = clip_by_global_norm(grads, batch_dims=batch_dims)
+    taken per member, every other step is elementwise. ``norm`` is the
+    clip's gradient norm where the caller took it."""
+    grads = clip_by_global_norm(grads, batch_dims=batch_dims, norm=norm)
     if cfg.optim_type == "SGD":
         return grads, state
     if cfg.optim_type == "RMSprop":
@@ -162,17 +168,24 @@ def optimizer_update(cfg: GameConfig, grads: List[torch.Tensor],
 
 @torch.no_grad()
 def apply_agent_updates(cfg: GameConfig, update_names, modules: AgentModules,
-                        opt_states: Dict[str, Dict[str, Any]]) -> None:
+                        opt_states: Dict[str, Dict[str, Any]],
+                        tp=None) -> None:
     """One clip + optimizer step per trained agent, in place, from the
     parameters' ``.grad`` (a parameter without one counts as zero)
     (train.py:293-304). The slots' lists are refilled in place, so every
-    holder of ``opt_states`` sees the new state."""
+    holder of ``opt_states`` sees the new state. Under tensor parallelism
+    (``tp``, ``parallel/tensor.py``) ``modules`` are the rank's shards and
+    each agent clips by the norm of its whole gradient."""
     lr = cfg.learning_rate
+    grads = {name: [p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in getattr(modules, name).parameters()]
+             for name in update_names}
+    norms = ({} if tp is None
+             else tp.global_norms(list(update_names), grads))
     for name in update_names:
         params = list(getattr(modules, name).parameters())
-        updates, new = optimizer_update(
-            cfg, [p.grad if p.grad is not None else torch.zeros_like(p)
-                  for p in params], opt_states[name])
+        updates, new = optimizer_update(cfg, grads[name], opt_states[name],
+                                        norm=norms.get(name))
         state = opt_states[name]
         for slot in ("mu", "nu"):
             if slot in state:
@@ -349,30 +362,42 @@ def _detach(x):
 class _Trainer:
     """The state every factory shares: the loss function for ``fast``,
     the device, the uniform source, the agents to update and, on a
-    data-parallel mesh, this rank's place in it."""
+    data-parallel mesh, this rank's place in it. Under tensor parallelism
+    (``tp``, whose ``full`` are ``modules``) the step trains the rank's
+    shards, phase A samples on the whole agents, and ``mesh`` is the data
+    axis (with one data shard, no data-axis collective runs)."""
 
     def __init__(self, modules: AgentModules, top_k: int, batch_denom: int,
                  fast: Union[bool, str], seed: int,
                  uniforms: Optional[UniformSource],
-                 device: Optional[Union[str, torch.device]], mesh=None):
+                 device: Optional[Union[str, torch.device]], mesh=None,
+                 tp=None):
         cfg = modules.cfg
+        if tp is not None and (tp.full is not modules or fast is False):
+            raise ValueError("tensor parallelism trains the agents of its "
+                             "TensorParallel on the fast path")
         if not (fast is True or fast is False or fast in ("auto", "kernel")):
             raise ValueError(f"fast must be one of {FAST_MODES}, got "
                              f"{fast!r}")
-        if fast == "kernel" and not train_kernel_supports(cfg):
+        if fast == "kernel" and not (supports_config(cfg) and
+                                     cfg.compute_dtype == "float32"):
             raise ValueError(
                 "fast='kernel' needs a config the train kernel samples: "
                 "binary channel, no attention, sum or prod mix, no "
                 "-flipout_dev with flipout, and float32 compute (the "
                 "kernel samples in float32 only; bfloat16 takes the plain "
                 "sampler)")
-        self.modules = modules
+        self.tp = tp
+        self.modules = modules if tp is None else tp.shard
         self.cfg = cfg
         self.top_k, self.batch_denom = top_k, batch_denom
         self.fast = fast is not False
         self.sampler = "kernel" if fast == "kernel" else "plain"
         self.seed, self.uniforms = int(seed), uniforms
         self.mesh = mesh
+        # The data axis's collectives: none on one data shard of a grid.
+        self.reduce = (None if tp is not None and mesh.size == 1
+                       else mesh)
         self.device = resolve_device(device if mesh is None
                                      else mesh.device)
         modules.to(self.device)
@@ -419,31 +444,42 @@ class _Trainer:
         from multimodalgame_tpu_torch.game.fast_train import (
             compute_losses_fast)
         rows = slice(0, data.shape[0]) if rows is None else rows
+        if self.sampler == "kernel" and not train_kernel_supports(
+                self.cfg, data.shape[0], desc.shape[0]):
+            raise ValueError(
+                f"fast='kernel': no launch plan of the train kernel fits "
+                f"{data.shape[0]} rows and {desc.shape[0]} classes at this "
+                f"width; train it with fast='auto' (the plain sampler)")
         rand = self.randomness(step, rows)
         self.modules.zero_grad(set_to_none=True)
         if self.fast:
             total, metrics = compute_losses_fast(
                 self.modules, data, target, desc, self.top_k,
-                self.batch_denom, sampler=self.sampler, reduce=self.mesh,
+                self.batch_denom, sampler=self.sampler, reduce=self.reduce,
+                sample_modules=None if self.tp is None else self.tp.full,
                 **rand, **inputs)
         else:
             total, metrics = compute_losses(
                 self.modules, data, target, desc, self.top_k,
-                self.batch_denom, rand["uniforms"], reduce=self.mesh,
+                self.batch_denom, rand["uniforms"], reduce=self.reduce,
                 **inputs)
         total.backward()
         metrics = _detach(metrics)
-        if self.mesh is not None:
+        if self.tp is not None:
+            self.tp.reduce_partial_grads()
+        if self.reduce is not None:
             from multimodalgame_tpu_torch.parallel.mesh import (
                 gather_metrics, reduce_step)
-            metrics = reduce_step(self.mesh, [
+            metrics = reduce_step(self.reduce, [
                 p for name in self.update_names
                 for p in getattr(self.modules, name).parameters()], metrics)
             if full:
-                metrics = gather_metrics(self.mesh, metrics,
+                metrics = gather_metrics(self.reduce, metrics,
                                          self.cfg.fixed_exchange)
         apply_agent_updates(self.cfg, self.update_names, self.modules,
-                            opt_states)
+                            opt_states, self.tp)
+        if self.tp is not None:
+            self.tp.sync()
         return metrics
 
 
@@ -451,7 +487,7 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
                     fast: Union[bool, str] = "auto", *, seed: int = 0,
                     uniforms: Optional[UniformSource] = None,
                     device: Optional[Union[str, torch.device]] = None,
-                    mesh=None):
+                    mesh=None, tp=None):
     """Build ``step(opt_states, data, target, desc, step,
     desc_set_padded=None, desc_set_mask=None, data_context=None) ->
     TrainMetrics`` (train.py:216-248), which updates ``modules`` and
@@ -465,10 +501,12 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
     ones). ``device`` defaults to ``cuda``; the modules are moved there.
     Make the optimizer states (:func:`init_opt_states`) after this call.
     With ``mesh`` (``parallel/mesh.py``) the step takes the whole batch
-    and trains on this rank's rows, on the mesh's device.
+    and trains on this rank's rows, on the mesh's device. With ``tp``
+    (``parallel/tensor.py``, ``mesh`` its data axis) it trains the rank's
+    shards; ``opt_states`` are then ``init_tp_opt_states``'.
     """
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh)
+                  mesh, tp)
 
     def step(opt_states, data, target, desc, step: int,
              desc_set_padded=None, desc_set_mask=None, data_context=None
@@ -509,7 +547,7 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
                                                    torch.device]] = None,
                             transform: Optional[Callable] = None,
                             context_fn: Optional[Callable] = None,
-                            mesh=None):
+                            mesh=None, tp=None):
     """Build ``step(opt_states, feats, targets, idx, desc, step0,
     feats_context=None, desc_set_padded=None, desc_set_mask=None) ->
     TrainMetrics`` over a dataset already on the device
@@ -523,9 +561,9 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
     attention context from the transformed batch where no
     ``feats_context`` is staged (JAX train.py:432-437). With ``mesh``
     the step trains on this rank's share of ``idx`` and returns the
-    whole batch's metrics (:func:`make_train_step`)."""
+    whole batch's metrics; ``tp`` is :func:`make_train_step`'s."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh)
+                  mesh, tp)
 
     def step(opt_states, feats, targets, idx, desc, step0: int,
              feats_context=None, desc_set_padded=None, desc_set_mask=None
@@ -551,7 +589,7 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
                                           str, torch.device]] = None,
                                       transform: Optional[Callable] = None,
                                       context_fn: Optional[Callable] = None,
-                                      mesh=None):
+                                      mesh=None, tp=None):
     """Build ``chunk(opt_states, feats, targets, idx (K, B), desc,
     step0=0, feats_context=None, desc_set_padded=None, desc_set_mask=None)
     -> ScanMetrics``: K training steps over a dataset already on the
@@ -561,9 +599,9 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
     the device until the caller reads them. ``transform`` and
     ``context_fn`` are :func:`make_train_step_indexed`'s. With ``mesh``
     each step trains on this rank's share of its row of ``idx``; the
-    metrics are the whole batch's."""
+    metrics are the whole batch's. ``tp`` is :func:`make_train_step`'s."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh)
+                  mesh, tp)
 
     def chunk(opt_states, feats, targets, idx, desc, step0: int = 0,
               feats_context=None, desc_set_padded=None, desc_set_mask=None
@@ -594,17 +632,18 @@ def make_eval_exchange(modules: AgentModules, use_kernel: bool = True
     ExchangeOutputs``, the eval conversation (rounded messages, cumulative
     stop product — model.py:640, 1463-1465).
 
-    With ``use_kernel`` a config that :func:`supports_config` accepts goes
-    through :func:`fused_eval_exchange` at every batch size: the CUDA
-    kernel for CUDA tensors, its plain version for CPU ones. Other configs
-    (attention, ``mou``, ``flipout_dev`` with flipout) take the plain
+    With ``use_kernel`` a call that :func:`eval_kernel_supports` accepts
+    (a config the kernel supports, at a batch and class count that a
+    launch plan fits; asked on every call, since the batch varies) goes
+    through :func:`fused_eval_exchange`: the CUDA kernel for CUDA tensors,
+    its plain version for CPU ones. Other configs (attention, ``mou``,
+    ``flipout_dev`` with flipout) and sizes take the plain
     :func:`exchange`, with the attention inputs and, under
     ``flipout_dev``, the ``fz``/``fw`` uniforms
     (``ops/philox.py:philox_eval_uniforms``). The kernel-layout weights
     are rebuilt only when a parameter is replaced or changed in place.
     """
     cfg = modules.cfg
-    kernel_ok = use_kernel and supports_config(cfg)
     packed = {"key": None, "params": None}
 
     def run(data: torch.Tensor, desc: torch.Tensor,
@@ -614,7 +653,8 @@ def make_eval_exchange(modules: AgentModules, use_kernel: bool = True
             desc_set_mask: Optional[torch.Tensor] = None,
             uniforms: Optional[Dict[str, torch.Tensor]] = None
             ) -> ExchangeOutputs:
-        if not kernel_ok:
+        if not (use_kernel and eval_kernel_supports(cfg, data.shape[0],
+                                                    desc.shape[0])):
             return exchange(modules, data, desc, corrupt_mask=corrupt_mask,
                             uniforms=uniforms, data_context=data_context,
                             desc_set_padded=desc_set_padded,

@@ -27,6 +27,7 @@ class Baseline(nn.Module):
     def __init__(self, hid_dim: int, x_dim: int, binary_dim: int,
                  inp_dim: int):
         super().__init__()
+        self.tp = None      # the tensor-parallel seam (parallel/tensor.py)
         self.in_dim = x_dim + binary_dim + inp_dim
         self.linear1 = nn.Linear(self.in_dim, hid_dim)
         self.linear2 = nn.Linear(hid_dim, 1)
@@ -44,4 +45,8 @@ class Baseline(nn.Module):
         joined along the last one in the order ``x, binary, inp``."""
         features = torch.cat([f for f in (x, binary, inp) if f is not None],
                              dim=-1)
-        return self.linear2(torch.relu(self.linear1(features)))
+        if self.tp is None or not self.tp.column:
+            return self.linear2(torch.relu(self.linear1(features)))
+        # Megatron's block: linear1 column-parallel, linear2 row-parallel.
+        hidden = torch.relu(self.tp.column_linear(self.linear1, features))
+        return self.tp.row_linear(self.linear2, hidden)

@@ -23,6 +23,13 @@ That vector takes the CBOW row's place in ``y1`` and in the query's
 mixing. Under it the reference concatenates ``[desc, h_z]``
 (model.py:409-410), so the first ``desc`` columns of ``y1.weight`` are
 its description block.
+
+Under tensor parallelism with a class-sharded head (``tp``, the seam of
+``parallel/tensor.py``; ``None`` is the single-device path) a rank scores
+its block of the classes: the head's ``h_z`` block of ``y1`` (and ``d_h``)
+leaves the fused matmul and reads ``h_z`` through ``f``, the class scores
+are gathered whole for the softmax, and under description attention the
+pooled words' mixing is summed over the model axis.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ class Receiver(nn.Module):
             raise NotImplementedError(
                 "rec_s_dim must be 1: the stop bit is a scalar per "
                 "example in the exchange mask chain")
+        self.tp = None
         self.hid_dim = hid_dim
         self.desc_dim = desc_dim
         self.desc_attn = desc_attn
@@ -90,15 +98,30 @@ class Receiver(nn.Module):
         cache = {"desc": desc}
         parts_w = [self.s.weight, None, self.w_h.weight]
         parts_b = [self.s.bias, self.y1.bias, self.w_h.bias]
+        split = self.tp is not None and self.tp.classes
+        if split:
+            lo, hi = self.tp.class_block(desc.shape[0])
+            cache["classes"] = (lo, hi)
         if self.desc_attn:
             parts_w[1] = w1[:, self.desc_dim:]
             parts_w.append(self.d_h.weight)
             parts_b.append(self.d_h.bias)
+            if split:
+                desc_set_padded = desc_set_padded[lo:hi]
+                desc_set_mask = desc_set_mask[lo:hi]
             cache.update(dd=self.d_d(desc_set_padded),
                          padded=desc_set_padded, mask=desc_set_mask)
         else:
             parts_w[1] = w1[:, :hid]
-            cache["desc_proj"] = desc @ w1[:, hid:].t()
+            cache["desc_proj"] = (desc[lo:hi] if split else desc) \
+                @ w1[:, hid:].t()
+        if split:
+            # [s | w_h] stay fused; the class head's [y1_h (| d_h)] apart.
+            head = [1] + list(range(3, len(parts_w)))
+            cache["head_w"] = torch.cat([parts_w[i] for i in head], dim=0)
+            cache["head_b"] = torch.cat([parts_b[i] for i in head])
+            parts_w = [parts_w[0], parts_w[2]]
+            parts_b = [parts_b[0], parts_b[2]]
         cache["hz_w"] = torch.cat(parts_w, dim=0)
         cache["hz_b"] = torch.cat(parts_b)
         return cache
@@ -119,14 +142,21 @@ class Receiver(nn.Module):
         hid = self.hid_dim
         fused = h_z @ cache["hz_w"].t() + cache["hz_b"]
         s_logits = fused[:, :1]
-        y1h = fused[:, 1:1 + hid]             # h_z @ y1_h + y1_bias
-        w_h_out = fused[:, 1 + hid:1 + 2 * hid]
+        split = "classes" in cache
+        if split:
+            # The class-sharded head: this rank's classes, h_z through f.
+            w_h_out = fused[:, 1:1 + hid]
+            head = self.tp.enter(h_z) @ cache["head_w"].t() + cache["head_b"]
+            y1h, dh = head[:, :hid], head[:, hid:]
+        else:
+            y1h = fused[:, 1:1 + hid]             # h_z @ y1_h + y1_bias
+            w_h_out = fused[:, 1 + hid:1 + 2 * hid]
+            dh = fused[:, 1 + 2 * hid:]
 
         if self.desc_attn:
             # Word attention (model.py:344-410): scores of every word
             # against h_z, a softmax over each class's real words, then
             # the words pooled into one vector a class.
-            dh = fused[:, 1 + 2 * hid:]                   # (B, A)
             pre = torch.tanh(cache["dd"][None] + dh[:, None, None, :])
             scores = self.d_attn(pre)[..., 0]             # (B, D, L)
             scores = scores.masked_fill(cache["mask"][None] <= 0,
@@ -141,12 +171,19 @@ class Receiver(nn.Module):
             y_hid = torch.relu(y1h[:, None, :] + cache["desc_proj"][None])
         # y2 as a multiply-reduce over the hidden axis.
         y = (y_hid * self.y2.weight[0][None, None, :]).sum(-1) + self.y2.bias
+        if split:
+            y = self.tp.whole(y)              # every class, for the softmax
 
         # Confidence-weighted description mixing; scores detached
         # (model.py:441).
         y_scores = torch.softmax(y, dim=-1).detach()
         if self.desc_attn:
-            wd_inp = torch.einsum("bd,bdv->bv", y_scores, descs)
+            if split:
+                lo, hi = cache["classes"]
+                wd_inp = self.tp.reduce(torch.einsum(
+                    "bd,bdv->bv", y_scores[:, lo:hi], descs))
+            else:
+                wd_inp = torch.einsum("bd,bdv->bv", y_scores, descs)
         else:
             wd_inp = y_scores @ cache["desc"]
         h_w = torch.tanh(w_h_out + self.w_d(wd_inp))

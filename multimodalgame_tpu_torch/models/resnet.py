@@ -1,0 +1,241 @@
+"""ResNet-34 feature extractor with the pre-ReLU ``layer4_2`` tap.
+
+The port of ``multimodalgame_tpu/models/resnet.py``. Parity target: the
+reference's ``FeatureModel`` (utils/package_data.py:81-131), which wraps
+torchvision's pretrained ResNet-34 and re-implements the last layer4
+block by hand so that its pre-activation can be tapped. The taps the
+dataset build asks for are ``layer4_2`` (512x8x8, pre-ReLU),
+``avgpool_512`` (512) and ``fc`` (1000) at 227x227 input (the layer table
+of utils/package_data.py:16-33).
+
+A functional forward over an explicit parameter dict (from a torch
+state_dict: a pretrained file or :func:`random_state_dict`), NCHW as
+torch computes it, with inference-mode batch norm folded into a scale
+and a shift. Every name of the reference's layer table can be asked for.
+The convolutions are PyTorch's (cuDNN on a card): the JAX package
+computes them outside any Pallas kernel, so no hand-written kernel is
+involved.
+
+**Precision.** The forward computes in float32: on a card it turns
+TF32 off for its convolutions and products (PyTorch lets cuDNN
+convolutions run in TF32 by default, which moves features ~1e-3
+relative away from the CPU's) and restores the caller's settings after.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# torchvision resnet34's stages: (blocks, channels, first stride).
+STAGES = [(3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2)]
+BN_EPS = 1e-5
+
+# The names resnet34_features serves (the reference's layer table).
+LAYER_NAMES = (("conv1", "bn1", "relu", "maxpool")
+               + tuple(f"layer{i}" for i in range(1, 5))
+               + tuple(f"layer4_{b}_relu" for b in range(STAGES[3][0]))
+               + ("layer4_2", "avgpool", "avgpool_512", "fc"))
+
+
+# ---------------------------------------------------------------- params
+
+def _tensor(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def _bn(sd, name) -> Dict[str, torch.Tensor]:
+    # Inference-mode BN folded: (x - mean) / sqrt(var + eps) * gamma + beta
+    # = x * s + b.
+    gamma, beta, mean, var = (np.asarray(sd[f"{name}.{k}"], np.float32)
+                              for k in ("weight", "bias", "running_mean",
+                                        "running_var"))
+    s = gamma / np.sqrt(var + BN_EPS)
+    return {"scale": _tensor(s)[None, :, None, None],
+            "shift": _tensor(beta - mean * s)[None, :, None, None]}
+
+
+def params_from_torch_state(sd, device: Optional[Union[str, torch.device]]
+                            = None) -> Dict:
+    """A torchvision ``resnet34`` state_dict (tensors or numpy arrays) as
+    the forward's parameters, float32 on ``device`` (the CPU by
+    default): convolution weights OIHW as torch keeps them, each batch
+    norm folded."""
+    sd = {k: (v.detach().cpu().numpy() if hasattr(v, "detach")
+              else np.asarray(v)) for k, v in sd.items()}
+    params: Dict = {"conv1": _tensor(sd["conv1.weight"]),
+                    "bn1": _bn(sd, "bn1"),
+                    "fc": {"weight": _tensor(sd["fc.weight"]),
+                           "bias": _tensor(sd["fc.bias"])}}
+    for i, (blocks, _, _) in enumerate(STAGES, start=1):
+        layer: List[Dict] = []
+        for b in range(blocks):
+            pre = f"layer{i}.{b}"
+            blk = {"conv1": _tensor(sd[pre + ".conv1.weight"]),
+                   "bn1": _bn(sd, pre + ".bn1"),
+                   "conv2": _tensor(sd[pre + ".conv2.weight"]),
+                   "bn2": _bn(sd, pre + ".bn2")}
+            if pre + ".downsample.0.weight" in sd:
+                blk["down_conv"] = _tensor(sd[pre + ".downsample.0.weight"])
+                blk["down_bn"] = _bn(sd, pre + ".downsample.1")
+            layer.append(blk)
+        params[f"layer{i}"] = layer
+    return params_to(params, device) if device is not None else params
+
+
+def params_to(params, device) -> Dict:
+    """The parameters on ``device``."""
+    if isinstance(params, torch.Tensor):
+        return params.to(device)
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return [params_to(v, device) for v in params]
+
+
+def load_pretrained(path: str, device=None) -> Dict:
+    """A torchvision resnet34 ``.pth`` state_dict file's parameters."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return params_from_torch_state(sd, device)
+
+
+def random_state_dict(seed: int = 0) -> Dict[str, np.ndarray]:
+    """A randomly initialized resnet34 state_dict in torchvision's key
+    layout (numpy arrays), drawn as the JAX package draws it from the
+    same seed: a stand-in where no pretrained ``.pth`` is at hand."""
+    rng = np.random.RandomState(seed)
+
+    # Variance-preserving init (He/2 convolutions, BN near identity), so
+    # activations stay O(1) through all 34 layers.
+    def w(*shape, scale=None):
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else shape[0]
+        scale = scale or np.sqrt(0.5 / fan_in)
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def bn(sd, name, c):
+        sd[name + ".weight"] = (
+            1.0 + 0.1 * rng.randn(c)).astype(np.float32)
+        sd[name + ".bias"] = (rng.randn(c) * 0.1).astype(np.float32)
+        sd[name + ".running_mean"] = (rng.randn(c) * 0.1).astype(np.float32)
+        sd[name + ".running_var"] = (
+            1.0 + 0.1 * np.abs(rng.randn(c))).astype(np.float32)
+
+    sd: Dict[str, np.ndarray] = {"conv1.weight": w(64, 3, 7, 7)}
+    bn(sd, "bn1", 64)
+    c_in = 64
+    for i, (blocks, c_out, stride) in enumerate(STAGES, start=1):
+        for b in range(blocks):
+            pre = f"layer{i}.{b}"
+            sd[pre + ".conv1.weight"] = w(c_out, c_in if b == 0 else c_out,
+                                          3, 3)
+            bn(sd, pre + ".bn1", c_out)
+            sd[pre + ".conv2.weight"] = w(c_out, c_out, 3, 3)
+            bn(sd, pre + ".bn2", c_out)
+            if b == 0 and (stride != 1 or c_in != c_out):
+                sd[pre + ".downsample.0.weight"] = w(c_out, c_in, 1, 1)
+                bn(sd, pre + ".downsample.1", c_out)
+        c_in = c_out
+    sd["fc.weight"] = w(1000, 512)
+    sd["fc.bias"] = np.zeros(1000, np.float32)
+    return sd
+
+
+def random_params(seed: int = 0, device=None) -> Dict:
+    return params_from_torch_state(random_state_dict(seed), device)
+
+
+# --------------------------------------------------------------- forward
+
+@contextlib.contextmanager
+def float32_precision():
+    """TF32 off for cuDNN convolutions and CUDA matmuls inside, the
+    caller's settings restored after."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled,
+                benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def _conv(x, weight, stride, padding=None):
+    pad = weight.shape[-1] // 2 if padding is None else padding
+    return F.conv2d(x, weight, stride=stride, padding=pad)
+
+
+def _bn_apply(x, bn):
+    return x * bn["scale"] + bn["shift"]
+
+
+def _basic_block(x, blk, stride):
+    """``(post-ReLU output, pre-ReLU output)``: the reference taps the
+    pre-activation of layer4's last block (utils/package_data.py:59-78)."""
+    out = torch.relu(_bn_apply(_conv(x, blk["conv1"], stride), blk["bn1"]))
+    out = _bn_apply(_conv(out, blk["conv2"], 1), blk["bn2"])
+    residual = x
+    if "down_conv" in blk:
+        residual = _bn_apply(_conv(x, blk["down_conv"], stride, 0),
+                             blk["down_bn"])
+    pre = out + residual
+    return torch.relu(pre), pre
+
+
+@torch.no_grad()
+def resnet34_features(params: Dict, x: torch.Tensor,
+                      request: Sequence[str] = ("layer4_2", "avgpool_512",
+                                                "fc")
+                      ) -> Dict[str, torch.Tensor]:
+    """The forward pass, collecting the requested intermediates.
+
+    ``params``: :func:`params_from_torch_state`'s, on ``x``'s device.
+    ``x``: images ``(B, 3, H, W)`` float32, NCHW (e.g. ``(B, 3, 227,
+    227)`` after Scale(227) + CenterCrop(227) + Normalize(.5, .5),
+    utils/package_data.py:171-178). ``request``: names of the layer table
+    (:data:`LAYER_NAMES`); an unknown one raises ``KeyError``. Returns
+    ``{name: tensor}``, spatial features NCHW, computed in float32."""
+    want = set(request)
+    unknown = want - set(LAYER_NAMES)
+    if unknown:
+        raise KeyError(f"unknown feature names requested: "
+                       f"{sorted(unknown)}")
+    out: Dict[str, torch.Tensor] = {}
+
+    def grab(name, val):
+        if name in want:
+            out[name] = val
+
+    with float32_precision():
+        x = _conv(x.float(), params["conv1"], 2)
+        grab("conv1", x)
+        x = _bn_apply(x, params["bn1"])
+        grab("bn1", x)
+        x = torch.relu(x)
+        grab("relu", x)
+        # 3x3 max pool, stride 2, padding 1 (torchvision's maxpool).
+        x = F.max_pool2d(x, 3, 2, 1)
+        grab("maxpool", x)
+        for i, (blocks, _, stride) in enumerate(STAGES, start=1):
+            layer = params[f"layer{i}"]
+            for b in range(blocks):
+                x, pre = _basic_block(x, layer[b], stride if b == 0 else 1)
+                if i == 4:
+                    grab(f"layer4_{b}_relu", x)
+                    if b == blocks - 1:
+                        grab("layer4_2", pre)
+            grab(f"layer{i}", x)
+        x = x.mean(dim=(2, 3), keepdim=True)   # adaptive average pool
+        grab("avgpool", x)
+        x = x.reshape(x.shape[0], -1)
+        grab("avgpool_512", x)
+        grab("fc", x @ params["fc"]["weight"].t() + params["fc"]["bias"])
+    return out

@@ -21,6 +21,12 @@ feature map over its ``N = H * W`` positions with the scores
 ``softmax(U tanh(W_w w + W_x x_n [+ W_g g]))``, uniform ``1/N`` at
 t == 0, so ``h_x`` is computed every turn. The module emits logits only;
 rounding and sampling live in the exchange.
+
+Under tensor parallelism (``parallel/tensor.py``) ``tp`` is the agent's
+seam: ``image_layer`` and ``code_layer`` give this rank's block of the
+hidden width, ``binary_layer`` is row-parallel (partial products summed
+over the model axis) and the ``h_x`` handed to the baseline is whole.
+``None`` (the default) is the single-device path.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ class Sender(nn.Module):
         if sender_mix not in MIXES:
             raise ValueError(f"sender_mix must be one of {MIXES}, got "
                              f"{sender_mix!r}")
+        self.tp = None
         self.use_attn = use_attn
         self.attn_extra_context = use_attn and attn_extra_context
         self.sender_mix = sender_mix
@@ -81,13 +88,14 @@ class Sender(nn.Module):
         ``h_x`` ``(B, h_dim)``; with it the flattened map ``x_flat``
         ``(B, N, C)``, its keys ``attn_W_x(x_flat)`` and, with the
         context ``g`` ``(B, context)``, ``attn_W_g(g)`` ``(B, 1, A)``."""
-        cache = {"h_w_first": self.code_layer(
-            torch.sigmoid(self.code_bias)[None, :])}
+        cache = {"h_w_first": self._column(
+            self.code_layer, torch.sigmoid(self.code_bias)[None, :])}
         if hasattr(self, "code_bias_mou"):
-            cache["h_w_mou"] = self.code_layer(
-                torch.sigmoid(self.code_bias_mou)[None, :])
+            cache["h_w_mou"] = self._column(
+                self.code_layer, torch.sigmoid(self.code_bias_mou)[None, :])
         if not self.use_attn:
-            cache["h_x"] = self.image_layer(x)
+            cache["h_x"] = self._column(self.image_layer, x)
+            cache["h_x_whole"] = self._whole(cache["h_x"])
             return cache
         x_flat = x.reshape(x.shape[0], x.shape[1], -1).transpose(1, 2)
         cache["x_flat"] = x_flat
@@ -104,6 +112,35 @@ class Sender(nn.Module):
         if self.attn_extra_context:
             pre = pre + cache["h_g"]
         return torch.softmax(self.attn_U(torch.tanh(pre))[..., 0], dim=-1)
+
+    def _column(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """A column-parallel layer: this rank's block of its outputs under
+        tensor parallelism, else all of them."""
+        return layer(x) if self.tp is None else self.tp.column_linear(
+            layer, x)
+
+    def _whole(self, h_x: torch.Tensor) -> torch.Tensor:
+        """``h_x`` over the whole hidden width (the baseline's input)."""
+        if self.tp is None or not self.tp.column:
+            return h_x
+        return self.tp.whole(h_x)
+
+    def _binary(self, h_x: torch.Tensor,
+                h_w: Optional[torch.Tensor]) -> torch.Tensor:
+        """``binary_layer`` of the mix. Row-parallel under tensor
+        parallelism: on the mix's own block where the shards line up
+        (sum and prod on sharded columns), else on this rank's block of
+        the whole mix (``mou``, whose ``4 * h_dim`` rows are blocked
+        apart from the hidden width's, or replicated columns)."""
+        tp = self.tp
+        if tp is None or not tp.row:
+            return self.binary_layer(self._mix(h_x, h_w))
+        if tp.column and self.sender_mix != "mou":
+            local = self._mix(h_x, h_w)
+        else:
+            local = tp.own(self._mix(
+                self._whole(h_x), None if h_w is None else self._whole(h_w)))
+        return tp.row_linear(self.binary_layer, local)
 
     def _mix(self, h_x: torch.Tensor, h_w: torch.Tensor) -> torch.Tensor:
         if self.sender_mix == "mou":
@@ -124,7 +161,7 @@ class Sender(nn.Module):
             return cache["h_w_mou"]
         if self.ignore_code:
             return None
-        return self.code_layer(w)
+        return self._column(self.code_layer, w)
 
     def step(self, w: torch.Tensor, t: int, cache: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
@@ -140,13 +177,15 @@ class Sender(nn.Module):
                                        1.0 / x_flat.shape[1])
             else:
                 attn = self._attend(w, cache)
-            h_x = self.image_layer(torch.einsum("bn,bnc->bc", attn, x_flat))
+            h_x = self._column(self.image_layer,
+                               torch.einsum("bn,bnc->bc", attn, x_flat))
+            h_x_whole = self._whole(h_x)
         else:
-            h_x = cache["h_x"]
+            h_x, h_x_whole = cache["h_x"], cache["h_x_whole"]
         h_w = (cache["h_w_first"] if t == 0
                else self._later_code(w, cache))
         h_w = None if h_w is None else h_w.expand_as(h_x)
-        return self.binary_layer(self._mix(h_x, h_w)), h_x, attn
+        return self._binary(h_x, h_w), h_x_whole, attn
 
     def step_all(self, w_prev: torch.Tensor, cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -162,14 +201,17 @@ class Sender(nn.Module):
             first = x_flat.new_full((1,) + x_flat.shape[:2],
                                     1.0 / x_flat.shape[1])
             attn = torch.cat([first, self._attend(w_prev[1:], cache)])
-            h_x = self.image_layer(torch.einsum("tbn,bnc->tbc", attn,
-                                                x_flat))
+            h_x = self._column(self.image_layer,
+                               torch.einsum("tbn,bnc->tbc", attn, x_flat))
+            h_x_whole = self._whole(h_x)
         else:
             h_x = cache["h_x"].expand(turns, *cache["h_x"].shape)
+            h_x_whole = cache["h_x_whole"].expand(
+                turns, *cache["h_x_whole"].shape)
         later = self._later_code(w_prev[1:], cache)
         h_w = None
         if later is not None:
             shape = (turns - 1,) + h_x.shape[1:]
             h_w = torch.cat([cache["h_w_first"].expand_as(h_x[0])[None],
                              later.expand(shape)])
-        return self.binary_layer(self._mix(h_x, h_w)), h_x, attn
+        return self._binary(h_x, h_w), h_x_whole, attn

@@ -198,17 +198,18 @@ def smem_layout(F: int, H: int, W: int, R: int, D: int, V: int,
 
 
 @functools.lru_cache(maxsize=64)     # every launch asks; plans are immutable
-def launch_plan(F: int, H: int, W: int, R: int, D: int, V: int,
-                batch: int, smem_limit: int = SMEM_OPTIN_BYTES
-                ) -> LaunchPlan:
+def find_plan(F: int, H: int, W: int, R: int, D: int, V: int,
+              batch: int, smem_limit: int = SMEM_OPTIN_BYTES
+              ) -> Optional[LaunchPlan]:
     """The kernel's launch plan for these sizes: CTAs per cluster, which
     per-turn matrices live in shared memory, and the carve. A cluster of 4
     CTAs where it holds every matrix; failing that, 8 CTAs, then 8 with
     the class-score partials read remotely, then also without bank
     padding, then with the largest matrices left in device memory one by
-    one. Raises ValueError when nothing fits ``smem_limit`` bytes."""
+    one. ``None`` when nothing fits ``smem_limit`` bytes or the batch is
+    empty."""
     if batch < 1:
-        raise ValueError("empty batch")
+        return None
     sizes = (F, H, W, R, D, V)
 
     def fit(c, keep, pull, compact):
@@ -238,14 +239,30 @@ def launch_plan(F: int, H: int, W: int, R: int, D: int, V: int,
             if not (pull and compact) or not keep:
                 break
             keep.remove(max(keep, key=lambda m: big[m]))
-    raise ValueError(
-        f"no launch plan fits {smem_limit} bytes of shared memory for "
-        f"F={F} H={H} W={W} R={R} D={D} V={V}")
+    return None
+
+
+def launch_plan(F: int, H: int, W: int, R: int, D: int, V: int,
+                batch: int, smem_limit: int = SMEM_OPTIN_BYTES
+                ) -> LaunchPlan:
+    """:func:`find_plan`, raising ValueError where it finds none."""
+    if batch < 1:
+        raise ValueError("empty batch")
+    plan = find_plan(F, H, W, R, D, V, batch, smem_limit)
+    if plan is None:
+        raise ValueError(
+            f"no launch plan fits {smem_limit} bytes of shared memory for "
+            f"F={F} H={H} W={W} R={R} D={D} V={V}")
+    return plan
+
+
+def _sizes(cfg: GameConfig, batch: int, num_desc: int) -> tuple:
+    return (cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim, cfg.rec_hidden,
+            num_desc, cfg.wv_dim, batch)
 
 
 def plan_for(cfg: GameConfig, batch: int, num_desc: int) -> LaunchPlan:
-    return launch_plan(cfg.img_feat_dim, cfg.img_h_dim, cfg.rec_w_dim,
-                       cfg.rec_hidden, num_desc, cfg.wv_dim, batch)
+    return launch_plan(*_sizes(cfg, batch, num_desc))
 
 
 class FusedEvalOutputs(NamedTuple):
@@ -270,14 +287,28 @@ def supports_config(cfg: GameConfig) -> bool:
                                           cfg.flipout_rec is not None)))
 
 
-def train_kernel_supports(cfg: GameConfig) -> bool:
-    """The train-mode kernel may sample this config's phase A: one the
-    kernel supports, trained in float32. The kernel samples in float32
-    only, as the JAX package's Pallas sampler does (fast_train.py:87-89);
-    a bfloat16 game samples on the plain exchange, and its eval
-    conversations (float32 in both packages) still take the eval kernel
-    through :func:`supports_config`."""
-    return supports_config(cfg) and cfg.compute_dtype == "float32"
+def eval_kernel_supports(cfg: GameConfig, batch: int,
+                         num_desc: int) -> bool:
+    """The eval-mode kernel may run this conversation: a config it
+    supports (:func:`supports_config`) at sizes that a launch plan fits
+    (:func:`find_plan`: ``batch`` rows, ``num_desc`` classes). Decided
+    from the sizes alone, before any launch, as the JAX package gates its
+    kernel on the batch (game/train.py:567); a size that no plan fits
+    (the big game's 1,000 classes) takes the plain conversation."""
+    return (supports_config(cfg)
+            and find_plan(*_sizes(cfg, batch, num_desc)) is not None)
+
+
+def train_kernel_supports(cfg: GameConfig, batch: int,
+                          num_desc: int) -> bool:
+    """The train-mode kernel may sample this phase A: what
+    :func:`eval_kernel_supports` asks, and float32 training. The kernel
+    samples in float32 only, as the JAX package's Pallas sampler does
+    (fast_train.py:87-89); a bfloat16 game samples on the plain exchange,
+    and its eval conversations (float32 in both packages) still take the
+    eval kernel."""
+    return (cfg.compute_dtype == "float32"
+            and eval_kernel_supports(cfg, batch, num_desc))
 
 
 def param_shapes(cfg: GameConfig) -> Dict[str, Tuple[int, ...]]:

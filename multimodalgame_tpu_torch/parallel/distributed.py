@@ -75,7 +75,7 @@ def rank_path(path: Optional[str], mesh) -> Optional[str]:
     ``path.p<rank>`` for the others."""
     if not path or mesh is None or mesh.writer:
         return path
-    return f"{path}.p{mesh.rank}"
+    return f"{path}.p{mesh.global_rank}"
 
 
 def host_view(x: torch.Tensor, mesh=None, sharded: bool = False

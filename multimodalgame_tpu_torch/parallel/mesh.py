@@ -57,12 +57,24 @@ class Mesh:
     counts the host seconds spent in collectives (``seconds``; the
     gradient all-reduces alone in ``grad_seconds``, ``grad_calls``).
     Under gloo a collective returns when it is done; under NCCL when it
-    is enqueued, so its seconds are the host's part only."""
+    is enqueued, so its seconds are the host's part only.
 
-    def __init__(self, rank: int, size: int, device, backend: str):
+    On a 2-D ``(data, model)`` grid (``parallel/tensor.py:make_mesh_2d``)
+    the mesh is the data axis: ``rank`` and ``size`` are this rank's data
+    index and the data-axis size, ``group`` the process group of its data
+    shard's peers, ``global_rank`` its rank in the job, and ``model`` the
+    model axis, a :class:`Mesh` of its own over this data shard's ranks.
+    Off the grid ``group`` is the whole job and ``model`` is ``None``."""
+
+    def __init__(self, rank: int, size: int, device, backend: str,
+                 group=None, global_rank: Optional[int] = None):
         self.rank, self.size = int(rank), int(size)
         self.device = torch.device(device)
         self.backend = backend
+        self.group = group
+        self.global_rank = self.rank if global_rank is None \
+            else int(global_rank)
+        self.model: Optional["Mesh"] = None
         self.seconds = 0.0
         self.calls = 0
         self.grad_seconds = 0.0
@@ -71,7 +83,7 @@ class Mesh:
     @property
     def writer(self) -> bool:
         """Whether this rank writes the run's shared files."""
-        return self.rank == 0
+        return self.global_rank == 0
 
     def rows(self, batch: int) -> Tuple[int, int]:
         """This rank's rows ``[lo, hi)`` of a batch (:func:`row_block`)."""
@@ -81,7 +93,7 @@ class Mesh:
         """Sum ``x`` over the ranks, in place."""
         import torch.distributed as dist
         t0 = time.perf_counter()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=self.group)
         self.seconds += time.perf_counter() - t0
         self.calls += 1
         return x

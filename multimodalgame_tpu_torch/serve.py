@@ -93,7 +93,10 @@ class Predictor:
     def from_checkpoint(cls, flags: Flags, desc_pack: DescriptionPack,
                         device: Devices = None,
                         use_kernel: bool = True) -> "Predictor":
-        """Load ``flags.checkpoint``, a reference-layout ``.pt``."""
+        """Load ``flags.checkpoint``, a reference-layout ``.pt``.
+        ``-mesh_model`` raises ``ValueError``, as JAX's serving does
+        (serve.py:166-169)."""
+        refuse_mesh_model(flags)
         cfg = GameConfig.from_flags(flags)
         _, modules = load_reference_checkpoint(flags.checkpoint, cfg)
         return cls(cfg, modules, desc_pack, device=device,
@@ -157,6 +160,13 @@ class Predictor:
                                                  dev, row_base=lo))
 
 
+def refuse_mesh_model(flags: Flags) -> None:
+    if int(flags.mesh_model or 0) > 1:
+        raise ValueError(
+            "-mesh_model is a training option; serving shards "
+            "the request batch axis only — drop -mesh_model")
+
+
 def serving_devices(mesh: int, device: Devices = None) -> List[torch.device]:
     """The devices ``-mesh`` serves on (``game/driver.py:device_pool``):
     one for 0 or 1, the first ``mesh`` (-1: all) of the pool otherwise;
@@ -180,10 +190,7 @@ def main(argv=None, device: Devices = None) -> None:
     from multimodalgame_tpu_torch.data.hdf5_loader import load_hdf5
 
     flags = flags_from_argv(argv)
-    if int(flags.mesh_model or 0) > 1:
-        raise ValueError(
-            "-mesh_model is a training option; serving shards "
-            "the request batch axis only — drop -mesh_model")
+    refuse_mesh_model(flags)
     devices = serving_devices(int(flags.mesh or 0), device)
     desc_pack = load_descriptions(flags.descr_dev, flags.wv_type,
                                   flags.wv_dim, glove_path=flags.glove_path)

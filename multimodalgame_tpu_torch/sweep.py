@@ -106,6 +106,11 @@ def run_sweep(flags: Flags, max_steps: Optional[int] = None,
         raise ValueError("the sweep splits its members over this host's "
                          "devices; -num_processes is a flag of a "
                          "multi-host training job")
+    if int(flags.mesh_model or 0) > 1:
+        # JAX's sweep ignores the flag; here it is refused, not dropped.
+        raise ValueError("the sweep splits its members over its devices "
+                         "only; -mesh_model (tensor parallelism) is a flag "
+                         "of the training driver")
     if flags.log_file:
         os.makedirs(os.path.dirname(flags.log_file) or ".", exist_ok=True)
     n = int(flags.population)
@@ -186,7 +191,8 @@ def _sweep(flags: Flags, max_steps: Optional[int],
         state = {"opts": init_opt_states(cfg, modules)}
         chunk = make_multistep_train_step_indexed(
             modules, flags.top_k_train, flags.batch_size,
-            fast="kernel" if train_kernel_supports(cfg) else "auto",
+            fast=("kernel" if train_kernel_supports(
+                cfg, flags.batch_size, desc.shape[0]) else "auto"),
             seed=seed, device=device)
         eval_exchange = make_eval_exchange(modules)
     else:

@@ -13,12 +13,16 @@ context) included, and so do ``-desc_attn``, ``-sender_mix mou``,
 ``-flipout_dev``, ``-compute_dtype bfloat16`` (the conversation in
 bfloat16, parameters, optimizers and losses in float32) and ``-images
 cifar`` (the CIFAR-10 test split's pixels as features; PIL reads and
-resizes them, or the caller stages them through ``inputs``). Flags the
-port does not cover raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+resizes them, or the caller stages them through ``inputs``). The one flag
+value the port does not cover, ``-ckpt_format orbax``, raises
+``NotImplementedError``.
 
 ``-mesh N`` trains (or, with ``-eval_only``, evaluates) data-parallel,
-one process a device (``parallel/distributed.py``): alone, ``run``
+one process a device (``parallel/distributed.py``), and ``-mesh N
+-mesh_model M`` on a ``(N / M data, M model)`` grid of those processes,
+the sender's and baselines' widest layers and the class head sharded over
+the model axis (``parallel/tensor.py``; an ``-eval_only`` run evaluates
+the whole weights on every rank, its data shard's rows): alone, ``run``
 spawns N ranks on the visible cards (``device`` a list names them, a
 device may repeat; ``cpu`` gives N CPU ranks) and returns rank 0's
 summary; with ``-num_processes P -coordinator host:port -process_id i``
@@ -43,7 +47,7 @@ from multimodalgame_tpu_torch.data.descriptions import (DescriptionPack,
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.game.agents import AgentModules, init_params
 from multimodalgame_tpu_torch.game.config import GameConfig
-from multimodalgame_tpu_torch.game.driver import (MESH_MODEL_NOT_PORTED,
+from multimodalgame_tpu_torch.game.driver import (SAMPLER_LINE, mesh_banner,
                                                   resolve_mesh)
 from multimodalgame_tpu_torch.game.train import (init_opt_states,
                                                  make_eval_exchange)
@@ -197,10 +201,7 @@ def emit_log_window(flags: Flags, flogger, logger, epoch: int, step: int,
 
 
 def check_supported(flags: Flags) -> None:
-    """Raise ``NotImplementedError`` for flags the port does not cover,
-    naming the ROADMAP item that ports them."""
-    if int(flags.mesh_model or 0) > 1:
-        raise NotImplementedError(MESH_MODEL_NOT_PORTED)
+    """Raise ``NotImplementedError`` for flags the port does not cover."""
     if flags.ckpt_format == "orbax":
         raise NotImplementedError(ORBAX_NOT_PORTED)
 
@@ -221,12 +222,13 @@ def job_devices(flags: Flags, device=None) -> Optional[list]:
             raise ValueError(
                 "-num_processes > 1 requires -mesh (e.g. -mesh -1 for "
                 "every device in the job)")
-    if int(flags.mesh or 0) not in (0, 1) and (
-            not flags.fast_driver or flags.binary_only):
+    wants_mesh = (int(flags.mesh or 0) not in (0, 1)
+                  or int(flags.mesh_model or 0) > 1)
+    if wants_mesh and (not flags.fast_driver or flags.binary_only):
         raise ValueError(
-            "-mesh parallelism is implemented for the chunked training "
-            "driver (-fast_driver) and the device-sweep -eval_only path; "
-            "drop -mesh or use the fast driver")
+            "-mesh/-mesh_model parallelism is implemented for the chunked "
+            "training driver (-fast_driver) and the device-sweep "
+            "-eval_only path; drop -mesh or use the fast driver")
     # An eval-only run shards only the dev batches (JAX train.py:368).
     fields = (("batch_size_dev",) if flags.eval_only
               else ("batch_size", "batch_size_dev"))
@@ -257,7 +259,9 @@ def run(flags: Flags, max_steps: Optional[int] = None,
     numbers). The summary is rank 0's, its modules and tensors on the
     CPU, with every rank's summary under ``ranks``: each with its
     ``launches`` of both kernels and its ``collectives`` (seconds and
-    calls, the gradient all-reduces apart)."""
+    calls, the gradient all-reduces apart; under ``-mesh_model`` the data
+    axis's, and the model axis's under ``model``) and, on a card, its
+    ``peak_memory_bytes``."""
     check_supported(flags)
     if inputs is not None and (flags.binary_only or not flags.fast_driver):
         raise ValueError("in-memory inputs serve the staged paths only; "
@@ -291,14 +295,25 @@ def _run_rank(mesh, flags: Flags, max_steps, inputs, uniforms) -> dict:
     if inputs is not None:
         inputs = tuple(x.to(mesh.device) if isinstance(x, DeviceDataset)
                        else x for x in inputs)
+    if int(flags.mesh_model or 0) > 1:
+        from multimodalgame_tpu_torch.parallel.tensor import make_mesh_2d
+        mesh = make_mesh_2d(mesh, int(flags.mesh_model))
     out = _run(flags, max_steps, mesh.device, inputs, uniforms, mesh)
     out["launches"] = {"train": fused_train_forward.launches,
                        "eval": fused_eval_exchange.launches}
-    out["collectives"] = {"seconds": mesh.seconds, "calls": mesh.calls,
-                          "grad_seconds": mesh.grad_seconds,
-                          "grad_calls": mesh.grad_calls}
-    out["rank"] = mesh.rank
+    out["collectives"] = _counters(mesh)
+    if mesh.model is not None:
+        out["collectives"]["model"] = _counters(mesh.model)
+    out["rank"] = mesh.global_rank
+    if mesh.device.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
+            mesh.device)
     return out
+
+
+def _counters(mesh) -> dict:
+    return {"seconds": mesh.seconds, "calls": mesh.calls,
+            "grad_seconds": mesh.grad_seconds, "grad_calls": mesh.grad_calls}
 
 
 def _run(flags: Flags, max_steps: Optional[int], device: torch.device,
@@ -381,8 +396,7 @@ def _run(flags: Flags, max_steps: Optional[int], device: torch.device,
                                  if flags.attn_extra_context else None),
                     device=device)
             if mesh is not None:
-                flogger.Log("Data-parallel mesh: {} devices ({}, {})".format(
-                    mesh.size, device.type, mesh.backend))
+                flogger.Log(mesh_banner(mesh, device))
             # Keyed by the checkpoint's step, the -flipout_dev draws are
             # those of the dev sweep that wrote it.
             dev_acc, extra = run_device_dev_eval(
@@ -415,11 +429,21 @@ def _run(flags: Flags, max_steps: Optional[int], device: torch.device,
 
     if flags.fast_driver:
         from multimodalgame_tpu_torch.game.driver import run_fast
+        tp = None
+        if mesh is not None and mesh.model is not None:
+            # The sender's and baselines' Megatron leaves and the class
+            # head sharded over the model axis, each rank's block taken
+            # from the whole (resumed) state (JAX driver.py:239-254).
+            from multimodalgame_tpu_torch.parallel.tensor import (
+                TensorParallel, place_opt_states_tp)
+            tp = TensorParallel(mesh, modules, class_sharded=True,
+                                num_classes=len(desc_train.desc))
+            opt_states = place_opt_states_tp(opt_states, tp)
         summary = run_fast(flags, modules, opt_states, desc_train, desc_dev,
                            flogger, logger, eval_exchange, step=step,
                            best_dev_acc=best_dev_acc, max_steps=max_steps,
                            train_ds=train_ds, dev_ds=dev_ds,
-                           uniforms=uniforms, mesh=mesh)
+                           uniforms=uniforms, mesh=mesh, tp=tp)
         flogger.Log("Finished training.")
         return summary
     return _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
@@ -448,13 +472,16 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
     cfg = modules.cfg
     device = next(modules.parameters()).device
     seed = flags.random_seed + 1
-    train_step = make_train_step(
-        modules, flags.top_k_train, flags.batch_size,
-        fast="kernel" if train_kernel_supports(cfg) else "auto",
-        seed=seed, uniforms=uniforms, device=device)
-    packer = LogPacker(cfg, flags.batch_size, flags.exchange_samples)
     descs = description_inputs(desc_train, cfg, device)
     desc = descs.pop("desc")
+    sampler = ("kernel" if train_kernel_supports(cfg, flags.batch_size,
+                                                 desc.shape[0]) else "plain")
+    flogger.Log(SAMPLER_LINE.format(sampler))
+    train_step = make_train_step(
+        modules, flags.top_k_train, flags.batch_size,
+        fast="kernel" if sampler == "kernel" else "auto",
+        seed=seed, uniforms=uniforms, device=device)
+    packer = LogPacker(cfg, flags.batch_size, flags.exchange_samples)
 
     epoch = 0
     batch_accuracy = []   # device scalars, then host floats once copied

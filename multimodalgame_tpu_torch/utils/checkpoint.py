@@ -31,18 +31,27 @@ ORBAX_NOT_PORTED = (
 
 def save_checkpoint(filename: str, data: Dict[str, Any],
                     modules: AgentModules, opt_states: Dict[str, Any],
-                    mesh=None) -> None:
+                    mesh=None, tp=None) -> None:
     """Write ``{data, models, optimizers}`` to ``filename`` as a
     reference-layout ``.pt``, by a temporary file and a rename.
     (``train.check_supported`` refuses ``-ckpt_format orbax`` before a
     run starts.) On a data-parallel ``mesh`` (whose ranks hold equal
     parameters) rank 0 writes, and every rank waits for the write, so
-    none reads a half-written file."""
+    none reads a half-written file. Under tensor parallelism (``tp``,
+    ``modules`` its whole agents) the file is the single-device layout:
+    every rank gathers the sharded optimizer slots over the model axis
+    first."""
+    if tp is not None:
+        opt_states = tp.full_opt_states(opt_states)
     if mesh is None or mesh.writer:
         save_reference_checkpoint(filename, data, modules, opt_states,
                                   modules.cfg.optim_type)
     if mesh is not None:
+        # Data axis, then model axis: each model peer of a rank waits for
+        # a rank that waited for the writer.
         mesh.barrier()
+        if mesh.model is not None:
+            mesh.model.barrier()
 
 
 def load_checkpoint(filename: str, modules: AgentModules,

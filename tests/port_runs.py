@@ -54,9 +54,11 @@ def port_flags(argv):
 _STAMP = re.compile(r"^\d\d-\d\d-\d\d \d\d:\d\d:\d\d \[\d\] ", re.M)
 _FLOAT = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?")
 
-# Lines left out of the comparisons: the modules' reprs, the resume lines
-# and wall-clock timings (the flag dumps start the runs).
-SKIPPED = ("Architecture:", "Loading from", "Loaded at step", "step timing")
+# Lines left out of the comparisons: the modules' reprs, the resume lines,
+# wall-clock timings (the flag dumps start the runs) and the port's line
+# naming phase A's sampler, which the JAX package does not print.
+SKIPPED = ("Architecture:", "Loading from", "Loaded at step", "step timing",
+           "Phase A sampler")
 
 
 def runs_of(path):

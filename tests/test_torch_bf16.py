@@ -154,9 +154,10 @@ def test_bf16_step_keeps_float32_parameters_gradients_and_slots():
 
 def test_bf16_refuses_the_kernel_sampler():
     cfg = GameConfig(**BASE)
-    assert supports_config(cfg) and not train_kernel_supports(cfg)
+    assert supports_config(cfg) and not train_kernel_supports(cfg, B, C)
     assert train_kernel_supports(GameConfig(**{**BASE,
-                                               "compute_dtype": "float32"}))
+                                               "compute_dtype": "float32"}),
+                                 B, C)
     mods = AgentModules(cfg)
     with pytest.raises(ValueError, match="float32"):
         make_train_step(mods, TOP_K, B, fast="kernel", device="cpu")

@@ -374,14 +374,19 @@ def test_per_batch_loop_matches_the_driver(synthetic_dataset, tmp_path):
 
 
 def test_unported_flags_raise(synthetic_dataset, tmp_path):
-    """Tensor parallelism and Orbax still raise before a run starts; a
-    data-parallel mesh passes ``check_supported``."""
+    """Orbax still raises before a run starts; a data-parallel mesh and
+    tensor parallelism pass ``check_supported``, and ``-mesh_model``
+    without a mesh fails with JAX's ``resolve_mesh`` error."""
     from multimodalgame_tpu_torch.train import check_supported
-    for extra, match in ((["-mesh_model", "2"], "§1.10.3"),
-                         (["-ckpt_format", "orbax"], "orbax")):
+    for extra, match in ((["-ckpt_format", "orbax"], "orbax"),):
         flags = port_flags(small_argv(synthetic_dataset, tmp_path, "x",
                                       extra))
         with pytest.raises(NotImplementedError, match=match):
             run(flags, device="cpu")
-    check_supported(port_flags(small_argv(synthetic_dataset, tmp_path, "x",
-                                          ["-mesh", "2"])))
+    for ported in (["-mesh", "2"], ["-mesh", "2", "-mesh_model", "2"]):
+        check_supported(port_flags(small_argv(synthetic_dataset, tmp_path,
+                                              "x", ported)))
+    flags = port_flags(small_argv(synthetic_dataset, tmp_path, "x",
+                                  ["-mesh_model", "2"]))
+    with pytest.raises(ValueError, match="-mesh_model requires -mesh"):
+        run(flags, device="cpu")

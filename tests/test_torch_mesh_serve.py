@@ -83,8 +83,7 @@ def test_serving_devices():
      ValueError, "requires -mesh"),
     (["-mesh", "2", "-nofast_driver"], "cpu", ValueError, "fast driver"),
     (["-mesh", "2", "-binary_only"], "cpu", ValueError, "fast driver"),
-    (["-mesh", "2", "-mesh_model", "2"], "cpu", NotImplementedError,
-     r"§1\.10\.3"),
+    (["-mesh_model", "2"], "cpu", ValueError, "-mesh_model requires -mesh"),
 ], ids=["indivisible", "too_few_devices", "minus_one_cpu",
         "no_coordinator", "no_mesh", "nofast_driver", "binary_only",
         "mesh_model"])

@@ -233,7 +233,9 @@ def test_port_imports_nothing_of_jax():
     files.append(root / "chip_smoke.py")
     assert len(files) > 20
     port = root / "multimodalgame_tpu_torch"
-    for module in ("sweep.py", "parallel/population.py", "data/cifar.py"):
+    for module in ("sweep.py", "parallel/population.py", "data/cifar.py",
+                   "parallel/tensor.py", "models/resnet.py",
+                   "package_data.py"):
         assert port / module in files, module
     seen = set()
     for path in files:

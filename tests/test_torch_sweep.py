@@ -191,15 +191,17 @@ def test_set_smaller_than_a_batch(synthetic_dataset, tmp_path):
 
 
 def test_sweep_refuses_a_mesh(synthetic_dataset, tmp_path):
-    """The sweep refuses tensor parallelism and Orbax; ``-mesh`` passes
-    ``check_supported`` (the sweep splits its members over its devices
-    without it, tests/test_torch_mesh_sweep.py)."""
+    """The sweep refuses tensor parallelism (a ``ValueError``: it splits
+    members only; JAX's sweep ignores the flag) and Orbax; ``-mesh``
+    passes ``check_supported`` (the sweep splits its members over its
+    devices without it, tests/test_torch_mesh_sweep.py)."""
     from multimodalgame_tpu_torch.train import check_supported
-    for extra, match in ((["-mesh_model", "2"], "§1.10.3"),
-                         (["-ckpt_format", "orbax"], "orbax")):
+    for extra, error, match in (
+            (["-mesh_model", "2"], ValueError, "splits its members"),
+            (["-ckpt_format", "orbax"], NotImplementedError, "orbax")):
         pf = port_flags(sweep_argv(synthetic_dataset, tmp_path, "mesh",
                                    ["-population", "2"] + extra))
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             run_sweep(pf, device="cpu")
     check_supported(port_flags(sweep_argv(synthetic_dataset, tmp_path,
                                           "mesh", ["-population", "2",
