@@ -45,7 +45,14 @@ result line):
              chunk. The train kernel's launch count must equal the number
              of steps and every loss must be finite; dev top-1 and top-6
              are read through the eval kernel; the four agents are saved
-             as a reference .pt and loaded back;
+             as a reference .pt and loaded back (every step carries each
+             agent flat: its weights, gradient and slots one buffer each);
+6a. staged — the staged K-step trainer ``make_multistep_train_step
+             (fast="kernel")`` on 2 epochs (92 steps) of (K, 64, 512)
+             stacks staged on the card: one train-kernel launch a step,
+             finite losses, the run bit for bit the indexed chunk's over
+             the same rows staged as a set (``idx = arange``); then the
+             step's ms, kernels a step and busy share;
 7. driver  — the training main path: ``train.run`` (what ``python -m
              multimodalgame_tpu_torch`` calls) with the demo's argv
              (tools/demo.sh:21-31), parsed by the port's config.py, on
@@ -129,13 +136,22 @@ result line):
              tests/test_mesh_driver.py:73-93) and their share of it after
              46 reported; then a one-rank NCCL group through the same code,
              held the same way after 46; steps/s and the gradient
-             all-reduce's ms a step;
+             all-reduce's ms a step. The one device runs twice and must
+             repeat itself bit for bit after every step
+             (``single_device_first_diff_step`` None), and two threads of
+             this process, each a rank on its 32 rows with the gradients
+             and batch statistics summed on the card (``thread_meshes``),
+             must equal the two ranks bit for bit after every step
+             (``split_batch_equals_ranks``): the evidence that what parts
+             the mesh from one device is the order of its sums;
 19. mesh_driver — ``train.run`` with the demo's argv and ``-mesh 2`` over
              the two ranks on the card, 15 of the demo's 30 epochs
              (MESH_DRIVER_EPOCHS' note): on each rank
              the driver phase's launches, the cadences' log counts, rank
-             0's log line for line the ``driver`` phase's (numbers aside,
-             the mesh banner left out), a last dev top-6 of at least 0.5,
+             0's log message for message the ``driver`` phase's (numbers
+             aside, the mesh banner left out) but for the best
+             checkpoint's lines, which must stand where rank 0's own dev
+             sweeps put them, a last dev top-6 of at least 0.5,
              the .pt files reloaded, and ``-eval_only -mesh 2`` on _best
              reproducing its ``best_dev_acc``; steps/s and the collectives'
              ms a step (two ranks on one card: correctness and overhead,
@@ -167,11 +183,16 @@ result line):
              conversation).
 
 ``python3 chip_smoke.py --mesh`` runs only the build, the serve and driver
-phases and phases 17-21 (no result line). ``python3 chip_smoke.py
---times`` runs only the probe and
-the batch-64 times of both kernels (both rulers) and of
-``Predictor.predict``, through entry points that every tree of the port
-has, so that two trees can be timed in one call.
+phases and phases 17-21 (no result line); ``--staged`` only the build,
+phase 6a and ``mesh_step``; ``--mesh-cpu`` ``mesh_step``'s readings with
+every rank on the CPU (no card needed, no result line). ``python3
+chip_smoke.py --times [OUT [OTHER]]`` runs only the probe, the batch-64
+times of both kernels (both rulers) and of ``Predictor.predict``, and one
+step of the bare trainer (host ms, kernels a step, busy share), through
+entry points that every tree of the port has, so that two trees can be
+timed in one call; with ``OUT`` it saves there the weights after the
+trainer's first 8 steps from seed 0, and with ``OTHER`` (another tree's
+``OUT``) reports how far the two part.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -284,9 +305,15 @@ MESH_DRIVER_EPOCHS = 15
 # (tests/test_mesh_driver.py:73-93); the two-rank step is held there too,
 # and its use after the 46 steps is reported: RMSprop turns the rounding
 # of sums taken in another order into steps of up to lr in weights whose
-# gradient is near zero, and these add up (PERF.md §6).
+# gradient is near zero, and these add up (PERF.md §6). mesh_step holds
+# the evidence instead: one device repeats itself bit for bit, and the
+# mesh's arithmetic run on one device (two threads, each a rank) equals
+# the two ranks bit for bit after every step.
 MESH_PARAM_STEPS = 8
 MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-3, 1e-5
+# The staged K-step trainer: 2 epochs (92 steps) of stacks staged on the
+# card.
+STAGED_EPOCHS = 2
 # The split sweep is held member for member where no sampled decision of
 # a member has yet parted from the unsplit sweep's (10 steps, dev sweeps
 # at 5 and 10): `vmap`'s batched kernels over 2 and over 4 members round
@@ -1607,15 +1634,161 @@ def gloo_cuda_collectives(mesh) -> dict:
     return out
 
 
+def drive_staged(device, smi):
+    """The staged K-step trainer (``make_multistep_train_step``) on the
+    canonical game: STAGED_EPOCHS epochs of (K, 64, 512) stacks staged on
+    the card, phase A in the train kernel. Held: one train-kernel launch
+    a step, finite losses and the run bit for bit the indexed chunk's
+    over the same rows staged as a set (``idx = arange``). Then the
+    step's ms, kernels and busy share."""
+    import torch
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES,
+                                                      AgentModules,
+                                                      init_params)
+    from multimodalgame_tpu_torch.game.train import (
+        init_opt_states, make_multistep_train_step,
+        make_multistep_train_step_indexed)
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    cfg = canonical_cfg(**TRAIN_HP)
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    desc = torch.from_numpy(descriptions()).to(device)
+    plan = torch.from_numpy(np.concatenate([
+        train.epoch_indices(e, True, TRAIN_BATCH)
+        for e in range(STAGED_EPOCHS)])).to(device)
+    data, target = train.feats[plan], train.targets[plan]
+    steps = len(plan)
+
+    def trainer(factory):
+        mods = init_params(AgentModules(cfg), seed=0, device=device)
+        return mods, factory(mods, top_k=6, batch_denom=TRAIN_BATCH,
+                             fast="kernel", seed=0, device=device
+                             ), init_opt_states(cfg, mods)
+
+    # The main path, counted alone.
+    mods, chunk, opts = trainer(make_multistep_train_step)
+    fused_train_forward.launches = fused_eval_exchange.launches = 0
+    t0 = time.perf_counter()
+    sm = chunk(opts, data, target, desc, 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fused_train_forward.launches
+    eval_launches = fused_eval_exchange.launches
+    finite = bool(torch.isfinite(torch.stack(list(sm))).all())
+
+    # The indexed chunk over the same rows, staged as a set.
+    imods, ichunk, iopts = trainer(make_multistep_train_step_indexed)
+    im = ichunk(iopts, data.reshape(steps * TRAIN_BATCH, -1),
+                target.reshape(-1), np.arange(steps * TRAIN_BATCH).reshape(
+                    steps, TRAIN_BATCH), desc, 0)
+    bit_equal = (all(torch.equal(a, b) for a, b in zip(sm, im))
+                 and torch_equal(dict(mods.named_parameters()),
+                                 dict(imods.named_parameters()))
+                 and all(torch.equal(x, y) for a in AGENT_NAMES
+                         for x, y in zip(opts[a]["nu"], iopts[a]["nu"])))
+    del imods, ichunk, iopts
+
+    # The step on the trained agents: host-clock median, then profiled.
+    counter = {"step": steps}
+
+    def one_step():
+        i = counter["step"]
+        chunk(opts, data[i % steps][None], target[i % steps][None], desc, i)
+        counter["step"] += 1
+        torch.cuda.synchronize()
+    step_ms = host_median_ms(one_step)
+    row = {"phase": "staged", "steps": steps, "epochs": STAGED_EPOCHS,
+           "stacks": list(data.shape), "seconds": secs,
+           "steps_per_s": steps / secs, "train_kernel_launches": launches,
+           "eval_kernel_launches": eval_launches, "losses_finite": finite,
+           "train_top6": float(sm.accuracy.mean()),
+           "indexed_chunk_bit_equal": bit_equal,
+           "train_step_ms": step_ms, **profile_steps(one_step),
+           "card": smi}
+    log(row)
+    if launches != steps or not finite or not bit_equal or eval_launches:
+        raise SystemExit(f"staged: {row}")
+    return {"train_launches": launches, "eval_launches": eval_launches,
+            **row}
+
+
+def thread_meshes(size: int, device):
+    """``size`` data-parallel ranks as threads of this process on one
+    device: each is a ``parallel/mesh.py:Mesh`` whose all-reduce sums the
+    ranks' tensors on the device in rank order, so a step run through them
+    does the mesh's arithmetic (each rank's rows, the halves' gradients
+    and batch statistics summed) with no process group."""
+    import threading
+    from multimodalgame_tpu_torch.parallel.mesh import Mesh
+    slots, total = [None] * size, [None]
+    barrier = threading.Barrier(size)
+
+    class ThreadMesh(Mesh):
+        def all_reduce_(self, x):
+            slots[self.rank] = x
+            barrier.wait()
+            if self.rank == 0:
+                acc = slots[0].clone()
+                for s in slots[1:]:
+                    acc += s
+                total[0] = acc
+            barrier.wait()
+            x.copy_(total[0])
+            barrier.wait()
+            self.calls += 1
+            return x
+
+    return [ThreadMesh(r, size, device, "threads") for r in range(size)]
+
+
+def run_threads(fn, meshes, *args) -> list:
+    """``fn(mesh, *args)`` on a thread for each of ``meshes``; their
+    results in rank order (the first failure re-raised)."""
+    import threading
+    out = [None] * len(meshes)
+
+    def run(i):
+        try:
+            out[i] = fn(meshes[i], *args)
+        except BaseException as e:     # noqa: BLE001 - re-raised below
+            out[i] = e
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(meshes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r in out:
+        if isinstance(r, BaseException):
+            raise r
+    return out
+
+
+def weights_digest(mods) -> str:
+    """A SHA-256 of every weight's bytes: equal digests, equal weights."""
+    import hashlib
+    import torch
+    flat = torch.cat([p.detach().reshape(-1) for p in mods.parameters()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def first_difference(a, b):
+    """The first index at which two digest streams differ, else None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
 def mesh_train_rank(mesh, steps: int, device: str = "cuda",
-                    n_model: int = 1) -> dict:
+                    n_model: int = 1, trace: bool = False) -> dict:
     """``steps`` steps of the canonical Adaptive game through the train
     kernel (``make_multistep_train_step_indexed(fast="kernel")``) from
     seed 0, on ``mesh`` (its rows of each batch of 64; with ``n_model``
     above 1 a ``(data, model)`` grid of the ranks, tensor-parallel) or,
     with ``mesh`` None, on ``device`` alone: the accuracy stream, the
     weights, the train kernel's launches and the seconds, with the
-    collectives' (each axis's)."""
+    collectives' (each axis's). With ``trace`` the steps run one a chunk
+    and the weights' digest after each is returned (``digests``)."""
     import torch
     from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
     from multimodalgame_tpu_torch.game.agents import (AgentModules,
@@ -1649,26 +1822,33 @@ def mesh_train_rank(mesh, steps: int, device: str = "cuda",
     # The first step (the process's lazy set-up with it) apart; the
     # others timed, the collectives counted over them alone; the weights
     # read after MESH_PARAM_STEPS steps and at the end.
-    first = chunk(opts, train.feats, train.targets, plan[:1], desc, 0)
-    first.accuracy.cpu()
+    k = MESH_PARAM_STEPS
+    bounds = (range(len(plan) + 1) if trace
+              else sorted({0, 1, k, len(plan)}))
     axes = [] if mesh is None else [mesh] + (
         [] if mesh.model is None else [mesh.model])
-    for axis in axes:
-        axis.seconds = axis.grad_seconds = 0.0
-        axis.calls = axis.grad_calls = 0
-    t0 = time.perf_counter()
-    k = MESH_PARAM_STEPS
-    early = chunk(opts, train.feats, train.targets, plan[1:k], desc, 1)
-    params_k = {n: p.detach().cpu() for n, p in mods.named_parameters()}
-    m = chunk(opts, train.feats, train.targets, plan[k:], desc, k)
-    acc = torch.cat([first.accuracy, early.accuracy,
-                     m.accuracy]).double().cpu()
+    accs, digests = [], []
+    for a, b in zip(bounds, bounds[1:]):
+        m = chunk(opts, train.feats, train.targets, plan[a:b], desc, a)
+        accs.append(m.accuracy)
+        if trace:
+            digests.append(weights_digest(mods))
+        if a == 0:
+            m.accuracy.cpu()
+            for axis in axes:
+                axis.seconds = axis.grad_seconds = 0.0
+                axis.calls = axis.grad_calls = 0
+            t0 = time.perf_counter()
+        if b == k:
+            params_k = {n: p.detach().clone().cpu()
+                        for n, p in mods.named_parameters()}
+    acc = torch.cat(accs).double().cpu()
     secs = time.perf_counter() - t0
     out = {"accuracy": acc, "params_early": params_k,
-           "params": {k: p.detach().cpu()
+           "params": {k: p.detach().clone().cpu()
                       for k, p in mods.named_parameters()},
            "launches": fused_train_forward.launches, "seconds": secs,
-           "steps_per_s": (len(plan) - 1) / secs}
+           "steps_per_s": (len(plan) - 1) / secs, "digests": digests}
     if mesh is not None:
         out.update(rank=mesh.global_rank, backend=mesh.backend,
                    collective_ms_per_step=1e3 * mesh.seconds
@@ -1708,11 +1888,20 @@ def mesh_step(device, smi):
     """Two ranks sharing the card (gloo on CUDA tensors) train one epoch
     of the canonical game, batch 64 split 32/32, against one device from
     the same seed on the same card; then a one-rank NCCL group through the
-    same code."""
+    same code. The one device runs twice (it must repeat itself bit for
+    bit), and the mesh's arithmetic is run on one device too: two threads
+    of this process, each a rank on its 32 rows, their gradients and batch
+    statistics summed on the card (``thread_meshes``). That run must equal
+    the two ranks bit for bit after every step: then what parts the mesh
+    from one device is the order of the sums, which RMSprop amplifies
+    (MESH_PARAM_STEPS' note), and not a fault of the mesh."""
     from multimodalgame_tpu_torch.parallel.distributed import launch
     steps = MESH_STEP_STEPS
-    one = mesh_train_rank(None, steps, device)
-    ranks = launch(mesh_train_rank, MESH_DEVICES, (steps,))
+    one = mesh_train_rank(None, steps, device, trace=True)
+    again = mesh_train_rank(None, steps, device, trace=True)
+    split = run_threads(mesh_train_rank, thread_meshes(2, device + ":0"),
+                        steps, device, 1, True)
+    ranks = launch(mesh_train_rank, MESH_DEVICES, (steps, device, 1, True))
     nccl, = launch(mesh_train_rank, [device + ":0"], (steps,),
                    backend="nccl")
     acc_err = max(float((r["accuracy"] - one["accuracy"]).abs().max())
@@ -1722,6 +1911,12 @@ def mesh_step(device, smi):
     excess, worst = params_close(ranks[0]["params_early"],
                                  one["params_early"])
     late, late_worst = params_close(ranks[0]["params"], one["params"])
+    repeat_use, _ = params_close(again["params"], one["params"])
+    repeat_diff = first_difference(one["digests"], again["digests"])
+    split_diff = [first_difference(s["digests"], r["digests"])
+                  for s, r in zip(split, ranks)]
+    split_equal = all(d is None for d in split_diff) and all(
+        torch_equal(s["params"], r["params"]) for s, r in zip(split, ranks))
     nccl_excess, _ = params_close(nccl["params"], one["params"])
     nccl_acc_err = float((nccl["accuracy"] - one["accuracy"]).abs().max())
     row = {"phase": "mesh_step", "steps": steps, "ranks": len(ranks),
@@ -1732,6 +1927,12 @@ def mesh_step(device, smi):
            "param_steps": MESH_PARAM_STEPS,
            "param_tolerance_use_after_all_steps": late,
            "param_worst_after_all_steps": late_worst,
+           "single_device_repeat_use": repeat_use,
+           "single_device_first_diff_step": repeat_diff,
+           "split_batch_equals_ranks": split_equal,
+           "split_batch_first_diff_step": split_diff,
+           "split_batch_first_diff_from_one_device": first_difference(
+               split[0]["digests"], one["digests"]),
            "steps_per_s_one_device": one["steps_per_s"],
            "steps_per_s_per_rank": [r["steps_per_s"] for r in ranks],
            "grad_reduce_ms_per_step": [r["grad_reduce_ms_per_step"]
@@ -1747,12 +1948,14 @@ def mesh_step(device, smi):
                              "steps_per_s": nccl["steps_per_s"],
                              "grad_reduce_ms_per_step":
                                  nccl["grad_reduce_ms_per_step"]},
+           "note": "steps/s with a weights digest after every step",
            "card": smi}
     log(row)
     if (acc_err > 1e-6 or not same or excess > 1
             or any(r["launches"] != steps for r in ranks)
             or nccl["launches"] != steps or nccl_acc_err > 1e-6
-            or nccl_excess > 1):
+            or nccl_excess > 1 or repeat_diff is not None
+            or not split_equal):
         # (The two-rank weights after every step are reported above, not
         # held: MESH_PARAM_STEPS's note.)
         raise SystemExit(f"mesh_step: the two ranks do not reproduce the "
@@ -1761,31 +1964,102 @@ def mesh_step(device, smi):
             + nccl["launches"], "eval_launches": 0, **row}
 
 
-def message_kinds(path):
-    """A log's messages (one ``Log`` call each) from the first epoch on,
-    each as the kind of its first line: every number replaced by ``#``
-    (tests/test_mesh_driver.py:96-107), sparkline bars and runs of blanks
-    dropped; the mesh banner left out. Two runs whose sums are taken in
-    other orders part after some hundreds of sampled steps, and then the
-    contents of a message (a dump's turns, its bars) differ while its
-    kind does not."""
+def mesh_step_cpu() -> int:
+    """``--mesh-cpu``: ``mesh_step``'s readings with every rank on the CPU
+    (two gloo ranks and two threads against one device, the train
+    kernel's plain version sampling), to set beside the card's; no
+    result line."""
+    from multimodalgame_tpu_torch.parallel.distributed import launch
+    steps = MESH_STEP_STEPS
+    import torch
+    one = mesh_train_rank(None, steps, "cpu", trace=True)
+    again = mesh_train_rank(None, steps, "cpu", trace=True)
+    # The CPU's products round by how many threads split them: the
+    # threads get the ranks' share of them (parallel/distributed.py).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    split = run_threads(mesh_train_rank, thread_meshes(2, "cpu"), steps,
+                        "cpu", 1, True)
+    torch.set_num_threads(threads)
+    ranks = launch(mesh_train_rank, ["cpu", "cpu"], (steps, "cpu", 1, True))
+    log({"phase": "mesh_step_cpu", "steps": steps,
+         "param_tolerance_use": params_close(ranks[0]["params_early"],
+                                             one["params_early"])[0],
+         "param_steps": MESH_PARAM_STEPS,
+         "param_tolerance_use_after_all_steps": params_close(
+             ranks[0]["params"], one["params"])[0],
+         "single_device_first_diff_step": first_difference(
+             one["digests"], again["digests"]),
+         "split_batch_first_diff_step": [
+             first_difference(s["digests"], r["digests"])
+             for s, r in zip(split, ranks)],
+         "split_batch_first_diff_from_one_device": first_difference(
+             split[0]["digests"], one["digests"])})
+    return 0
+
+
+def torch_equal(a: dict, b: dict) -> bool:
+    """Two dicts of tensors with the same keys hold equal tensors."""
+    import torch
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+BEST = "Checkpointing with best Development Accuracy: "
+
+
+def run_messages(path):
+    """A log's messages (one ``Log`` call each, their first lines) from
+    the first epoch on, the mesh banner left out, up to a later run
+    appended to the same log (an -eval_only on its checkpoint, which
+    starts at its flag dump)."""
     import re
     text = open(path).read()
-    msgs = re.split(r"^\d\d-\d\d-\d\d \d\d:\d\d:\d\d \[\d\] ", text,
-                    flags=re.M)[1:]
+    msgs = [m.split("\n")[0] for m in re.split(
+        r"^\d\d-\d\d-\d\d \d\d:\d\d:\d\d \[\d\] ", text, flags=re.M)[1:]
+        if "Data-parallel mesh" not in m]
+    start = msgs.index(next(m for m in msgs
+                            if m.startswith("Starting epoch: ")))
+    end = next((i for i in range(start, len(msgs))
+                if msgs[i].startswith("Flag Values")), len(msgs))
+    return msgs[start:end]
+
+
+def message_kinds(msgs):
+    """Each message's kind: every number replaced by ``#``
+    (tests/test_mesh_driver.py:96-107), sparkline bars and runs of blanks
+    dropped, and the best checkpoint's lines left out. Two runs whose sums
+    are taken in other orders part after some hundreds of sampled steps,
+    and then the contents of a message (a dump's turns, its bars) differ
+    while its kind does not; whether a dev sweep beats the best before it
+    differs too, so those lines are held against the run's own sweeps
+    (:func:`best_lines_misplaced`)."""
+    import re
     kinds = []
     for m in msgs:
-        if "Data-parallel mesh" in m:
+        if m.startswith(BEST):
             continue
-        head = re.sub(r"[-+]?\d+\.?\d*(e[-+]?\d+)?", "#",
-                      m.split("\n")[0])
+        head = re.sub(r"[-+]?\d+\.?\d*(e[-+]?\d+)?", "#", m)
         kinds.append(" ".join(re.sub(r"[\u2581-\u2588]", "", head).split()))
-    start = kinds.index("Starting epoch: #")
-    # The run's own messages: a later run appended to the same log (an
-    # -eval_only on its checkpoint) starts at its flag dump.
-    end = next((i for i in range(start, len(kinds))
-                if kinds[i].startswith("Flag Values")), len(kinds))
-    return kinds[start:end]
+    return kinds
+
+
+def best_lines_misplaced(msgs, save_after: int):
+    """The first of a run's messages at which its best-checkpoint lines
+    part from its own dev sweeps, else None. The driver writes one, with
+    the sweep's accuracy, right after a sweep's three lines where the step
+    is at least ``save_after`` and the accuracy beats every earlier such
+    one (game/driver.py:382-385; a fresh run starts from 0)."""
+    import re
+    best, want = 0.0, {}
+    for i, m in enumerate(msgs):
+        dev = re.match(r"Epoch: \d+ Step: (\d+) Batch: \d+ Development "
+                       r"Accuracy: (\S+)$", m)
+        if dev and int(dev[1]) >= save_after and float(dev[2]) > best:
+            best = float(dev[2])
+            want[i + 3] = BEST + dev[2]
+    got = {i: m for i, m in enumerate(msgs) if m.startswith(BEST)}
+    return next((i for i in sorted(set(got) | set(want))
+                 if got.get(i) != want.get(i)), None)
 
 
 def mesh_drive(device, workdir, smi, driven):
@@ -1833,10 +2107,17 @@ def mesh_drive(device, workdir, smi, driven):
                          f"{want['train_launches']} and "
                          f"{want['eval_launches']} on each rank")
     # The run's messages are the driver phase's first ones, but for its
-    # closing two ("Final step timing", "Finished training.").
-    got_kinds = message_kinds(flags.log_file)
-    want_kinds = message_kinds(driven["log_file"])[:len(got_kinds) - 2] \
-        + got_kinds[-2:]
+    # closing two ("Final step timing", "Finished training.") and its
+    # best checkpoints, which follow its own dev sweeps.
+    msgs = run_messages(flags.log_file)
+    misplaced = best_lines_misplaced(msgs, flags.save_after)
+    if misplaced is not None:
+        raise SystemExit(f"mesh_driver: rank 0's best-checkpoint lines "
+                         f"part from its dev sweeps at message {misplaced}: "
+                         f"{msgs[misplaced - 3:misplaced + 1]}")
+    got_kinds = message_kinds(msgs)
+    want_kinds = message_kinds(run_messages(driven["log_file"]))[
+        :len(got_kinds) - 2] + got_kinds[-2:]
     if not (got_kinds[-2].startswith("Final step timing")
             and got_kinds[-1] == "Finished training."):
         raise SystemExit(f"mesh_driver: the log ends in {got_kinds[-2:]}")
@@ -2059,7 +2340,9 @@ def route_big(device, workdir, smi):
                                                  BIG_CLASSES),
              "train_kernel": train_kernel_supports(cfg, flags.batch_size,
                                                    BIG_CLASSES)}
-    log({"phase": "route_big", "sizes_FHWRDVB": sizes, **route})
+    # The kernel's function at these shapes, were it run: its bound.
+    log({"phase": "route_big", "sizes_FHWRDVB": sizes, **route,
+         "kernel_bound": work(cfg, flags.batch_size, num_desc=BIG_CLASSES)})
     if route["plan"] is not None or route["eval_kernel"] \
             or route["train_kernel"] or not route["supports_config"]:
         raise SystemExit(f"route_big: expected a supported config with no "
@@ -2573,13 +2856,24 @@ def step_breakdown(one_step, phase_a, forward) -> dict:
     pass without and with the backward pass (each ends in a
     synchronize), then the device's kernels a step and busy share over a
     few profiled steps (the profiler adds its own host overhead)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     step_ms = host_median_ms(one_step)
     a_ms = host_median_ms(phase_a)
     fwd_ms = host_median_ms(lambda: forward(False))
     fwd_bwd_ms = host_median_ms(lambda: forward(True))
-    n_prof = 5
+    return {"phase": "timing", "batch": TRAIN_BATCH, "train_step_ms": step_ms,
+            "steps_per_s": 1e3 / step_ms, "phase_a_ms": a_ms,
+            "phase_a_share": a_ms / step_ms,
+            "forward_ms": fwd_ms, "backward_ms": fwd_bwd_ms - fwd_ms,
+            "optimizer_and_rest_ms": step_ms - fwd_bwd_ms,
+            **profile_steps(one_step)}
+
+
+def profile_steps(one_step, n_prof: int = 5) -> dict:
+    """The device's kernels a step and its busy share over ``n_prof``
+    profiled steps (the profiler adds its own host overhead), and the
+    kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2591,12 +2885,7 @@ def step_breakdown(one_step, phase_a, forward) -> dict:
     device_us = sum(e.self_device_time_total for e in device_events)
     launches = sum(e.count for e in device_events)
     top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:5]
-    return {"phase": "timing", "batch": TRAIN_BATCH, "train_step_ms": step_ms,
-            "steps_per_s": 1e3 / step_ms, "phase_a_ms": a_ms,
-            "phase_a_share": a_ms / step_ms,
-            "forward_ms": fwd_ms, "backward_ms": fwd_bwd_ms - fwd_ms,
-            "optimizer_and_rest_ms": step_ms - fwd_bwd_ms,
-            "profiled_steps": n_prof,
+    return {"profiled_steps": n_prof,
             "device_kernels_per_step": launches / n_prof,
             "device_busy_share": (device_us / wall_us) if device_us else None,
             "top_device_kernels_us_per_step": [
@@ -2662,13 +2951,19 @@ def attention_timing(device, attention):
     return row
 
 
-def times_only() -> int:
+def times_only(out: str = None, other: str = None) -> int:
     """``--times``: the probe, then at batch 64 on random canonical
     weights the times of both kernels (``ms``, ``device_ms`` and the host
     time of the launch), of ``Predictor.predict`` and of one step of the
-    bare trainer; no result line. It builds nothing itself and calls only
-    entry points that every tree of the port with a training step has, so
-    the same script times an older tree of the port beside this one."""
+    bare trainer (host ms, then kernels a step and busy share); no result
+    line. It builds nothing itself and calls only entry points that every
+    tree of the port with a training step has, so the same script times an
+    older tree of the port beside this one. ``out``: where to save the
+    weights after the trainer's first MESH_PARAM_STEPS steps from seed 0;
+    ``other``: another tree's such file, against which this tree's
+    weights are reported: bit-equal or not, the largest change from the
+    start, the three largest differences, and the share of JAX's mesh
+    tolerance they take (``params_close``)."""
     import torch
     from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
     from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
@@ -2679,7 +2974,7 @@ def times_only() -> int:
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
         fused_eval_exchange, fused_train_forward, kernel_params)
     from multimodalgame_tpu_torch.serve import Predictor
-    probe()
+    smi = probe()
     cfg = canonical_cfg(**TRAIN_HP)
     params = kernel_params(make_agents(cfg, "cuda"))
     x = features(64, seed=564)
@@ -2713,7 +3008,26 @@ def times_only() -> int:
         device="cuda")
     opts = init_opt_states(cfg, mods)
     plan = train.epoch_indices(0, True, TRAIN_BATCH)
-    done = [0]
+    start = {n: p.detach().clone().cpu()
+             for n, p in mods.named_parameters()}
+    k = MESH_PARAM_STEPS
+    chunk(opts, train.feats, train.targets, plan[:k], desc, 0)
+    after = {n: p.detach().clone().cpu() for n, p in mods.named_parameters()}
+    if out:
+        torch.save(after, out)
+    if other:
+        want = torch.load(other)
+        diff = {n: float((after[n] - w).abs().max()) for n, w in want.items()}
+        row["change_steps"] = k
+        row["change_bit_equal"] = all(torch.equal(after[n], w)
+                                      for n, w in want.items())
+        row["change_max_abs"] = max(float((w - start[n]).abs().max())
+                                    for n, w in want.items())
+        row["change_worst_abs_diff"] = sorted(
+            diff.items(), key=lambda kv: -kv[1])[:3]
+        row["param_tolerance_use"], row["param_worst"] = params_close(
+            after, want)
+    done = [k]
 
     def one_step():
         i = done[0]
@@ -2724,6 +3038,7 @@ def times_only() -> int:
 
     row["train_step_ms"] = host_median_ms(one_step)
     row["steps_per_s"] = 1e3 / row["train_step_ms"]
+    row.update(profile_steps(one_step), card=smi)
     log(row)
     return 0
 
@@ -2745,8 +3060,8 @@ def run_new_paths(workdir, smi) -> dict:
 
 def main() -> int:
     import torch
-    if sys.argv[1:] == ["--times"]:
-        return times_only()
+    if sys.argv[1:2] == ["--times"] and len(sys.argv) <= 4:
+        return times_only(*sys.argv[2:])
     if sys.argv[1:] == ["--tp"]:
         # Only the build and this slice's phases; no result line.
         smi = probe()
@@ -2754,6 +3069,16 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=os.path.dirname(
                 os.path.abspath(__file__))) as workdir:
             run_tp_paths(workdir, smi)
+        return 0
+    if sys.argv[1:] == ["--mesh-cpu"]:
+        return mesh_step_cpu()
+    if sys.argv[1:] == ["--staged"]:
+        # Only the build, the staged trainer and the two-rank step; no
+        # result line.
+        smi = probe()
+        build()
+        drive_staged("cuda", smi)
+        mesh_step("cuda", smi)
         return 0
     if sys.argv[1:] == ["--mesh"]:
         # Only the build, the serving and driver phases the mesh phases
@@ -2774,6 +3099,7 @@ def main() -> int:
             os.path.abspath(__file__))) as workdir:
         served = serve_requests("cuda", workdir)
         trained = train_game("cuda", workdir)
+        staged = drive_staged("cuda", smi)
         driven = drive("cuda", workdir, smi)
         # The attention presets and the variants: neither kernel
         # launches on them.
@@ -2833,7 +3159,8 @@ def main() -> int:
         "replaces": "multimodalgame_tpu/ops/pallas_exchange.py:265",
         "launches": served["launches"],
         "launches_by_path": {
-            "serve": served["launches"], "driver": driven["eval_launches"],
+            "serve": served["launches"], "staged": staged["eval_launches"],
+            "driver": driven["eval_launches"],
             "driver_attention": attention["counts"]["eval_launches"],
             "serve_attention": served_attn["launches"],
             "variants": variants["eval_launches"],
@@ -2862,7 +3189,8 @@ def main() -> int:
         "replaces": "multimodalgame_tpu/ops/pallas_exchange.py:278",
         "launches": trained["launches"],
         "launches_by_path": {
-            "train": trained["launches"], "driver": driven["train_launches"],
+            "train": trained["launches"], "staged": staged["train_launches"],
+            "driver": driven["train_launches"],
             "driver_attention": attention["counts"]["train_launches"],
             "variants": variants["train_launches"],
             **{k: new[k]["train_launches"] for k in new_paths},
@@ -2883,6 +3211,8 @@ def main() -> int:
         "cifar_width": cifar_kernels["rows"]["fused_train_forward"],
         "steps_per_s": train_rows["step"]["steps_per_s"],
         "phase_a_share": train_rows["step"]["phase_a_share"],
+        "staged_kernels_per_step": staged["device_kernels_per_step"],
+        "staged_step_ms": staged["train_step_ms"],
         "driver_run_steps_per_s": driven["run_steps_per_s"],
         "dev_top6": driven["last_dev_top6"],
         "attention_run_steps_per_s": attention["run_steps_per_s"],

@@ -11,8 +11,8 @@ optimizer step, written out by hand with optax's conventions
 (train.py:42-62): RMSprop with ``alpha = 0.99`` and ``eps`` outside the
 square root, Adam with bias correction, plain SGD. The rule is a pure
 function (:func:`optimizer_update`), which the single game applies in
-place and the population (``parallel/population.py``) over its stacked
-members.
+place over its flat carry and the population (``parallel/population.py``)
+over its stacked members.
 
 With ``compute_dtype="bfloat16"`` the conversation runs on bfloat16
 copies of the float32 parameters and the losses in float32
@@ -40,6 +40,16 @@ metrics (:func:`make_train_step`, :func:`make_train_step_indexed`)
 gathers the rows' predictions and conversation record in rank order, so
 it returns what the single-device step returns.
 
+Every trainer carries each trained agent flat, as JAX's K-step trainers
+do by default (train.py:307-355): its parameters, its gradient and each
+optimizer slot are one contiguous buffer each (:func:`flat_buffers`), so
+the clip, the rule and the update are a handful of kernels an agent
+rather than a leaf. The parameters and the per-leaf slot lists are views
+of those buffers, so everything that reads them leaf by leaf
+(checkpoints, resume, serving) is unchanged. The numbers differ from
+JAX's per-leaf steps only by the order of the clip's sum of squares
+(JAX train.py:314-316).
+
 Visual attention takes the feature map ``(B, C, H, W)`` as ``data`` and,
 with ``attn_extra_context``, the ``fc`` context; description attention
 the padded word sets. Each factory's step takes them as keyword
@@ -54,6 +64,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
                     Union)
 
 import torch
+from torch.autograd.graph import increment_version
 
 from multimodalgame_tpu_torch.game.agents import AGENT_NAMES, AgentModules
 from multimodalgame_tpu_torch.game.config import GameConfig
@@ -166,34 +177,116 @@ def optimizer_update(cfg: GameConfig, grads: List[torch.Tensor],
     raise NotImplementedError(cfg.optim_type)
 
 
+# ---------------------------------------------------------- flat carry
+
+def flat_order(tensors: List[torch.Tensor],
+               sharded: Optional[List[bool]] = None) -> List[int]:
+    """The order in which an agent's leaves lie in its flat buffers: the
+    registration order, or under tensor parallelism (``sharded``, one flag
+    a leaf) the replicated leaves first, so that the clip norm reads each
+    kind as one block."""
+    idx = list(range(len(tensors)))
+    if sharded is None:
+        return idx
+    return ([i for i in idx if not sharded[i]]
+            + [i for i in idx if sharded[i]])
+
+
+def _flat_view(tensors: List[torch.Tensor],
+               order: List[int]) -> Optional[torch.Tensor]:
+    """The 1-D tensor over the memory that ``tensors``, taken in
+    ``order``, fill back to back in one storage; None if they do not."""
+    first = tensors[order[0]]
+    ptr = first.untyped_storage().data_ptr()
+    start = end = first.storage_offset()
+    for i in order:
+        t = tensors[i]
+        if (t.storage_offset() != end or not t.is_contiguous()
+                or t.untyped_storage().data_ptr() != ptr):
+            return None
+        end += t.numel()
+    return first.detach().new_empty(0).set_(first.untyped_storage(), start,
+                                            (end - start,))
+
+
+def _pack(tensors: List[torch.Tensor], order: List[int]
+          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One new 1-D buffer holding ``tensors`` in ``order``, and each
+    tensor's view of it (in the tensors' own order)."""
+    buf = torch.cat([tensors[i].detach().reshape(-1) for i in order])
+    views: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    off = 0
+    for i in order:
+        n = tensors[i].numel()
+        views[i] = buf[off:off + n].view_as(tensors[i])
+        off += n
+    return buf, views
+
+
 @torch.no_grad()
-def apply_agent_updates(cfg: GameConfig, update_names, modules: AgentModules,
-                        opt_states: Dict[str, Dict[str, Any]],
-                        tp=None) -> None:
-    """One clip + optimizer step per trained agent, in place, from the
-    parameters' ``.grad`` (a parameter without one counts as zero)
-    (train.py:293-304). The slots' lists are refilled in place, so every
-    holder of ``opt_states`` sees the new state. Under tensor parallelism
-    (``tp``, ``parallel/tensor.py``) ``modules`` are the rank's shards and
-    each agent clips by the norm of its whole gradient."""
+def flat_buffers(params: List[torch.nn.Parameter], state: Dict[str, Any],
+                 order: List[int]) -> Tuple[torch.Tensor,
+                                            Dict[str, torch.Tensor]]:
+    """One agent's flat carry (JAX ``_flat_carry``, train.py:307-349): its
+    parameters as views of one contiguous buffer, and each optimizer slot
+    (``nu``, ``mu``) as views of one buffer each, laid out in ``order``.
+    The per-leaf API stays: each parameter keeps its identity (its
+    ``.data`` becomes a view) and each slot list its per-leaf entries
+    (now views), so ``named_parameters``, checkpoints and
+    ``opt_states[agent]["nu"]`` read as before. Leaves already laid out
+    so are taken as they are (no copy); others, such as new slots, a
+    resumed state or modules moved to another device, are packed
+    anew. Returns ``(parameter buffer, {slot: buffer})``."""
+    pbuf = _flat_view(params, order)
+    if pbuf is None:
+        pbuf, views = _pack(params, order)
+        for p, v in zip(params, views):
+            p.data = v
+    slots = {}
+    for slot in ("mu", "nu"):
+        if slot not in state:
+            continue
+        buf = _flat_view(state[slot], order)
+        if buf is None:
+            buf, views = _pack(state[slot], order)
+            state[slot][:] = views
+        slots[slot] = buf
+    return pbuf, slots
+
+
+@torch.no_grad()
+def apply_flat_updates(cfg: GameConfig, update_names,
+                       flats: Dict[str, Tuple[torch.Tensor, Dict]],
+                       grads: Dict[str, torch.Tensor],
+                       opt_states: Dict[str, Dict[str, Any]],
+                       params: Dict[str, List[torch.nn.Parameter]],
+                       norms: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> None:
+    """One clip + optimizer step per trained agent, in place, on the flat
+    carry (train.py:293-304): each agent's clip (one sum of squares),
+    rule and update over its whole buffer, so a handful of kernels an
+    agent instead of a handful a leaf. ``grads`` are the agents' flat
+    gradients laid out as their buffers (:func:`flat_buffers`); ``norms``
+    the clip's norms where the caller took them (tensor parallelism: the
+    norm of the whole agent, not of this rank's shards)."""
     lr = cfg.learning_rate
-    grads = {name: [p.grad if p.grad is not None else torch.zeros_like(p)
-                    for p in getattr(modules, name).parameters()]
-             for name in update_names}
-    norms = ({} if tp is None
-             else tp.global_norms(list(update_names), grads))
+    norms = norms or {}
     for name in update_names:
-        params = list(getattr(modules, name).parameters())
-        updates, new = optimizer_update(cfg, grads[name], opt_states[name],
-                                        norm=norms.get(name))
+        pbuf, slots = flats[name]
         state = opt_states[name]
-        for slot in ("mu", "nu"):
-            if slot in state:
-                state[slot][:] = new[slot]
+        updates, new = optimizer_update(
+            cfg, [grads[name]], {**state, **{s: [b] for s, b in
+                                            slots.items()}},
+            norm=norms.get(name))
+        for slot, buf in slots.items():
+            buf.copy_(new[slot][0])
         if "count" in state:
             state["count"] = new["count"]
-        for p, u in zip(params, updates):
-            p.add_(-lr * u)
+        pbuf.add_(-lr * updates[0])
+        # The parameters were changed through the buffer: bump their
+        # version counters, which caches of packed weights key on.
+        for p in params[name]:
+            increment_version(p)
 
 
 # -------------------------------------------------------------------- losses
@@ -365,7 +458,10 @@ class _Trainer:
     data-parallel mesh, this rank's place in it. Under tensor parallelism
     (``tp``, whose ``full`` are ``modules``) the step trains the rank's
     shards, phase A samples on the whole agents, and ``mesh`` is the data
-    axis (with one data shard, no data-axis collective runs)."""
+    axis (with one data shard, no data-axis collective runs). Each
+    trained agent's parameters, gradient and optimizer slots are one
+    buffer each (:func:`flat_buffers`), laid out at the first step, after
+    the move to the device."""
 
     def __init__(self, modules: AgentModules, top_k: int, batch_denom: int,
                  fast: Union[bool, str], seed: int,
@@ -403,6 +499,14 @@ class _Trainer:
         modules.to(self.device)
         self.dtype = next(modules.parameters()).dtype
         self.update_names = AGENT_NAMES if cfg.use_binary else ("receiver",)
+        # The flat carry's layout (flat_order) and, under tensor
+        # parallelism, which leaves are model-sharded: fixed by the agents.
+        self.sharded = {name: None if tp is None else tp.sharded(name)
+                        for name in self.update_names}
+        self.orders = {name: flat_order(list(getattr(self.modules, name)
+                                             .parameters()),
+                                        self.sharded[name])
+                       for name in self.update_names}
 
     def tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype or self.dtype,
@@ -467,19 +571,52 @@ class _Trainer:
         metrics = _detach(metrics)
         if self.tp is not None:
             self.tp.reduce_partial_grads()
+        metrics = self.update(opt_states, metrics, full)
+        if self.tp is not None:
+            self.tp.sync()
+        return metrics
+
+    def update(self, opt_states, metrics: TrainMetrics,
+               full: bool) -> TrainMetrics:
+        """The optimizers' step on the flat carry: each agent's gradient
+        as one buffer laid out as its parameters' (on the mesh, its block
+        of the all-reduce's buffer, which also makes the logged scalars
+        global), one clip, rule and update an agent."""
+        params = {name: list(getattr(self.modules, name).parameters())
+                  for name in self.update_names}
+        flats = {name: flat_buffers(ps, opt_states[name], self.orders[name])
+                 for name, ps in params.items()}
+        ordered = {name: [ps[i] for i in self.orders[name]]
+                   for name, ps in params.items()}
         if self.reduce is not None:
             from multimodalgame_tpu_torch.parallel.mesh import (
                 gather_metrics, reduce_step)
-            metrics = reduce_step(self.reduce, [
-                p for name in self.update_names
-                for p in getattr(self.modules, name).parameters()], metrics)
+            metrics, summed = reduce_step(
+                self.reduce, [p for ps in ordered.values() for p in ps],
+                metrics)
             if full:
                 metrics = gather_metrics(self.reduce, metrics,
                                          self.cfg.fixed_exchange)
-        apply_agent_updates(self.cfg, self.update_names, self.modules,
-                            opt_states, self.tp)
+            grads, off = {}, 0
+            for name, ps in ordered.items():
+                n = sum(p.numel() for p in ps)
+                grads[name], off = summed[off:off + n], off + n
+        else:
+            grads = {name: torch.cat([
+                (p.grad if p.grad is not None else torch.zeros_like(p))
+                .reshape(-1) for p in ps]) for name, ps in ordered.items()}
+        norms = None
         if self.tp is not None:
-            self.tp.sync()
+            # The replicated leaves lie first (flat_order): each kind as
+            # one block of the clip norm.
+            blocks = {}
+            for name, ps in params.items():
+                rep = sum(p.numel() for p, f in zip(ps, self.sharded[name])
+                          if not f)
+                blocks[name] = (grads[name][:rep], grads[name][rep:])
+            norms = self.tp.global_norms(list(self.update_names), blocks)
+        apply_flat_updates(self.cfg, self.update_names, flats, grads,
+                           opt_states, params, norms)
         return metrics
 
 
@@ -580,6 +717,57 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
     return step
 
 
+def _scan_row(m: TrainMetrics) -> Tuple[torch.Tensor, ...]:
+    """A step's :class:`ScanMetrics` scalars (the rest of its metrics,
+    the conversation record with them, is let go)."""
+    return tuple(getattr(m, f) for f in ScanMetrics._fields)
+
+
+def _scan_metrics(rows: List[Tuple[torch.Tensor, ...]]) -> ScanMetrics:
+    return ScanMetrics(*(torch.stack(v) for v in zip(*rows)))
+
+
+def make_multistep_train_step(modules: AgentModules, top_k: int,
+                              batch_denom: int,
+                              fast: Union[bool, str] = "auto", *,
+                              seed: int = 0,
+                              uniforms: Optional[UniformSource] = None,
+                              device: Optional[Union[str,
+                                                     torch.device]] = None,
+                              mesh=None, tp=None):
+    """Build ``chunk(opt_states, data (K, B, ...), target (K, B), desc,
+    step0=0, data_context=None (K, B, C), desc_set_padded=None,
+    desc_set_mask=None) -> ScanMetrics``: K training steps over batches
+    staged as stacks (train.py:352-409), step ``i`` on ``data[i]`` with
+    the randomness of global step ``step0 + i`` (Philox ``(seed, step,
+    row_base)`` or the ``uniforms`` seam, as in
+    :func:`make_multistep_train_step_indexed`, the counterpart of JAX's
+    ``keys (K,)``). The metrics stay on the device. With ``mesh`` each
+    step trains on this rank's rows of ``data[i]``; ``fast``, ``device``
+    and ``tp`` are :func:`make_train_step`'s."""
+    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
+                  mesh, tp)
+
+    def chunk(opt_states, data, target, desc, step0: int = 0,
+              data_context=None, desc_set_padded=None, desc_set_mask=None
+              ) -> ScanMetrics:
+        rows = tr.rows(data.shape[1])
+        data = tr.tensor(data[:, rows])
+        target = tr.tensor(target[:, rows], torch.long)
+        ctx = None if data_context is None else tr.tensor(
+            data_context[:, rows])
+        desc = tr.tensor(desc)
+        dsp = None if desc_set_padded is None else tr.tensor(desc_set_padded)
+        dsm = None if desc_set_mask is None else tr.tensor(desc_set_mask)
+        return _scan_metrics([_scan_row(tr.step(
+            opt_states, data[i], target[i], desc, int(step0) + i, rows=rows,
+            data_context=None if ctx is None else ctx[i],
+            desc_set_padded=dsp, desc_set_mask=dsm))
+            for i in range(data.shape[0])])
+
+    return chunk
+
+
 def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
                                       batch_denom: int,
                                       fast: Union[bool, str] = "auto", *,
@@ -612,13 +800,12 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
         for i in range(idx.shape[0]):
             data, ctx = gather_batch(feats, idx[i], feats_context,
                                      transform, context_fn)
-            m = tr.step(opt_states, data, targets[idx[i]].long(),
-                        desc, int(step0) + i, rows=rows, data_context=ctx,
-                        desc_set_padded=desc_set_padded,
-                        desc_set_mask=desc_set_mask)
-            out.append((m.loss_rec, m.loss_sen, m.nll_loss, m.loss_bas_rec,
-                        m.loss_bas_sen, m.accuracy))
-        return ScanMetrics(*(torch.stack(v) for v in zip(*out)))
+            out.append(_scan_row(tr.step(
+                opt_states, data, targets[idx[i]].long(), desc,
+                int(step0) + i, rows=rows, data_context=ctx,
+                desc_set_padded=desc_set_padded,
+                desc_set_mask=desc_set_mask)))
+        return _scan_metrics(out)
 
     return chunk
 

@@ -137,11 +137,12 @@ _SUMMED = ("loss_rec", "loss_sen", "nll_loss", "loss_binary_rec",
 
 def all_reduce_grads(mesh: Mesh, params: Sequence[torch.nn.Parameter],
                      extras: Sequence[torch.Tensor] = ()
-                     ) -> List[torch.Tensor]:
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """One ``all_reduce(SUM)`` over one flat buffer: every parameter's
-    ``.grad`` (zeros where it has none), then ``extras``. The summed
-    gradients become the parameters' ``.grad`` (views of the buffer); the
-    summed ``extras`` are returned in their shapes and dtypes."""
+    ``.grad`` (zeros where it has none), then ``extras``. Returns the
+    buffer's gradient block (the summed gradients back to back, in the
+    parameters' order: the flat carry's gradient, ``game/train.py``) and
+    the summed ``extras`` in their shapes and dtypes."""
     dtype = params[0].dtype
     parts = [(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
              for p in params]
@@ -151,25 +152,24 @@ def all_reduce_grads(mesh: Mesh, params: Sequence[torch.nn.Parameter],
     mesh.all_reduce_(flat)
     mesh.grad_seconds += time.perf_counter() - t0
     mesh.grad_calls += 1
-    off = 0
-    for p in params:
-        p.grad = flat[off:off + p.numel()].view_as(p)
-        off += p.numel()
+    off = sum(p.numel() for p in params)
+    grads = flat[:off]
     out = []
     for e in extras:
         out.append(flat[off:off + e.numel()].reshape(e.shape).to(e.dtype))
         off += e.numel()
-    return out
+    return grads, out
 
 
 def reduce_step(mesh: Mesh, params: Sequence[torch.nn.Parameter],
                 metrics):
     """The step's gradient all-reduce (:func:`all_reduce_grads`), which
     also sums the ranks' shares of the logged losses, negentropies and
-    accuracy (``game/losses.py``): ``metrics`` with those fields global."""
-    summed = all_reduce_grads(mesh, params,
-                              [getattr(metrics, k) for k in _SUMMED])
-    return metrics._replace(**dict(zip(_SUMMED, summed)))
+    accuracy (``game/losses.py``): ``(metrics`` with those fields global,
+    the summed gradients back to back``)``."""
+    grads, summed = all_reduce_grads(mesh, params,
+                                     [getattr(metrics, k) for k in _SUMMED])
+    return metrics._replace(**dict(zip(_SUMMED, summed))), grads
 
 
 def gather_record(mesh: Mesh, ex: ExchangeOutputs,

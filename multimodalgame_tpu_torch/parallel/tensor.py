@@ -341,19 +341,17 @@ class TensorParallel:
             off += p.numel()
 
     @torch.no_grad()
-    def global_norms(self, names, grads: Dict[str, List[torch.Tensor]]
+    def global_norms(self, names,
+                     grads: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
                      ) -> Dict[str, torch.Tensor]:
-        """Each agent's gradient norm over its whole parameters: its
-        sharded leaves' squares summed over the model axis (one
-        all-reduce for every agent), its replicated ones counted once."""
-        rep, shd = [], []
-        for name in names:
-            flags = self.sharded(name)
-            sq = [(g * g).sum() for g in grads[name]]
-            zero = grads[name][0].new_zeros(())
-            rep.append(sum((s for s, f in zip(sq, flags) if not f), zero))
-            shd.append(sum((s for s, f in zip(sq, flags) if f), zero))
-        shd = self.axis.all_reduce_(torch.stack(shd))
+        """Each agent's gradient norm over its whole parameters, from its
+        flat gradient's two blocks (``game/train.py:flat_order``): the
+        replicated leaves, counted once, then the sharded ones, whose
+        squares are summed over the model axis (one all-reduce for every
+        agent)."""
+        rep = [(grads[name][0] * grads[name][0]).sum() for name in names]
+        shd = self.axis.all_reduce_(torch.stack(
+            [(grads[name][1] * grads[name][1]).sum() for name in names]))
         return {name: torch.sqrt(r + s)
                 for name, r, s in zip(names, rep, shd)}
 
