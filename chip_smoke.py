@@ -25,18 +25,23 @@ result line):
              against its plain version at the canonical width, for
              batches 1, 7, 64, 100 and the variants adaptive, fixed, prod,
              ignore_code, ignore_receiver and flipout (0.1 on both
-             channels), in both of its random modes: uniforms drawn by
-             numpy and handed in, and Philox keyed by (seed, step) with the
-             plain version fed ``ops/philox.py``'s numbers for the same
-             key, and the two PLAN_CASES in both modes. Tie rows (a
-             probability within 1e-5 of its uniform) are counted; any
-             other difference is fatal;
+             channels), in its three random modes: uniforms drawn by
+             numpy and handed in, Philox keyed by (seed, step) by value
+             with the plain version fed ``ops/philox.py``'s numbers for
+             the same key, and Philox keyed by the device tensor [seed,
+             step, row_base] that a captured step reads (``key=``; the
+             launch must also equal the by-value one bit for bit), and
+             the two PLAN_CASES in all three. Tie rows (a probability
+             within 1e-5 of its uniform) are counted; any other
+             difference is fatal;
 5. serve   — random canonical-width weights (stop bias STOP_BIAS) saved
              as a reference .pt, loaded by ``Predictor.from_checkpoint``
              on cuda, four request
              batches (1, 7, 64, 100) answered through the kernel (its
-             launch count must grow by exactly 4) and held against a
-             plain ``Predictor(use_kernel=False)`` on the same card;
+             launch count must grow by exactly 4; a request shape's first
+             call runs eagerly, its later ones replay its CUDA graph) and
+             held against a plain ``Predictor(use_kernel=False)`` on the
+             same card;
 6. train   — the bare trainer: ``make_multistep_train_step_indexed
              (fast="kernel")`` on cuda at the canonical width and
              hyper-parameters (RMSprop, lr 1e-4, entropies 0.08 / 0.01 /
@@ -53,6 +58,30 @@ result line):
              finite losses, the run bit for bit the indexed chunk's over
              the same rows staged as a set (``idx = arange``); then the
              step's ms, kernels a step and busy share;
+6b. graph  — the graph route (``game/train.py:step_route``: one CUDA
+             device, no mesh, no tensor parallelism; the port of the JAX
+             package's one compiled program per K updates), which phases
+             5-7, 8-10 and 12-16 take by default (their counts hold
+             unchanged: a graph's replays add the launches its capture
+             recorded). The bare trainer from seed 0, 2 eager warm-up
+             steps then 8 replays, one step a chunk, against 8 + 2 eager
+             steps, for RMSprop and Adam: a weights digest after every
+             step must be equal (or, if capture rounded otherwise, the
+             first differing step and the largest difference are
+             reported and the weights held at JAX's mesh tolerance), the
+             step's scalars and Adam's count equal, one train launch a
+             step on both routes; 92 staged steps in one chunk on the
+             graph: 92 train launches, 90 replays, finite losses; the
+             host's calls that put work on the card (``cudaGraphLaunch``,
+             ``cudaLaunchKernel``/``ExC``, ``cuLaunchKernel``,
+             ``cudaMemcpyAsync``, from ``torch.profiler``) a step at one
+             step a chunk and an update in a chunk of 8 (at most 4 on the
+             graph), with the device's kernels a step, busy share and the
+             step's host ms, graph against eager in turns (eager, graph,
+             graph, eager); and ``Predictor.predict`` on the graph at
+             batches 1, 7, 64 and 100, three times each (eager, capture,
+             replay), bit for bit the eager ``Predictor(graph=False)``'s
+             answers, one eval launch a request, and both ms;
 7. driver  — the training main path: ``train.run`` (what ``python -m
              multimodalgame_tpu_torch`` calls) with the demo's argv
              (tools/demo.sh:21-31), parsed by the port's config.py, on
@@ -176,23 +205,26 @@ result line):
              turn (the once-per-conversation part against the cost of a
              turn), the per-phase cycle split of both instances (stamped
              build), the latency floor; the train kernel in both random
-             modes; the whole training step and its phase A at batch 64
-             (steps/s, and the share of the step that phase A takes) for
-             the Adaptive game (phase A in the train kernel) and for the
-             AdaptiveAttention game of phase 8 (phase A on the plain
-             conversation).
+             modes; the whole training step (on the graph route) at batch
+             64, with its phase A, forward and backward passes launched
+             eagerly beside it, for the Adaptive game (phase A in the
+             train kernel, whose device time over the replayed step is
+             ``phase_a_share``) and for the AdaptiveAttention game of
+             phase 8 (phase A on the plain conversation).
 
 ``python3 chip_smoke.py --mesh`` runs only the build, the serve and driver
 phases and phases 17-21 (no result line); ``--staged`` only the build,
-phase 6a and ``mesh_step``; ``--mesh-cpu`` ``mesh_step``'s readings with
+phase 6a and ``mesh_step``; ``--graph`` only the build, phase 4 and
+phase 6b; ``--mesh-cpu`` ``mesh_step``'s readings with
 every rank on the CPU (no card needed, no result line). ``python3
 chip_smoke.py --times [OUT [OTHER]]`` runs only the probe, the batch-64
 times of both kernels (both rulers) and of ``Predictor.predict``, and one
 step of the bare trainer (host ms, kernels a step, busy share), through
 entry points that every tree of the port has, so that two trees can be
-timed in one call; with ``OUT`` it saves there the weights after the
-trainer's first 8 steps from seed 0, and with ``OTHER`` (another tree's
-``OUT``) reports how far the two part.
+timed in one call (a tree with the graph route also times its graph
+step beside its eager step, and its eager ``Predictor``); with ``OUT`` it
+saves there the weights after the trainer's first 8 steps from seed 0,
+and with ``OTHER`` (another tree's ``OUT``) reports how far the two part.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -574,12 +606,50 @@ def numpy_uniforms(cfg, batch: int, seed: int, device):
             for k, n in uniform_widths(cfg, train=True).items()}
 
 
-def check_train_kernels(device):
+# The train kernel's random modes: uniforms handed in, Philox keyed by
+# value, and Philox keyed by the device tensor [seed, step, row_base] that
+# a captured step reads (the same launch must give the by-value numbers).
+TRAIN_RNG_MODES = ("uniforms", "philox", "key")
+
+
+def train_case(cfg, params, data, desc, mode: str, device):
+    """One launch of the train kernel in ``mode`` against its plain
+    version fed the same numbers: ``(got, want, uniforms, report)``; in
+    ``key`` mode the report also says whether the launch equals the
+    by-value launch of the same key bit for bit."""
     import torch
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
-        compare_outputs, fused_train_forward, fused_train_forward_reference,
-        kernel_params)
+        compare_outputs, fused_train_forward, fused_train_forward_reference)
     from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+    batch = data.shape[0]
+    extra = {}
+    with torch.inference_mode():
+        if mode == "uniforms":
+            u = numpy_uniforms(cfg, batch, 300 + batch, device)
+            got = fused_train_forward(cfg, params, data, desc, uniforms=u)
+        else:
+            u = philox_uniforms(cfg, batch, seed=batch, step=7,
+                                device=device)
+            by_value = fused_train_forward(cfg, params, data, desc,
+                                           seed=batch, step=7)
+            got = by_value
+            if mode == "key":
+                got = fused_train_forward(cfg, params, data, desc,
+                                          key=torch.tensor(
+                                              [batch, 7, 0], device=device))
+                extra["equals_by_value"] = all(
+                    torch.equal(a, b) for a, b in zip(got, by_value))
+        want = fused_train_forward_reference(cfg, params, data, desc, u)
+    torch.cuda.synchronize()
+    rep = compare_outputs(cfg, got, want, uniforms=u)
+    rep.update(extra)
+    rep["ok"] = rep["ok"] and extra.get("equals_by_value", True)
+    return got, want, u, rep
+
+
+def check_train_kernels(device):
+    import torch
+    from multimodalgame_tpu_torch.ops.cuda_exchange import kernel_params
     desc = torch.from_numpy(descriptions()).to(device)
     worst = {"max_abs_err": 0.0, "tie_rows": 0, "cases": 0, "largest": []}
     for name, kw in TRAIN_VARIANTS.items():
@@ -587,21 +657,9 @@ def check_train_kernels(device):
         params = kernel_params(make_agents(cfg, device))
         for batch in BATCHES:
             data = torch.from_numpy(features(batch, seed=batch)).to(device)
-            for mode in ("uniforms", "philox"):
-                with torch.inference_mode():
-                    if mode == "uniforms":
-                        u = numpy_uniforms(cfg, batch, 300 + batch, device)
-                        got = fused_train_forward(cfg, params, data, desc,
-                                                  uniforms=u)
-                    else:
-                        u = philox_uniforms(cfg, batch, seed=batch, step=7,
-                                            device=device)
-                        got = fused_train_forward(cfg, params, data, desc,
-                                                  seed=batch, step=7)
-                    want = fused_train_forward_reference(cfg, params, data,
-                                                         desc, u)
-                torch.cuda.synchronize()
-                rep = compare_outputs(cfg, got, want, uniforms=u)
+            for mode in TRAIN_RNG_MODES:
+                got, want, u, rep = train_case(cfg, params, data, desc,
+                                               mode, device)
                 log({"phase": "train_kernels",
                      "kernel": "fused_train_forward", "variant": name,
                      "batch": batch, "rng": mode, **rep})
@@ -618,21 +676,9 @@ def check_train_kernels(device):
     for name in PLAN_CASES:
         cfg, params, data, desc, plan = plan_case(name, device, **TRAIN_HP)
         batch = data.shape[0]
-        for mode in ("uniforms", "philox"):
-            with torch.inference_mode():
-                if mode == "uniforms":
-                    u = numpy_uniforms(cfg, batch, 300 + batch, device)
-                    got = fused_train_forward(cfg, params, data, desc,
-                                              uniforms=u)
-                else:
-                    u = philox_uniforms(cfg, batch, seed=batch, step=7,
-                                        device=device)
-                    got = fused_train_forward(cfg, params, data, desc,
-                                              seed=batch, step=7)
-                want = fused_train_forward_reference(cfg, params, data,
-                                                     desc, u)
-            torch.cuda.synchronize()
-            rep = compare_outputs(cfg, got, want, uniforms=u)
+        for mode in TRAIN_RNG_MODES:
+            got, want, u, rep = train_case(cfg, params, data, desc, mode,
+                                           device)
             log({"phase": "train_kernels", "kernel": "fused_train_forward",
                  "variant": name, "batch": batch, "rng": mode, **plan,
                  **rep})
@@ -1712,6 +1758,245 @@ def drive_staged(device, smi):
         raise SystemExit(f"staged: {row}")
     return {"train_launches": launches, "eval_launches": eval_launches,
             **row}
+
+
+# The graph phase: GRAPH_REPLAYS replayed steps of the bare trainer after
+# its eager warm-up, held against as many eager steps after every step;
+# PROFILED_CHUNK steps in one chunk for the host calls an update.
+GRAPH_REPLAYS, PROFILED_CHUNK = 8, 8
+# The CUDA runtime and driver calls that put work on the card, as the
+# profiler names them.
+HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel",
+                     "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaMemcpyAsync")
+
+
+def bare_trainer(cfg, train, desc, graph: bool, device):
+    """The bare trainer (``make_multistep_train_step_indexed``, phase A
+    in the train kernel) from seed 0 on ``graph``'s route."""
+    from multimodalgame_tpu_torch.game.agents import (AgentModules,
+                                                      init_params)
+    from multimodalgame_tpu_torch.game.train import (
+        init_opt_states, make_multistep_train_step_indexed)
+    mods = init_params(AgentModules(cfg), seed=0, device=device)
+    chunk = make_multistep_train_step_indexed(
+        mods, top_k=6, batch_denom=TRAIN_BATCH, fast="kernel", seed=0,
+        device=device, graph=graph)
+    return mods, chunk, init_opt_states(cfg, mods)
+
+
+def replay_against_eager(cfg, train, desc, device) -> dict:
+    """GRAPH_WARMUP eager steps, then GRAPH_REPLAYS replays, one step a
+    chunk, against as many eager steps from the same seed: a weights
+    digest and the step's scalars after every step. Bit-equal, or (if
+    capture rounded otherwise) the first differing step, the largest
+    difference and the share of JAX's mesh tolerance it takes."""
+    import torch
+    from multimodalgame_tpu_torch.game.train import GRAPH_WARMUP
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_train_forward)
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+    steps = GRAPH_WARMUP + GRAPH_REPLAYS
+    plan = train.epoch_indices(0, True, TRAIN_BATCH)
+    runs = {}
+    for graph in (False, True):
+        mods, chunk, opts = bare_trainer(cfg, train, desc, graph, device)
+        fused_train_forward.launches = 0
+        replays = Captured.replays
+        digests, scalars = [], []
+        for i in range(steps):
+            sm = chunk(opts, train.feats, train.targets, plan[i:i + 1], desc,
+                       i)
+            scalars.append(torch.stack(list(sm)).cpu())
+            digests.append(weights_digest(mods))
+        runs[graph] = {"digests": digests, "scalars": scalars,
+                       "launches": fused_train_forward.launches,
+                       "replays": Captured.replays - replays,
+                       "params": {n: p.detach().cpu().clone()
+                                  for n, p in mods.named_parameters()},
+                       "count": {a: int(o["count"]) for a, o in opts.items()
+                                 if "count" in o}}
+    eager, graph = runs[False], runs[True]
+    first = first_difference(eager["digests"], graph["digests"])
+    row = {"optim": cfg.optim_type, "steps": steps,
+           "eager_warmup_steps": GRAPH_WARMUP,
+           "replayed_steps": graph["replays"],
+           "train_launches": {"eager": eager["launches"],
+                              "graph": graph["launches"]},
+           "bit_equal_after_every_step": first is None,
+           "scalars_equal": all(torch.equal(a, b) for a, b in zip(
+               eager["scalars"], graph["scalars"])),
+           "first_differing_step": first, "adam_count": graph["count"]}
+    if first is not None:
+        row["max_abs_diff"] = max(
+            float((graph["params"][k] - v).abs().max())
+            for k, v in eager["params"].items())
+        row["param_tolerance_use"], row["param_worst"] = params_close(
+            graph["params"], eager["params"])
+    ok = (graph["replays"] == GRAPH_REPLAYS
+          and eager["launches"] == graph["launches"] == steps
+          and (first is None or row["param_tolerance_use"] <= 1.0)
+          and graph["count"] == eager["count"])
+    row["ok"] = ok
+    return row
+
+
+def check_graph(device, smi):
+    """The graph route (``game/train.py:step_route``): replayed steps
+    against eager ones (RMSprop and Adam), 92 staged steps learning on the
+    graph, the host's calls an update graph against eager, and the
+    served answers of graph-captured eval conversations against eager
+    ones; all fatal."""
+    import torch
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    from multimodalgame_tpu_torch.game.agents import (AgentModules,
+                                                      init_params)
+    from multimodalgame_tpu_torch.game.train import (
+        init_opt_states, make_multistep_train_step)
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.serve import Predictor
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+    t_start = time.perf_counter()
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    desc = torch.from_numpy(descriptions()).to(device)
+    out = {}
+
+    # Replayed against eager, from seed 0, after every step.
+    for optim in ("RMSprop", "Adam"):
+        row = replay_against_eager(canonical_cfg(**{**TRAIN_HP,
+                                                    "optim_type": optim}),
+                                   train, desc, device)
+        log({"phase": "graph", "check": "replay_against_eager", **row,
+             "card": smi})
+        if not row["ok"]:
+            raise SystemExit(f"graph: replayed steps part from eager: {row}")
+        out[optim] = row
+
+    # Learning on the graph: STAGED_EPOCHS epochs of stacks in one chunk.
+    cfg = canonical_cfg(**TRAIN_HP)
+    plan = torch.from_numpy(np.concatenate([
+        train.epoch_indices(e, True, TRAIN_BATCH)
+        for e in range(STAGED_EPOCHS)])).to(device)
+    mods = init_params(AgentModules(cfg), seed=0, device=device)
+    chunk = make_multistep_train_step(mods, top_k=6, batch_denom=TRAIN_BATCH,
+                                      fast="kernel", seed=0, device=device)
+    opts = init_opt_states(cfg, mods)
+    fused_train_forward.launches = 0
+    replays = Captured.replays
+    sm = chunk(opts, train.feats[plan], train.targets[plan], desc, 0)
+    torch.cuda.synchronize()
+    acc = sm.accuracy.cpu().numpy()
+    learn = {"steps": len(plan), "train_launches":
+             fused_train_forward.launches,
+             "replays": Captured.replays - replays,
+             "losses_finite": bool(torch.isfinite(torch.stack(list(sm)))
+                                   .all()),
+             "train_top6_first_10": float(acc[:10].mean()),
+             "train_top6_last_10": float(acc[-10:].mean())}
+    log({"phase": "graph", "check": "staged_learning", **learn})
+    if (learn["train_launches"] != len(plan) or not learn["losses_finite"]
+            or learn["replays"] != len(plan) - 2):
+        raise SystemExit(f"graph: staged steps on the graph: {learn}")
+    out["staged"] = learn
+
+    # Host calls an update and the step's time, graph against eager, in
+    # turns on the same card: one step a chunk, then PROFILED_CHUNK steps
+    # in one chunk.
+    plan_np = train.epoch_indices(1, True, TRAIN_BATCH)
+    timing = {}
+    for graph in (False, True, True, False):
+        mods, chunk, opts = bare_trainer(cfg, train, desc, graph, device)
+        done = [0]
+
+        def one_step():
+            i = done[0]
+            chunk(opts, train.feats, train.targets,
+                  plan_np[i % len(plan_np)][None], desc, i)
+            done[0] += 1
+            torch.cuda.synchronize()
+
+        def one_chunk():
+            i = done[0]
+            chunk(opts, train.feats, train.targets,
+                  plan_np[:PROFILED_CHUNK], desc, i)
+            done[0] += PROFILED_CHUNK
+            torch.cuda.synchronize()
+
+        for _ in range(3):
+            one_step()
+
+        def calls(prof, per):
+            return {"host_calls": {k: v / per for k, v in
+                                   prof["host_calls_per_step"].items()},
+                    "host_launch_calls":
+                        prof["host_launch_calls_per_step"] / per,
+                    "device_kernels": prof["device_kernels_per_step"] / per,
+                    "device_busy_share": prof["device_busy_share"]}
+
+        row = {"step_ms": host_median_ms(one_step),
+               "one_step_a_chunk": calls(profile_steps(one_step, 3), 1)}
+        if graph:
+            # An eager chunk makes the same calls a step as one step does.
+            one_chunk()
+            row["chunk_of_8_per_update"] = calls(profile_steps(one_chunk, 1),
+                                                 PROFILED_CHUNK)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one_chunk()
+            times.append(1e3 * (time.perf_counter() - t0))
+        row["chunk_ms_per_update"] = statistics.median(times) / PROFILED_CHUNK
+        timing.setdefault("graph" if graph else "eager", []).append(row)
+    calls = {k: {"step_ms": [r["step_ms"] for r in rows],
+                 "chunk_ms_per_update": [r["chunk_ms_per_update"]
+                                         for r in rows],
+                 "one_step_a_chunk": rows[0]["one_step_a_chunk"],
+                 "chunk_of_8_per_update": rows[0].get(
+                     "chunk_of_8_per_update",
+                     rows[0]["one_step_a_chunk"])}
+             for k, rows in timing.items()}
+    log({"phase": "graph", "check": "host_calls", "batch": TRAIN_BATCH,
+         **calls, "card": smi})
+    seen = calls["eager"]["one_step_a_chunk"]["host_launch_calls"] > 0
+    per_update = calls["graph"]["chunk_of_8_per_update"]["host_launch_calls"]
+    if seen and per_update > 4:
+        raise SystemExit(f"graph: {per_update} host launch calls an "
+                         f"update on the graph route")
+    out["calls"] = calls
+
+    # Serving: the graph-captured eval conversation against the eager
+    # one, each request shape three times (eager warm-up, capture and
+    # replay, replay), one eval launch a request.
+    eager_pred = Predictor(canonical_cfg(), make_agents(canonical_cfg(),
+                                                        device),
+                           description_pack(), device=device, graph=False)
+    pred = Predictor(canonical_cfg(), make_agents(canonical_cfg(), device),
+                     description_pack(), device=device)
+    served = {}
+    for batch in BATCHES:
+        x = features(batch, seed=200 + batch)
+        want = eager_pred.predict(x)
+        fused_eval_exchange.launches = 0
+        same = []
+        for _ in range(3):
+            got = pred.predict(x)
+            same.append(all(np.array_equal(got[k], want[k]) for k in want))
+        launches = fused_eval_exchange.launches
+        served[batch] = {
+            "bit_equal": all(same), "eval_launches": launches,
+            "graph_ms": host_median_ms(lambda: pred.predict(x)),
+            "eager_ms": host_median_ms(lambda: eager_pred.predict(x))}
+        if not all(same) or launches != 3:
+            raise SystemExit(f"graph: served batch {batch}: "
+                             f"{served[batch]}")
+    log({"phase": "graph", "check": "serve", "batches": served,
+         "captures": Captured.captures, "card": smi})
+    out["serve"] = served
+    out["seconds"] = time.perf_counter() - t_start
+    log({"phase": "graph", "seconds": out["seconds"]})
+    return out
 
 
 def thread_meshes(size: int, device):
@@ -2846,32 +3131,38 @@ def train_timing(device, trained):
 
     row = step_breakdown(one_step, phase_a, forward)
     row["train_kernel_ms"] = rows[TRAIN_BATCH]["kernel_ms"]
+    # Phase A inside the replayed step is the train kernel's device time.
+    row["phase_a_share"] = (rows[TRAIN_BATCH]["kernel_device_ms"]
+                            / row["train_step_ms"])
     log(row)
     rows["step"] = row
     return rows
 
 
 def step_breakdown(one_step, phase_a, forward) -> dict:
-    """Host-clock medians of a training step, its phase A and its forward
-    pass without and with the backward pass (each ends in a
+    """Host-clock medians of a training step (on the trainer's route: the
+    graph on one card), and of its phase A and its forward pass without
+    and with the backward pass launched eagerly (each ends in a
     synchronize), then the device's kernels a step and busy share over a
-    few profiled steps (the profiler adds its own host overhead)."""
+    few profiled steps (the profiler adds its own host overhead). The
+    eager pieces are not parts of the replayed step's time, so no share
+    of it is derived from them."""
     step_ms = host_median_ms(one_step)
     a_ms = host_median_ms(phase_a)
     fwd_ms = host_median_ms(lambda: forward(False))
     fwd_bwd_ms = host_median_ms(lambda: forward(True))
     return {"phase": "timing", "batch": TRAIN_BATCH, "train_step_ms": step_ms,
-            "steps_per_s": 1e3 / step_ms, "phase_a_ms": a_ms,
-            "phase_a_share": a_ms / step_ms,
-            "forward_ms": fwd_ms, "backward_ms": fwd_bwd_ms - fwd_ms,
-            "optimizer_and_rest_ms": step_ms - fwd_bwd_ms,
+            "steps_per_s": 1e3 / step_ms, "eager_phase_a_ms": a_ms,
+            "eager_forward_ms": fwd_ms,
+            "eager_backward_ms": fwd_bwd_ms - fwd_ms,
             **profile_steps(one_step)}
 
 
 def profile_steps(one_step, n_prof: int = 5) -> dict:
     """The device's kernels a step and its busy share over ``n_prof``
-    profiled steps (the profiler adds its own host overhead), and the
-    kernels that took the most device time."""
+    profiled steps (the profiler adds its own host overhead), the kernels
+    that took the most device time, and the host's calls that put work
+    on the card (HOST_LAUNCH_CALLS) a step, by name and in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2880,17 +3171,21 @@ def profile_steps(one_step, n_prof: int = 5) -> dict:
         for _ in range(n_prof):
             one_step()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    device_events = [e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    device_events = [e for e in events if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in device_events)
     launches = sum(e.count for e in device_events)
     top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:5]
+    calls = {name: sum(e.count for e in events if e.key == name) / n_prof
+             for name in HOST_LAUNCH_CALLS}
     return {"profiled_steps": n_prof,
             "device_kernels_per_step": launches / n_prof,
             "device_busy_share": (device_us / wall_us) if device_us else None,
             "top_device_kernels_us_per_step": [
                 [e.key[:60], e.self_device_time_total / n_prof]
-                for e in top]}
+                for e in top],
+            "host_calls_per_step": {k: v for k, v in calls.items() if v},
+            "host_launch_calls_per_step": sum(calls.values())}
 
 
 def attention_timing(device, attention):
@@ -2999,6 +3294,13 @@ def times_only(out: str = None, other: str = None) -> int:
                "train_kernel_device_ms": device_median_ms(tr),
                "train_kernel_host_ms": host_launch_ms(tr)}
     row["predict_ms"] = host_median_ms(lambda: pred.predict(x))
+    import inspect
+    if "graph" in inspect.signature(Predictor).parameters:
+        eager_pred = Predictor(canonical_cfg(),
+                               make_agents(canonical_cfg(), "cuda"), pack,
+                               device="cuda", graph=False)
+        row["predict_ms_eager"] = host_median_ms(
+            lambda: eager_pred.predict(x))
 
     mods = init_params(AgentModules(cfg), seed=0, device="cuda")
     train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
@@ -3039,6 +3341,29 @@ def times_only(out: str = None, other: str = None) -> int:
     row["train_step_ms"] = host_median_ms(one_step)
     row["steps_per_s"] = 1e3 / row["train_step_ms"]
     row.update(profile_steps(one_step), card=smi)
+    # A tree with the graph route: its graph step beside its eager step
+    # (``train_step_ms`` is the default route's).
+    if "graph" in inspect.signature(
+            make_multistep_train_step_indexed).parameters:
+        for graph in (False, True):
+            g_mods = init_params(AgentModules(cfg), seed=0, device="cuda")
+            g_chunk = make_multistep_train_step_indexed(
+                g_mods, top_k=6, batch_denom=TRAIN_BATCH, fast="kernel",
+                seed=0, device="cuda", graph=graph)
+            g_opts = init_opt_states(cfg, g_mods)
+            g_done = [0]
+
+            def g_step():
+                i = g_done[0]
+                g_chunk(g_opts, train.feats, train.targets,
+                        plan[i % len(plan)][None], desc, i)
+                g_done[0] += 1
+                torch.cuda.synchronize()
+
+            name = "graph" if graph else "eager"
+            row[f"train_step_ms_{name}"] = host_median_ms(g_step)
+            row[f"device_busy_share_{name}"] = profile_steps(
+                g_step)["device_busy_share"]
     log(row)
     return 0
 
@@ -3072,6 +3397,14 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mesh-cpu"]:
         return mesh_step_cpu()
+    if sys.argv[1:] == ["--graph"]:
+        # Only the build, the train kernel's checks (its device-key mode
+        # among them) and the graph phase; no result line.
+        smi = probe()
+        build()
+        check_train_kernels("cuda")
+        check_graph("cuda", smi)
+        return 0
     if sys.argv[1:] == ["--staged"]:
         # Only the build, the staged trainer and the two-rank step; no
         # result line.
@@ -3100,6 +3433,7 @@ def main() -> int:
         served = serve_requests("cuda", workdir)
         trained = train_game("cuda", workdir)
         staged = drive_staged("cuda", smi)
+        graphed = check_graph("cuda", smi)
         driven = drive("cuda", workdir, smi)
         # The attention presets and the variants: neither kernel
         # launches on them.
@@ -3213,6 +3547,12 @@ def main() -> int:
         "phase_a_share": train_rows["step"]["phase_a_share"],
         "staged_kernels_per_step": staged["device_kernels_per_step"],
         "staged_step_ms": staged["train_step_ms"],
+        "graph_step_ms": graphed["calls"]["graph"]["step_ms"],
+        "eager_step_ms": graphed["calls"]["eager"]["step_ms"],
+        "graph_host_launch_calls_per_update": graphed["calls"]["graph"][
+            "chunk_of_8_per_update"]["host_launch_calls"],
+        "eager_host_launch_calls_per_update": graphed["calls"]["eager"][
+            "chunk_of_8_per_update"]["host_launch_calls"],
         "driver_run_steps_per_s": driven["run_steps_per_s"],
         "dev_top6": driven["last_dev_top6"],
         "attention_run_steps_per_s": attention["run_steps_per_s"],

@@ -142,7 +142,10 @@ enum Ptr {
   P_O_Y, P_O_MASK,
   P_COUNT,
   P_U_FIRST = P_COUNT,
-  P_TRAIN_COUNT = P_U_FIRST + 5
+  // Train mode: the Philox key [seed, step, row_base] as three int64 in
+  // device memory, or null for the key in the int table.
+  P_KEY = P_U_FIRST + 5,
+  P_TRAIN_COUNT
 };
 
 // Uniform streams, numbered as the JAX exchange orders its per-turn keys
@@ -200,6 +203,7 @@ struct Args {
   const float* in[P_O_SFEAT];
   float* out[P_COUNT - P_O_SFEAT];
   const float* u[S_COUNT];     // train mode, pre-drawn uniforms (T, B, dim)
+  const long long* key;        // train mode, device key [seed, step, row_base]
   int B, F, H, W, R, D, V, T, mix, ignore_receiver, s_prob_prod;
   int cluster, resident, pull, compact, smem_bytes;
   int philox, flip_sen, flip_rec;
@@ -677,17 +681,25 @@ __device__ __forceinline__ float unit24(unsigned bits) {
 
 // The uniforms of turn t for the tile's rows < nrows into shared memory,
 // four blocks of (ROWS, W) (z, fz, w, fw) and one of ROWS (s): drawn by
-// Philox (one call per 4 columns, the row counted from a.row_base) or
+// Philox (one call per 4 columns, the row counted from the row base) or
 // copied from the given streams with cp.async (in the calling thread's
-// open group). Streams the config does not use are skipped.
+// open group). Streams the config does not use are skipped. The Philox
+// key (seed, step, row base) is the int table's, or, with a.key, read
+// from device memory, where the stream's earlier work wrote it (a
+// captured training step's own step counter), and then the same for
+// every turn of the launch.
 __device__ void fill_uniforms(const Args& a, float* s_u, int t, int row0,
                               int nrows) {
   const int W = a.W, q4 = ceil_div(W, 4);
   const int stream_of[4] = {S_Z, S_FZ, S_W, S_FW};
   const bool used[4] = {true, a.flip_sen != 0, true, a.flip_rec != 0};
   if (a.philox) {
-    const uint2 key = make_uint2(a.seed, a.step);
-    const unsigned grow0 = static_cast<unsigned>(a.row_base + row0);
+    const bool dev_key = a.key != nullptr;
+    const uint2 key = dev_key ? make_uint2(static_cast<unsigned>(a.key[0]),
+                                           static_cast<unsigned>(a.key[1]))
+                              : make_uint2(a.seed, a.step);
+    const int row_base = dev_key ? static_cast<int>(a.key[2]) : a.row_base;
+    const unsigned grow0 = static_cast<unsigned>(row_base + row0);
     const int n = 4 * ROWS * q4 + ROWS;
     for (int i = threadIdx.x; i < n; i += THREADS) {
       if (i >= 4 * ROWS * q4) {            // the stop stream, width 1
@@ -1182,6 +1194,7 @@ void fill_args(Args& a, void* const* ptrs, const int* dims) {
   for (int i = P_O_SFEAT; i < P_COUNT; ++i)
     a.out[i - P_O_SFEAT] = static_cast<float*>(ptrs[i]);
   for (int i = 0; i < S_COUNT; ++i) a.u[i] = nullptr;
+  a.key = nullptr;
   a.B = dims[D_B]; a.F = dims[D_F]; a.H = dims[D_H]; a.W = dims[D_W];
   a.R = dims[D_R]; a.D = dims[D_D]; a.V = dims[D_V]; a.T = dims[D_T];
   a.mix = dims[D_MIX];
@@ -1287,13 +1300,16 @@ int mmg_fused_eval_exchange(void* const* ptrs, int n_ptrs, const int* dims,
 }
 
 // Launch the whole sampled (train-mode) conversation on `stream`. `ptrs`
-// holds P_TRAIN_COUNT pointers: the eval table, then the uniform streams
-// z, fz, s, w, fw. `dims` holds D_TRAIN_COUNT ints; `probs` the two
-// flipout probabilities (sender, receiver). With dims[D_PHILOX] == 0 the
-// streams s, z, w (and fz, fw where flipout is on) must be given; with 1
-// every stream must be null and Philox keyed by (D_SEED, D_STEP) draws the
-// numbers, row r of the launch as the global row D_ROW_BASE + r (0 with
-// given streams). Returns 0 or a cudaError_t code.
+// holds P_TRAIN_COUNT pointers: the eval table, the uniform streams
+// z, fz, s, w, fw, then the device key. `dims` holds D_TRAIN_COUNT ints;
+// `probs` the two flipout probabilities (sender, receiver). With
+// dims[D_PHILOX] == 0 the streams s, z, w (and fz, fw where flipout is on)
+// must be given and the key null; with 1 every stream must be null and
+// Philox keyed by (D_SEED, D_STEP) draws the numbers, row r of the launch
+// as the global row D_ROW_BASE + r (0 with given streams). A non-null key
+// (Philox only, with D_SEED, D_STEP and D_ROW_BASE 0) holds the three as
+// int64 in device memory instead, read by the kernel when it runs.
+// Returns 0 or a cudaError_t code.
 int mmg_fused_train_forward(void* const* ptrs, int n_ptrs, const int* dims,
                             int n_dims, const float* probs, int n_probs,
                             void* stream) {
@@ -1309,7 +1325,11 @@ int mmg_fused_train_forward(void* const* ptrs, int n_ptrs, const int* dims,
   a.flip_sen = dims[D_FLIP_SEN] != 0;
   a.flip_rec = dims[D_FLIP_REC] != 0;
   a.row_base = dims[D_ROW_BASE];
+  a.key = static_cast<const long long*>(ptrs[P_KEY]);
   if (a.row_base < 0 || (!a.philox && a.row_base != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.key != nullptr &&
+      (!a.philox || a.seed != 0u || a.step != 0u || a.row_base != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   a.p_flip_sen = probs[0];
   a.p_flip_rec = probs[1];

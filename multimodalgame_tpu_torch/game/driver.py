@@ -28,7 +28,12 @@ On a GPU every training step's phase A is one launch of the train-mode
 kernel (``fast="kernel"`` where
 ``ops/cuda_exchange.py:train_kernel_supports`` holds for the config, a
 rank's rows and the class count; the log names the sampler) and every
-eval conversation one launch of the eval-mode kernel. The configs it
+eval conversation one launch of the eval-mode kernel. On one card every
+step is one replay of a captured CUDA graph and every eval conversation
+of the kernel another (``game/train.py:step_route``, the port of the JAX
+package's one compiled program per K updates; the log names the route
+as ``Step: graph``); the CPU, ``-mesh`` and ``-mesh_model`` step eagerly
+(``Step: eager``). The configs it
 rejects (attention, ``mou``, ``-flipout_dev`` with flipout) and the sizes
 that no launch plan fits (the big game's 1,000 classes) run both on the
 plain conversation; a ``-compute_dtype bfloat16`` game samples on the plain
@@ -67,7 +72,8 @@ from multimodalgame_tpu_torch.game.exchange import description_inputs
 from multimodalgame_tpu_torch.game.fast_eval import run_device_dev_eval
 from multimodalgame_tpu_torch.game.logpack import LogPacker
 from multimodalgame_tpu_torch.game.train import (
-    gather_batch, make_multistep_train_step_indexed, make_train_step_indexed)
+    gather_batch, make_multistep_train_step_indexed, make_train_step_indexed,
+    step_route)
 from multimodalgame_tpu_torch.ops.cuda_exchange import train_kernel_supports
 from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
                                                  philox_eval_uniforms)
@@ -127,6 +133,11 @@ def make_piece_planner(cap: int = _EXACT_CAP):
 # rank's rows and the class count, else "plain". The JAX package prints
 # no such line.
 SAMPLER_LINE = "Phase A sampler: {}"
+# The driver's line naming how the steps run (``game/train.py:
+# step_route``): "graph", each update one replay of a captured CUDA graph
+# (one CUDA device), or "eager" (the CPU, a mesh, a grid). The JAX package
+# prints no such line either.
+STEP_LINE = "Step: {}"
 
 
 def device_pool(device, count: int) -> List[torch.device]:
@@ -273,6 +284,7 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     sampler = ("kernel" if train_kernel_supports(cfg, rows, desc.shape[0])
                else "plain")
     flogger.Log(SAMPLER_LINE.format(sampler))
+    flogger.Log(STEP_LINE.format(step_route(device, mesh, tp)))
     fast = "kernel" if sampler == "kernel" else "auto"
     trainer_kw = dict(fast=fast, seed=seed, uniforms=uniforms, device=device,
                       transform=transform, context_fn=context_fn, mesh=mesh,
@@ -498,7 +510,9 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         else:
             # Every step up to (not including) the next log boundary, cut
             # at the first dev or checkpoint step so that it runs at its
-            # step. Epoch ends do not cut chunks.
+            # step. Epoch ends do not cut chunks. On the graph route each
+            # piece's plan rows go to the trainer's static buffer in one
+            # copy, and each step is one replay.
             next_log = (t // L + 1) * L
             limit = next_log - 1
             if max_steps is not None:

@@ -93,7 +93,8 @@ def turns_run(stop_masks: torch.Tensor, fixed_exchange: bool
     gathered from data-parallel shards give the whole batch's."""
     T = stop_masks.shape[0] - 1
     if fixed_exchange:
-        return torch.tensor(T, dtype=torch.int32, device=stop_masks.device)
+        return torch.full((), T, dtype=torch.int32,
+                          device=stop_masks.device)
     alive = stop_masks[1:T].sum(dim=(1, 2)) > 0
     return (1 + alive.sum()).to(torch.int32)
 

@@ -2,8 +2,9 @@
 
 The port of ``multimodalgame_tpu/game/fast_eval.py``. The host evaluator
 (``eval.py``) reads each batch's conversation record back to the host;
-here each dev batch is one eval conversation (``make_eval_exchange``: one
-eval-kernel launch on a GPU) and its statistics (top-k hits by rank
+here each dev batch is one eval conversation (``make_eval_exchange``: on a
+GPU one eval-kernel launch, inside one replay of the batch shape's
+captured CUDA graph) and its statistics (top-k hits by rank
 counting, predictions, conversation lengths, inter-step Hamming means)
 are computed on the device and stay there until one copy at the end of
 the sweep. The numbers are those of ``eval.py``: the statistics use the

@@ -41,6 +41,7 @@ from multimodalgame_tpu_torch.game.train import (TrainMetrics,
                                                  losses_from_exchange)
 from multimodalgame_tpu_torch.ops.cuda_exchange import (fused_train_forward,
                                                         kernel_params)
+from multimodalgame_tpu_torch.ops.philox import philox_uniforms
 
 SAMPLERS = ("plain", "kernel")
 
@@ -60,13 +61,17 @@ def sample_conversation(modules: AgentModules, data: torch.Tensor,
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         seed: Optional[int] = None,
                         step: Optional[int] = None, row_base: int = 0,
+                        key: Optional[torch.Tensor] = None,
                         **inputs) -> Sampled:
     """Phase A: ``(z_bits, w_bits, s_bits, stop_masks, n_steps)``.
 
-    The kernel sampler takes either ``uniforms`` or ``(seed, step)``,
-    with ``row_base`` the global row of ``data``'s first row under Philox
-    (a data-parallel shard); the plain sampler takes ``uniforms`` and the
-    attention ``inputs``
+    The kernel sampler takes ``uniforms``, ``(seed, step)`` or ``key``,
+    the Philox key as an int64 tensor ``[seed, step, row_base]`` on the
+    data's device (a captured step's, which the step advances on the
+    device), with ``row_base`` the global row of ``data``'s first row
+    under Philox (a data-parallel shard); the plain sampler takes
+    ``uniforms`` or ``key`` (it draws the kernel's numbers from it,
+    ``ops/philox.py``) and the attention ``inputs``
     (``data_context``, ``desc_set_padded``, ``desc_set_mask``). The
     kernel-layout weights are packed from the modules on every call, so a
     step always samples with the weights that the previous update left."""
@@ -74,13 +79,16 @@ def sample_conversation(modules: AgentModules, data: torch.Tensor,
     if sampler == "kernel":
         f = fused_train_forward(cfg, kernel_params(modules), data, desc,
                                 uniforms=uniforms, seed=seed, step=step,
-                                row_base=row_base)
+                                row_base=row_base, key=key)
         stop_masks, n_steps = finalize_stop_masks(f.masks,
                                                   cfg.fixed_exchange)
         return Sampled(f.sen_feats, f.rec_feats, f.stop_feats, stop_masks,
                        n_steps)
     if sampler != "plain":
         raise ValueError(f"sampler must be one of {SAMPLERS}")
+    if uniforms is None and key is not None:
+        uniforms = philox_uniforms(cfg, data.shape[0], key[0], key[1],
+                                   data.device, row_base=key[2])
     ex = exchange(modules, data, desc, train=True, uniforms=uniforms,
                   score_baselines=False, **inputs)
     return Sampled(ex.sen_feats, ex.rec_feats, ex.stop_feats, ex.stop_masks,
@@ -98,7 +106,8 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
                         desc_set_padded: Optional[torch.Tensor] = None,
                         desc_set_mask: Optional[torch.Tensor] = None,
                         row_base: int = 0, reduce=None,
-                        sample_modules: Optional[AgentModules] = None
+                        sample_modules: Optional[AgentModules] = None,
+                        key: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, TrainMetrics]:
     """The summed loss and the metrics of one training step, by the
     sample-then-recompute path (fast_train.py:73-172). Under
@@ -109,7 +118,7 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
     ``reduce`` makes the losses' batch statistics global
     (``game/losses.py``). ``sample_modules`` runs phase A in place of
     ``modules`` (tensor parallelism: the whole agents sample, the shards
-    recompute)."""
+    recompute). ``key`` is :func:`sample_conversation`'s."""
     cfg = modules.cfg
     if cfg.compute_dtype == "bfloat16" and sampler == "kernel":
         raise ValueError("the kernel sampler is float32-only; use the "
@@ -121,11 +130,11 @@ def compute_losses_fast(modules: AgentModules, data: torch.Tensor,
         sampled = in_compute_dtype(sample_modules, sample_conversation, data,
                                    desc, sampler=sampler, uniforms=uniforms,
                                    seed=seed, step=step, row_base=row_base,
-                                   **inputs)
+                                   key=key, **inputs)
     ex = in_compute_dtype(modules, fast_exchange, data, desc,
                           sampler=sampler, uniforms=uniforms, seed=seed,
                           step=step, row_base=row_base, sampled=sampled,
-                          **inputs)
+                          key=key, **inputs)
     return losses_from_exchange(cfg, ex, target, top_k, batch_denom, reduce)
 
 
@@ -136,11 +145,13 @@ def fast_exchange(modules: AgentModules, data: torch.Tensor,
                   data_context: Optional[torch.Tensor] = None,
                   desc_set_padded: Optional[torch.Tensor] = None,
                   desc_set_mask: Optional[torch.Tensor] = None,
-                  row_base: int = 0, sampled: Optional[Sampled] = None
+                  row_base: int = 0, sampled: Optional[Sampled] = None,
+                  key: Optional[torch.Tensor] = None
                   ) -> ExchangeOutputs:
     """Phases A and B: the differentiable conversation record that the
     losses read, in the dtype of ``data`` and the parameters. A phase A
-    already run elsewhere comes in as ``sampled``."""
+    already run elsewhere comes in as ``sampled``; ``key`` is
+    :func:`sample_conversation`'s."""
     cfg = modules.cfg
     T = cfg.max_exchange
     batch = data.shape[0]
@@ -148,7 +159,7 @@ def fast_exchange(modules: AgentModules, data: torch.Tensor,
                  desc_set_mask=desc_set_mask)
     if sampled is None:
         sampled = sample_conversation(modules, data, desc, sampler, uniforms,
-                                      seed, step, row_base,
+                                      seed, step, row_base, key,
                                       data_context=data_context, **descs)
     z_bits, w_bits, s_bits, stop_masks = (
         x.to(data.dtype) for x in sampled[:4])

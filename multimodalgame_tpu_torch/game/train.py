@@ -63,6 +63,7 @@ from __future__ import annotations
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
                     Union)
 
+import numpy as np
 import torch
 from torch.autograd.graph import increment_version
 
@@ -80,6 +81,7 @@ from multimodalgame_tpu_torch.ops.cuda_exchange import (
     eval_kernel_supports, fused_eval_exchange, kernel_params,
     supports_config, train_kernel_supports)
 from multimodalgame_tpu_torch.ops.philox import philox_uniforms
+from multimodalgame_tpu_torch.utils.cuda_graph import Captured, clone_tree
 from multimodalgame_tpu_torch.utils.device import resolve_device
 
 UniformSource = Callable[[int], Dict[str, torch.Tensor]]
@@ -96,7 +98,9 @@ CLIP_NORM = 1.0
 def init_opt_states(cfg: GameConfig, modules: AgentModules
                     ) -> Dict[str, Dict[str, Any]]:
     """Per-agent optimizer slots, zeros beside each parameter: RMSprop
-    ``nu``, Adam ``mu``/``nu``/``count``, nothing for SGD."""
+    ``nu``, Adam ``mu``/``nu`` and ``count`` (a 0-dim int64 tensor on the
+    parameters' device, so that a captured step advances it), nothing for
+    SGD."""
     return zero_slots(cfg, {name: list(getattr(modules, name).parameters())
                             for name in AGENT_NAMES})
 
@@ -114,7 +118,8 @@ def zero_slots(cfg: GameConfig, params: Dict[str, List[torch.Tensor]]
             state["nu"] = [torch.zeros_like(p) for p in tensors]
         if cfg.optim_type == "Adam":
             state["mu"] = [torch.zeros_like(p) for p in tensors]
-            state["count"] = 0
+            state["count"] = torch.zeros((), dtype=torch.int64,
+                                         device=tensors[0].device)
         states[name] = state
     return states
 
@@ -166,7 +171,11 @@ def optimizer_update(cfg: GameConfig, grads: List[torch.Tensor],
                  for g, v in zip(grads, nu)], {**state, "nu": nu})
     if cfg.optim_type == "Adam":
         count = state["count"] + 1
-        c1, c2 = 1 - ADAM_B1 ** count, 1 - ADAM_B2 ** count
+        # A tensor count (every trainer's) gives the bias corrections on
+        # its device in float64, as Python gives them for an int count.
+        n = (count.to(torch.float64) if isinstance(count, torch.Tensor)
+             else count)
+        c1, c2 = 1 - ADAM_B1 ** n, 1 - ADAM_B2 ** n
         mu = [(1 - ADAM_B1) * g + ADAM_B1 * m
               for g, m in zip(grads, state["mu"])]
         nu = [(1 - ADAM_B2) * g ** 2 + ADAM_B2 * v
@@ -236,12 +245,18 @@ def flat_buffers(params: List[torch.nn.Parameter], state: Dict[str, Any],
     ``opt_states[agent]["nu"]`` read as before. Leaves already laid out
     so are taken as they are (no copy); others, such as new slots, a
     resumed state or modules moved to another device, are packed
-    anew. Returns ``(parameter buffer, {slot: buffer})``."""
+    anew. An integer Adam ``count`` becomes a 0-dim int64 tensor on the
+    buffer's device. Returns ``(parameter buffer, {slot: buffer})``."""
     pbuf = _flat_view(params, order)
     if pbuf is None:
         pbuf, views = _pack(params, order)
         for p, v in zip(params, views):
             p.data = v
+    if "count" in state and not (
+            isinstance(state["count"], torch.Tensor)
+            and state["count"].device == pbuf.device):
+        state["count"] = torch.full((), int(state["count"]),
+                                    dtype=torch.int64, device=pbuf.device)
     slots = {}
     for slot in ("mu", "nu"):
         if slot not in state:
@@ -281,7 +296,7 @@ def apply_flat_updates(cfg: GameConfig, update_names,
         for slot, buf in slots.items():
             buf.copy_(new[slot][0])
         if "count" in state:
-            state["count"] = new["count"]
+            state["count"].copy_(new["count"])
         pbuf.add_(-lr * updates[0])
         # The parameters were changed through the buffer: bump their
         # version counters, which caches of packed weights key on.
@@ -443,6 +458,28 @@ def _train_exchange(modules, data, desc, **kwargs) -> ExchangeOutputs:
 
 # ------------------------------------------------------------------- trainers
 
+# The graph route: eager steps of a step signature before its capture, and
+# the rows of the staged index plan a graph holds (the driver's piece
+# planner never cuts a chunk longer than 512, game/driver.py).
+GRAPH_WARMUP = 2
+INDEX_CAPACITY = 512
+
+
+def step_route(device: Optional[Union[str, torch.device]] = None,
+               mesh=None, tp=None) -> str:
+    """How a trainer takes its steps: ``"graph"`` on one CUDA device
+    (``None`` is ``cuda``) with no mesh and no tensor parallelism, each
+    step a replay of one captured CUDA graph (the port of the JAX
+    package's one compiled program per K updates, train.py:470-491);
+    ``"eager"`` on the CPU, and on a mesh or a grid, whose gloo
+    collectives go through the host and cannot be captured. A route by
+    configuration, decided from the arguments alone, without a card."""
+    if mesh is not None or tp is not None:
+        return "eager"
+    dev = torch.device("cuda" if device is None else device)
+    return "graph" if dev.type == "cuda" else "eager"
+
+
 def _detach(x):
     if isinstance(x, torch.Tensor):
         return x.detach()
@@ -461,13 +498,18 @@ class _Trainer:
     axis (with one data shard, no data-axis collective runs). Each
     trained agent's parameters, gradient and optimizer slots are one
     buffer each (:func:`flat_buffers`), laid out at the first step, after
-    the move to the device."""
+    the move to the device.
+
+    ``graph`` (default: :func:`step_route`) runs the steps on the graph
+    route (:class:`_StepGraph`): one captured CUDA graph a step signature,
+    replayed once per update. ``graph=True`` on the CPU runs the body that
+    a graph captures, uncaptured, on the same static buffers."""
 
     def __init__(self, modules: AgentModules, top_k: int, batch_denom: int,
                  fast: Union[bool, str], seed: int,
                  uniforms: Optional[UniformSource],
                  device: Optional[Union[str, torch.device]], mesh=None,
-                 tp=None):
+                 tp=None, graph: Optional[bool] = None):
         cfg = modules.cfg
         if tp is not None and (tp.full is not modules or fast is False):
             raise ValueError("tensor parallelism trains the agents of its "
@@ -507,6 +549,13 @@ class _Trainer:
                                              .parameters()),
                                         self.sharded[name])
                        for name in self.update_names}
+        if graph and (mesh is not None or tp is not None):
+            raise ValueError("a mesh or tensor-parallel step runs eagerly: "
+                             "its gloo collectives cannot be captured")
+        self.graph = (step_route(self.device, mesh, tp) == "graph"
+                      if graph is None else bool(graph))
+        # Shape signature -> (carry and input addresses, _StepGraph).
+        self._graphs: Dict[tuple, Tuple[tuple, "_StepGraph"]] = {}
 
     def tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype or self.dtype,
@@ -538,13 +587,32 @@ class _Trainer:
             self.cfg, rows.stop - rows.start, self.seed, int(step),
             self.device, row_base=rows.start)}
 
+    def key_randomness(self, key: torch.Tensor, batch: int,
+                       uniforms: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, Any]:
+        """:meth:`randomness` of the graph route, keyed by ``key``, the
+        int64 device tensor ``[seed, step, row_base]``: the key itself for
+        the kernel, else its Philox uniforms drawn on the device, bit for
+        bit the numbers of the same key in integers; ``uniforms``, the
+        caller's source's numbers of this step, where it has one."""
+        if uniforms is not None:
+            return {"uniforms": uniforms}
+        if self.sampler == "kernel":
+            return {"key": key}
+        return {"uniforms": philox_uniforms(self.cfg, batch, key[0], key[1],
+                                            self.device, row_base=key[2])}
+
     def step(self, opt_states, data: torch.Tensor, target: torch.Tensor,
-             desc: torch.Tensor, step: int, rows: Optional[slice] = None,
-             full: bool = False, **inputs) -> TrainMetrics:
+             desc: torch.Tensor, step: Optional[int],
+             rows: Optional[slice] = None, full: bool = False,
+             rand: Optional[Dict[str, Any]] = None,
+             **inputs) -> TrainMetrics:
         """One update on ``data``, the batch rows ``rows`` (all of them by
         default); ``inputs`` are the attention inputs. On the mesh the
         gradients and the logged scalars are summed over the ranks and,
-        with ``full``, the rows' predictions and record gathered."""
+        with ``full``, the rows' predictions and record gathered.
+        ``rand`` replaces the randomness of global step ``step`` (the
+        graph route's, :meth:`key_randomness`)."""
         from multimodalgame_tpu_torch.game.fast_train import (
             compute_losses_fast)
         rows = slice(0, data.shape[0]) if rows is None else rows
@@ -554,7 +622,8 @@ class _Trainer:
                 f"fast='kernel': no launch plan of the train kernel fits "
                 f"{data.shape[0]} rows and {desc.shape[0]} classes at this "
                 f"width; train it with fast='auto' (the plain sampler)")
-        rand = self.randomness(step, rows)
+        if rand is None:
+            rand = self.randomness(step, rows)
         self.modules.zero_grad(set_to_none=True)
         if self.fast:
             total, metrics = compute_losses_fast(
@@ -575,6 +644,61 @@ class _Trainer:
         if self.tp is not None:
             self.tp.sync()
         return metrics
+
+    def lay_out(self, opt_states) -> tuple:
+        """Lay out every trained agent's flat carry (:func:`flat_buffers`)
+        and return the addresses of its buffers and of Adam's count: what
+        a captured step reads and writes."""
+        ptrs = []
+        for name in self.update_names:
+            pbuf, slots = flat_buffers(
+                list(getattr(self.modules, name).parameters()),
+                opt_states[name], self.orders[name])
+            ptrs += [pbuf.data_ptr()] + [b.data_ptr() for b in
+                                         slots.values()]
+            if "count" in opt_states[name]:
+                ptrs.append(opt_states[name]["count"].data_ptr())
+        return tuple(ptrs)
+
+    def run_graph(self, opt_states, kind: str, steps: int, step0: int,
+                  stacks: Dict[str, Any], fixed: Dict[str, Any],
+                  make_batch: Callable, full: bool):
+        """``steps`` updates on the graph route, step ``i`` on row ``i``
+        of each of ``stacks`` (the index plan ``idx``, a host array, or
+        tensors staged per step) with the randomness of global step
+        ``step0 + i``; ``fixed`` are the inputs every step reads where
+        they lie (the staged set, the descriptions), ``make_batch(rows,
+        fixed) -> (data, target, desc, inputs)`` builds a step's batch
+        from its rows. Returns the last step's :class:`TrainMetrics` with
+        ``full``, else the steps' :class:`ScanMetrics`, copied out of the
+        graph's buffers. The modules' ``generation`` is advanced, as the
+        replays bump no parameter's version."""
+        if self.uniforms is not None:
+            drawn = [self.uniforms(int(step0) + i) for i in range(steps)]
+            for name in drawn[0]:
+                stacks["u:" + name] = torch.stack(
+                    [u[name].to(self.device) for u in drawn])
+        shape_key = (kind, full, tuple(
+            (k, tuple(v.shape[1:]), str(v.dtype)) for k, v in
+            stacks.items()), tuple(
+                None if v is None else (tuple(v.shape), str(v.dtype))
+                for v in fixed.values()))
+        ptr_key = self.lay_out(opt_states) + tuple(
+            None if v is None else v.data_ptr() for v in fixed.values())
+        known = self._graphs.get(shape_key)
+        if known is None or known[0] != ptr_key \
+                or steps > known[1].capacity:
+            capacity = max(steps, INDEX_CAPACITY if kind == "indexed"
+                           else steps)
+            known = (ptr_key, _StepGraph(self, opt_states, stacks, fixed,
+                                         make_batch, full, capacity))
+            self._graphs[shape_key] = known
+        sg = known[1]
+        sg.load(steps, int(step0), stacks)
+        for _ in range(steps):
+            out = sg.step()
+        self.modules.generation += 1
+        return out if full else ScanMetrics(*sg.out[:, :steps].clone())
 
     def update(self, opt_states, metrics: TrainMetrics,
                full: bool) -> TrainMetrics:
@@ -620,11 +744,125 @@ class _Trainer:
         return metrics
 
 
+class _StepGraph:
+    """One step signature's training step on the graph route.
+
+    Static buffers hold the step's inputs for a chunk of up to
+    ``capacity`` steps: the int64 counter ``[seed, step, row_base, i]``
+    (the Philox key the step reads and the chunk row it trains on) with,
+    behind it, the index plan when it comes from the host, so that a
+    chunk's plan and key reach the card in one copy; the other stacks
+    (staged batches, a uniform source's numbers) in buffers of their own,
+    and the scalars of each step (:class:`ScanMetrics`) in ``out``, a row
+    a step. The body (:meth:`_body`) gathers row ``i`` of the stacks, runs
+    the trainer's step (zero_grad, phase A, phase B, backward and the
+    flat update) and advances the counter; :class:`Captured` runs it
+    eagerly for the first GRAPH_WARMUP steps, then captures it and
+    replays it once per update."""
+
+    def __init__(self, tr: _Trainer, opt_states, stacks: Dict[str, Any],
+                 fixed: Dict[str, Any], make_batch: Callable, full: bool,
+                 capacity: int):
+        dev = tr.device
+        self.tr, self.opt_states, self.fixed = tr, opt_states, fixed
+        self.make_batch, self.full, self.capacity = make_batch, full, capacity
+        self.host = [k for k, v in stacks.items()
+                     if not isinstance(v, torch.Tensor)]
+        width = sum(int(np.prod(stacks[k].shape[1:])) for k in self.host)
+        self.ints = torch.zeros(4 + capacity * width, dtype=torch.int64,
+                                device=dev)
+        self.ctr = self.ints[:4]
+        self.bufs, off = {}, 4
+        for k in self.host:
+            n = int(np.prod(stacks[k].shape[1:]))
+            self.bufs[k] = self.ints[off:off + capacity * n].view(
+                (capacity,) + tuple(stacks[k].shape[1:]))
+            off += capacity * n
+        for k, v in stacks.items():
+            if k not in self.bufs:
+                self.bufs[k] = torch.empty((capacity,) + tuple(v.shape[1:]),
+                                           dtype=v.dtype, device=dev)
+        self.inc = torch.zeros(4, dtype=torch.int64, device=dev)
+        self.inc[1::2] = 1                       # step and row, each + 1
+        self.out = (None if full else torch.zeros(
+            (len(ScanMetrics._fields), capacity), dtype=tr.dtype,
+            device=dev))
+        self.run = Captured(self._body, dev, GRAPH_WARMUP,
+                            capture=dev.type == "cuda")
+
+    def load(self, steps: int, step0: int, stacks: Dict[str, Any]) -> None:
+        """The chunk's stacks into the static buffers and the counter to
+        ``(seed, step0, 0, 0)``: one host-to-device copy of the counter
+        and the host's index plan, and one device copy per other stack."""
+        host = np.concatenate(
+            [np.array([self.tr.seed, step0, 0, 0], np.int64)]
+            + [np.asarray(stacks[k], np.int64).reshape(-1)
+               for k in self.host])
+        src = torch.from_numpy(host)
+        if self.ints.device.type == "cuda":
+            src = src.pin_memory()
+        self.ints[:src.numel()].copy_(src, non_blocking=True)
+        for k, v in stacks.items():
+            if k not in self.host:
+                self.bufs[k][:steps].copy_(v)
+
+    def step(self):
+        """One update: the last run's metrics with ``full`` (copied out
+        of a replay's buffers), else None."""
+        out, replayed = self.run()
+        return clone_tree(out) if replayed and self.full else out
+
+    def _body(self):
+        tr = self.tr
+        pos = self.ctr[3:4]
+        rows = {k: b.index_select(0, pos)[0] for k, b in self.bufs.items()}
+        data, target, desc, inputs = self.make_batch(rows, self.fixed)
+        batch = data.shape[0]
+        u = {k[2:]: v for k, v in rows.items() if k.startswith("u:")}
+        m = tr.step(self.opt_states, data, target, desc, None,
+                    rows=slice(0, batch), full=self.full,
+                    rand=tr.key_randomness(self.ctr[:3], batch, u or None),
+                    **inputs)
+        if not self.full:
+            self.out.index_copy_(1, pos, torch.stack(_scan_row(m))[:, None])
+        self.ctr.add_(self.inc)
+        return m if self.full else None
+
+
+def _plan(idx):
+    """An index plan as the graph route stages it: a host array (copied
+    with the step counter) or an int64 device tensor."""
+    if isinstance(idx, torch.Tensor) and idx.device.type != "cpu":
+        return idx.long()
+    return np.asarray(idx, np.int64)
+
+
+def _indexed_batch(transform, context_fn):
+    """``make_batch`` of the indexed steps: row ``idx`` of the staged
+    set."""
+    def make_batch(rows, fixed):
+        idx = rows["idx"]
+        data, ctx = gather_batch(fixed["feats"], idx, fixed["feats_context"],
+                                 transform, context_fn)
+        return data, fixed["targets"][idx].long(), fixed["desc"], dict(
+            data_context=ctx, desc_set_padded=fixed["desc_set_padded"],
+            desc_set_mask=fixed["desc_set_mask"])
+    return make_batch
+
+
+def _staged_batch(rows, fixed):
+    """``make_batch`` of the staged steps: the step's own batch."""
+    return rows["data"], rows["target"], fixed["desc"], dict(
+        data_context=rows.get("ctx"),
+        desc_set_padded=fixed["desc_set_padded"],
+        desc_set_mask=fixed["desc_set_mask"])
+
+
 def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
                     fast: Union[bool, str] = "auto", *, seed: int = 0,
                     uniforms: Optional[UniformSource] = None,
                     device: Optional[Union[str, torch.device]] = None,
-                    mesh=None, tp=None):
+                    mesh=None, tp=None, graph: Optional[bool] = None):
     """Build ``step(opt_states, data, target, desc, step,
     desc_set_padded=None, desc_set_mask=None, data_context=None) ->
     TrainMetrics`` (train.py:216-248), which updates ``modules`` and
@@ -641,9 +879,15 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
     and trains on this rank's rows, on the mesh's device. With ``tp``
     (``parallel/tensor.py``, ``mesh`` its data axis) it trains the rank's
     shards; ``opt_states`` are then ``init_tp_opt_states``'.
+
+    ``graph`` (default :func:`step_route`: one CUDA device, no mesh, no
+    ``tp``) runs each step as a replay of a captured CUDA graph, bit for
+    bit the eager step; the batch is copied into the graph's buffers and
+    the metrics out of them. The descriptions are read where they lie:
+    give the same device tensors every step.
     """
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh, tp)
+                  mesh, tp, graph)
 
     def step(opt_states, data, target, desc, step: int,
              desc_set_padded=None, desc_set_mask=None, data_context=None
@@ -652,6 +896,17 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
 
         def opt(x):
             return None if x is None else tr.tensor(x)
+        if tr.graph:
+            stacks = {"data": tr.tensor(data)[None],
+                      "target": tr.tensor(target, torch.long)[None]}
+            if data_context is not None:
+                stacks["ctx"] = tr.tensor(data_context)[None]
+            return tr.run_graph(
+                opt_states, "staged", 1, step, stacks,
+                dict(desc=tr.tensor(desc),
+                     desc_set_padded=opt(desc_set_padded),
+                     desc_set_mask=opt(desc_set_mask)),
+                _staged_batch, full=True)
         return tr.step(opt_states, tr.tensor(data[rows]),
                        tr.tensor(target[rows], torch.long),
                        tr.tensor(desc), step, rows=rows, full=True,
@@ -684,7 +939,8 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
                                                    torch.device]] = None,
                             transform: Optional[Callable] = None,
                             context_fn: Optional[Callable] = None,
-                            mesh=None, tp=None):
+                            mesh=None, tp=None,
+                            graph: Optional[bool] = None):
     """Build ``step(opt_states, feats, targets, idx, desc, step0,
     feats_context=None, desc_set_padded=None, desc_set_mask=None) ->
     TrainMetrics`` over a dataset already on the device
@@ -698,13 +954,24 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
     attention context from the transformed batch where no
     ``feats_context`` is staged (JAX train.py:432-437). With ``mesh``
     the step trains on this rank's share of ``idx`` and returns the
-    whole batch's metrics; ``tp`` is :func:`make_train_step`'s."""
+    whole batch's metrics; ``tp`` and ``graph`` are
+    :func:`make_train_step`'s (the set and the descriptions are read where
+    they lie)."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh, tp)
+                  mesh, tp, graph)
+    make_batch = _indexed_batch(transform, context_fn)
 
     def step(opt_states, feats, targets, idx, desc, step0: int,
              feats_context=None, desc_set_padded=None, desc_set_mask=None
              ) -> TrainMetrics:
+        if tr.graph:
+            return tr.run_graph(
+                opt_states, "indexed", 1, step0, {"idx": _plan(idx)[None]},
+                dict(feats=feats, targets=targets,
+                     feats_context=feats_context, desc=desc,
+                     desc_set_padded=desc_set_padded,
+                     desc_set_mask=desc_set_mask),
+                make_batch, full=True)
         rows = tr.rows(len(idx))
         idx = tr.tensor(idx[rows], torch.long)
         data, ctx = gather_batch(feats, idx, feats_context, transform,
@@ -734,7 +1001,8 @@ def make_multistep_train_step(modules: AgentModules, top_k: int,
                               uniforms: Optional[UniformSource] = None,
                               device: Optional[Union[str,
                                                      torch.device]] = None,
-                              mesh=None, tp=None):
+                              mesh=None, tp=None,
+                              graph: Optional[bool] = None):
     """Build ``chunk(opt_states, data (K, B, ...), target (K, B), desc,
     step0=0, data_context=None (K, B, C), desc_set_padded=None,
     desc_set_mask=None) -> ScanMetrics``: K training steps over batches
@@ -743,14 +1011,26 @@ def make_multistep_train_step(modules: AgentModules, top_k: int,
     row_base)`` or the ``uniforms`` seam, as in
     :func:`make_multistep_train_step_indexed`, the counterpart of JAX's
     ``keys (K,)``). The metrics stay on the device. With ``mesh`` each
-    step trains on this rank's rows of ``data[i]``; ``fast``, ``device``
-    and ``tp`` are :func:`make_train_step`'s."""
+    step trains on this rank's rows of ``data[i]``; ``fast``, ``device``,
+    ``tp`` and ``graph`` are :func:`make_train_step`'s: on the graph
+    route the stacks are copied into the graph's buffers once a chunk,
+    and each step is one replay."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh, tp)
+                  mesh, tp, graph)
 
     def chunk(opt_states, data, target, desc, step0: int = 0,
               data_context=None, desc_set_padded=None, desc_set_mask=None
               ) -> ScanMetrics:
+        if tr.graph:
+            stacks = {"data": tr.tensor(data),
+                      "target": tr.tensor(target, torch.long)}
+            if data_context is not None:
+                stacks["ctx"] = tr.tensor(data_context)
+            return tr.run_graph(
+                opt_states, "staged", data.shape[0], step0, stacks,
+                dict(desc=desc, desc_set_padded=desc_set_padded,
+                     desc_set_mask=desc_set_mask),
+                _staged_batch, full=False)
         rows = tr.rows(data.shape[1])
         data = tr.tensor(data[:, rows])
         target = tr.tensor(target[:, rows], torch.long)
@@ -777,7 +1057,8 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
                                           str, torch.device]] = None,
                                       transform: Optional[Callable] = None,
                                       context_fn: Optional[Callable] = None,
-                                      mesh=None, tp=None):
+                                      mesh=None, tp=None,
+                                      graph: Optional[bool] = None):
     """Build ``chunk(opt_states, feats, targets, idx (K, B), desc,
     step0=0, feats_context=None, desc_set_padded=None, desc_set_mask=None)
     -> ScanMetrics``: K training steps over a dataset already on the
@@ -787,13 +1068,26 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
     the device until the caller reads them. ``transform`` and
     ``context_fn`` are :func:`make_train_step_indexed`'s. With ``mesh``
     each step trains on this rank's share of its row of ``idx``; the
-    metrics are the whole batch's. ``tp`` is :func:`make_train_step`'s."""
+    metrics are the whole batch's. ``tp`` and ``graph`` are
+    :func:`make_train_step`'s: on the graph route a chunk's plan (from
+    the host) and key reach the card in one copy, each step is one
+    replay, and the metrics are copied out once a chunk."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh, tp)
+                  mesh, tp, graph)
+    make_batch = _indexed_batch(transform, context_fn)
 
     def chunk(opt_states, feats, targets, idx, desc, step0: int = 0,
               feats_context=None, desc_set_padded=None, desc_set_mask=None
               ) -> ScanMetrics:
+        if tr.graph:
+            return tr.run_graph(
+                opt_states, "indexed", idx.shape[0], step0,
+                {"idx": _plan(idx)},
+                dict(feats=feats, targets=targets,
+                     feats_context=feats_context, desc=desc,
+                     desc_set_padded=desc_set_padded,
+                     desc_set_mask=desc_set_mask),
+                make_batch, full=False)
         rows = tr.rows(idx.shape[1])
         idx = tr.tensor(idx[:, rows], torch.long)
         out = []
@@ -812,54 +1106,156 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
 
 # ----------------------------------------------------------------- serving
 
-def make_eval_exchange(modules: AgentModules, use_kernel: bool = True
+def answer_scores(cfg: GameConfig, ex: ExchangeOutputs) -> torch.Tensor:
+    """The eval conversation's answer: the log-softmax of the class scores
+    that the stop masks select (the last turn's in a fixed exchange),
+    ``(B, D)``, as serving reads it (JAX serve.py:91-97)."""
+    y_masks = (None if cfg.fixed_exchange
+               else assemble_loss_masks(ex.stop_masks).y)
+    outp, _ = get_rec_outp(ex.y, y_masks)
+    return torch.log_softmax(outp, dim=-1)
+
+
+def _kernel_exchange(cfg: GameConfig, params: Dict[str, torch.Tensor],
+                     data: torch.Tensor, desc: torch.Tensor,
+                     corrupt_mask: Optional[torch.Tensor]
+                     ) -> ExchangeOutputs:
+    """The eval conversation through :func:`fused_eval_exchange`, as the
+    record :func:`exchange` returns."""
+    f = fused_eval_exchange(cfg, params, data, desc,
+                            corrupt_mask=corrupt_mask)
+    stop_masks, n_steps = finalize_stop_masks(f.masks, cfg.fixed_exchange)
+    zeros = torch.zeros((cfg.max_exchange, data.shape[0], 1),
+                        dtype=torch.float32, device=data.device)
+    return ExchangeOutputs(
+        stop_masks=stop_masks, stop_feats=f.stop_feats,
+        stop_probs=f.stop_probs, sen_feats=f.sen_feats,
+        sen_probs=f.sen_probs, rec_feats=f.rec_feats,
+        rec_probs=f.rec_probs, y=f.y, bs=zeros, br=zeros,
+        n_steps=n_steps, attn_scores=None)
+
+
+# The float fields of a kernel-route record, packed behind one another
+# with the answer in one buffer of a graph's outputs (bs and br are the
+# same zeros).
+_PACKED = ("stop_masks", "stop_feats", "stop_probs", "sen_feats",
+           "sen_probs", "rec_feats", "rec_probs", "y", "bs")
+
+
+class _EvalGraph:
+    """The eval conversation on the kernel route for one ``(batch,
+    classes, corrupt mask or none)``: static buffers for the data, the
+    descriptions and the mask, and a body that packs the weights
+    (:func:`kernel_params`, so every replay reads the parameters as they
+    are), launches the eval kernel, finalizes the stop masks and computes
+    the answer (:func:`answer_scores`). It runs eagerly once, then as a
+    captured CUDA graph (:class:`Captured`); its outputs come back as one
+    copied buffer, cut into the record's fields."""
+
+    def __init__(self, modules: AgentModules, batch: int,
+                 desc: torch.Tensor, corrupt: bool):
+        cfg, dev = modules.cfg, desc.device
+        self.cfg, self.modules = cfg, modules
+        with torch.inference_mode(False):
+            self.data = torch.empty((batch, cfg.img_feat_dim),
+                                    dtype=torch.float32, device=dev)
+            self.desc = torch.empty_like(desc, dtype=torch.float32)
+            self.corrupt = (torch.empty(cfg.rec_w_dim, dtype=torch.float32,
+                                        device=dev) if corrupt else None)
+        T, W, D = cfg.max_exchange, cfg.rec_w_dim, desc.shape[0]
+        self.shapes = [(T + 1, batch, 1), (T, batch, 1), (T, batch, 1),
+                       (T, batch, W), (T, batch, W), (T, batch, W),
+                       (T, batch, W), (T, batch, D), (T, batch, 1),
+                       (batch, D)]
+        self.run = Captured(self._body, dev, warmup=1,
+                            capture=dev.type == "cuda")
+
+    @torch.no_grad()
+    def _body(self):
+        ex = _kernel_exchange(self.cfg, kernel_params(self.modules),
+                              self.data, self.desc, self.corrupt)
+        dist = answer_scores(self.cfg, ex)
+        return torch.cat([getattr(ex, k).reshape(-1) for k in _PACKED]
+                         + [dist.reshape(-1)]), ex.n_steps
+
+    def __call__(self, data, desc, corrupt_mask
+                 ) -> Tuple[ExchangeOutputs, torch.Tensor]:
+        self.data.copy_(data)
+        self.desc.copy_(desc)
+        if self.corrupt is not None:
+            self.corrupt.copy_(torch.as_tensor(
+                corrupt_mask, dtype=torch.float32).reshape(-1))
+        (flat, n_steps), replayed = self.run()
+        if replayed:
+            flat, n_steps = flat.clone(), n_steps.clone()
+        parts = torch.split(flat, [int(np.prod(s)) for s in self.shapes])
+        fields = {k: p.view(s) for k, p, s in zip(_PACKED, parts,
+                                                  self.shapes)}
+        ex = ExchangeOutputs(**fields, br=fields["bs"], n_steps=n_steps,
+                             attn_scores=None)
+        return ex, parts[-1].view(self.shapes[-1])
+
+
+def make_eval_exchange(modules: AgentModules, use_kernel: bool = True,
+                       graph: Optional[bool] = None
                        ) -> Callable[..., ExchangeOutputs]:
     """Build ``run(data, desc, corrupt_mask=None, *, data_context=None,
-    desc_set_padded=None, desc_set_mask=None, uniforms=None) ->
-    ExchangeOutputs``, the eval conversation (rounded messages, cumulative
-    stop product — model.py:640, 1463-1465).
+    desc_set_padded=None, desc_set_mask=None, uniforms=None,
+    answer=False) -> ExchangeOutputs``, the eval conversation (rounded
+    messages, cumulative stop product — model.py:640, 1463-1465); with
+    ``answer`` ``(record, answer_scores)``.
 
     With ``use_kernel`` a call that :func:`eval_kernel_supports` accepts
     (a config the kernel supports, at a batch and class count that a
     launch plan fits; asked on every call, since the batch varies) goes
     through :func:`fused_eval_exchange`: the CUDA kernel for CUDA tensors,
-    its plain version for CPU ones. Other configs (attention, ``mou``,
+    its plain version for CPU ones. On CUDA tensors (``graph`` None; True
+    or False to choose) each ``(batch, classes)`` runs as one captured
+    CUDA graph of the weight pack, the kernel, the stop masks and the
+    answer (:class:`_EvalGraph`), as the JAX package runs one compiled
+    program per call (game/train.py:545-580); the record comes back
+    copied out of the graph. Other configs (attention, ``mou``,
     ``flipout_dev`` with flipout) and sizes take the plain
     :func:`exchange`, with the attention inputs and, under
     ``flipout_dev``, the ``fz``/``fw`` uniforms
-    (``ops/philox.py:philox_eval_uniforms``). The kernel-layout weights
-    are rebuilt only when a parameter is replaced or changed in place.
+    (``ops/philox.py:philox_eval_uniforms``). Off the graph, the
+    kernel-layout weights are rebuilt only when a parameter is replaced
+    or changed in place, or the modules' ``generation`` advances (a
+    graph-replayed trainer's updates bump no version).
     """
     cfg = modules.cfg
     packed = {"key": None, "params": None}
+    graphs: Dict[tuple, Tuple[tuple, _EvalGraph]] = {}
 
     def run(data: torch.Tensor, desc: torch.Tensor,
             corrupt_mask: Optional[torch.Tensor] = None, *,
             data_context: Optional[torch.Tensor] = None,
             desc_set_padded: Optional[torch.Tensor] = None,
             desc_set_mask: Optional[torch.Tensor] = None,
-            uniforms: Optional[Dict[str, torch.Tensor]] = None
-            ) -> ExchangeOutputs:
+            uniforms: Optional[Dict[str, torch.Tensor]] = None,
+            answer: bool = False):
         if not (use_kernel and eval_kernel_supports(cfg, data.shape[0],
                                                     desc.shape[0])):
-            return exchange(modules, data, desc, corrupt_mask=corrupt_mask,
-                            uniforms=uniforms, data_context=data_context,
-                            desc_set_padded=desc_set_padded,
-                            desc_set_mask=desc_set_mask)
-        key = tuple((p.data_ptr(), p._version) for p in modules.parameters())
+            ex = exchange(modules, data, desc, corrupt_mask=corrupt_mask,
+                          uniforms=uniforms, data_context=data_context,
+                          desc_set_padded=desc_set_padded,
+                          desc_set_mask=desc_set_mask)
+            return (ex, answer_scores(cfg, ex)) if answer else ex
+        if (data.device.type == "cuda") if graph is None else graph:
+            shape = (data.shape[0], desc.shape[0], corrupt_mask is not None)
+            ptrs = tuple(p.data_ptr() for p in modules.parameters())
+            known = graphs.get(shape)
+            if known is None or known[0] != ptrs:
+                known = graphs[shape] = (ptrs, _EvalGraph(
+                    modules, data.shape[0], desc, corrupt_mask is not None))
+            ex, dist = known[1](data, desc, corrupt_mask)
+            return (ex, dist) if answer else ex
+        key = (modules.generation,) + tuple(
+            (p.data_ptr(), p._version) for p in modules.parameters())
         if packed["key"] != key:
             packed["key"], packed["params"] = key, kernel_params(modules)
-        f = fused_eval_exchange(cfg, packed["params"], data, desc,
-                                corrupt_mask=corrupt_mask)
-        stop_masks, n_steps = finalize_stop_masks(f.masks,
-                                                  cfg.fixed_exchange)
-        zeros = torch.zeros((cfg.max_exchange, data.shape[0], 1),
-                            dtype=torch.float32, device=data.device)
-        return ExchangeOutputs(
-            stop_masks=stop_masks, stop_feats=f.stop_feats,
-            stop_probs=f.stop_probs, sen_feats=f.sen_feats,
-            sen_probs=f.sen_probs, rec_feats=f.rec_feats,
-            rec_probs=f.rec_probs, y=f.y, bs=zeros, br=zeros,
-            n_steps=n_steps, attn_scores=None)
+        ex = _kernel_exchange(cfg, packed["params"], data, desc,
+                              corrupt_mask)
+        return (ex, answer_scores(cfg, ex)) if answer else ex
 
     return run

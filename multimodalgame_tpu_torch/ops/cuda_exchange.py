@@ -33,7 +33,16 @@ float32), or drawn in the kernel by Philox4x32-10 keyed by
 ``(seed, step)``; ``ops/philox.py`` computes the same numbers on the CPU.
 A launch over a data-parallel shard of a batch passes ``row_base``, the
 global row of its first row, so that the shards draw the whole batch's
-numbers. The eval mode reads nothing that is numbered by row: its
+numbers. The Philox key goes in by value, or as ``key``, an int64 tensor
+``[seed, step, row_base]`` on the card that the kernel reads when it
+runs: a captured training step (a CUDA graph, ``game/train.py``) replays
+the same launch every step, and advances its own key on the device.
+
+A wrapper's ``launches`` counts the kernel launches it makes. A launch
+recorded into a CUDA graph runs only when the graph is replayed, so the
+graph's owner takes the capture's counts back (:func:`launch_counts`,
+:func:`set_launch_counts`) and adds them at each replay
+(:func:`add_launches`). The eval mode reads nothing that is numbered by row: its
 corrupt mask is one vector for every row, and the configs whose eval
 conversation draws (``-flipout_dev`` with flipout) never reach it
 (:func:`supports_config`).
@@ -711,38 +720,51 @@ def fused_train_forward(cfg: GameConfig, params: Dict[str, torch.Tensor],
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         seed: Optional[int] = None,
                         step: Optional[int] = None,
-                        row_base: int = 0) -> FusedEvalOutputs:
+                        row_base: int = 0,
+                        key: Optional[torch.Tensor] = None
+                        ) -> FusedEvalOutputs:
     """Run the whole sampled (train-mode) conversation, without
     gradients: in one kernel launch for CUDA tensors, through
     :func:`fused_train_forward_reference` for CPU ones.
 
-    The randomness is either ``uniforms`` (``{s, z, w[, fz, fw]}``, each
-    ``(T, B, dim)`` float32 on the data's device) or ``seed`` and
-    ``step`` (each in ``[0, 2**32)``) for Philox, never both. Under
-    Philox, ``row_base`` is the global row of ``data``'s first row (a
+    The randomness is ``uniforms`` (``{s, z, w[, fz, fw]}``, each
+    ``(T, B, dim)`` float32 on the data's device), or ``seed`` and
+    ``step`` (each in ``[0, 2**32)``) for Philox, or ``key``, the same
+    Philox key as an int64 tensor ``[seed, step, row_base]`` on the data's
+    device, which the kernel reads when it runs; exactly one of them.
+    Under Philox, ``row_base`` is the global row of ``data``'s first row (a
     data-parallel shard's offset in its batch): row ``r`` draws global
     row ``row_base + r``'s numbers. Given uniforms are the rows' own, and
-    take ``row_base`` 0.
+    take ``row_base`` 0, as does ``key``, which carries its own.
     """
     if not supports_config(cfg):
         raise ValueError("config not supported by the fused kernel")
-    if (uniforms is None) == (seed is None):
-        raise ValueError("give either uniforms or seed (with step)")
+    if sum(x is not None for x in (uniforms, seed, key)) != 1:
+        raise ValueError("give exactly one of uniforms, seed (with step) "
+                         "and key")
     if seed is not None and (step is None or not 0 <= seed < 2 ** 32
                              or not 0 <= step < 2 ** 32):
         raise ValueError("Philox needs a seed and a step in [0, 2**32)")
     if not 0 <= row_base < 2 ** 31 - data.shape[0] or (
-            uniforms is not None and row_base):
+            seed is None and row_base):
         raise ValueError("row_base numbers Philox's rows: in [0, 2**31 - "
-                         "batch), and 0 with given uniforms")
+                         "batch), and 0 with given uniforms or a key")
+    if key is not None and (key.dtype != torch.int64 or key.shape != (3,)
+                            or key.device != data.device
+                            or not key.is_contiguous()):
+        raise ValueError(f"key must be a contiguous int64 tensor (3,) "
+                         f"[seed, step, row_base] on {data.device}")
     if data.device.type == "cpu":
         if uniforms is None:
-            uniforms = philox_uniforms(cfg, data.shape[0], seed, step,
-                                       row_base=row_base)
+            uniforms = (philox_uniforms(cfg, data.shape[0], seed, step,
+                                        row_base=row_base)
+                        if key is None else
+                        philox_uniforms(cfg, data.shape[0], key[0], key[1],
+                                        row_base=key[2]))
         return fused_train_forward_reference(cfg, params, data, desc,
                                              uniforms)
     outs = _train_launch(cfg, params, data, desc, uniforms, seed, step,
-                         row_base=row_base)
+                         row_base=row_base, key=key)
     fused_train_forward.launches += 1
     return outs
 
@@ -753,7 +775,8 @@ def _train_launch(cfg: GameConfig, params: Dict[str, torch.Tensor],
                   seed: Optional[int], step: Optional[int],
                   plan: Optional[LaunchPlan] = None,
                   extra_flags: Tuple[str, ...] = (),
-                  row_base: int = 0) -> FusedEvalOutputs:
+                  row_base: int = 0,
+                  key: Optional[torch.Tensor] = None) -> FusedEvalOutputs:
     if data.device.type != "cuda":
         raise ValueError(f"no kernel for device {data.device}")
     dev = data.device
@@ -768,10 +791,11 @@ def _train_launch(cfg: GameConfig, params: Dict[str, torch.Tensor],
     plan = plan or plan_for(cfg, batch, desc.shape[0])
     outs = _empty_outputs(cfg, batch, desc.shape[0], dev)
     philox = uniforms is None
+    by_value = seed is not None
     as_int = lambda v: v - 2 ** 32 if v >= 2 ** 31 else v   # noqa: E731
     dims = _dims(cfg, batch, desc.shape[0], plan) + [
-        int(philox), as_int(seed) if philox else 0,
-        as_int(step) if philox else 0,
+        int(philox), as_int(seed) if by_value else 0,
+        as_int(step) if by_value else 0,
         int(cfg.flipout_sen is not None), int(cfg.flipout_rec is not None),
         int(row_base)]
     probs = (ctypes.c_float * 2)(
@@ -779,12 +803,32 @@ def _train_launch(cfg: GameConfig, params: Dict[str, torch.Tensor],
         0.0 if cfg.flipout_rec is None else cfg.flipout_rec)
     # The train mode never corrupts: a null corrupt mask.
     _launch("mmg_fused_train_forward",
-            [data, desc, None] + weights + list(outs) + streams,
+            [data, desc, None] + weights + list(outs) + streams + [key],
             dims, probs, 2, device=dev, extra_flags=extra_flags)
     return outs
 
 
 fused_train_forward.launches = 0
+
+# The wrappers whose launches are counted.
+COUNTED = (fused_eval_exchange, fused_train_forward)
+
+
+def launch_counts() -> Tuple[int, ...]:
+    """Each counted wrapper's ``launches``, in :data:`COUNTED`'s order."""
+    return tuple(f.launches for f in COUNTED)
+
+
+def set_launch_counts(counts: Tuple[int, ...]) -> None:
+    for f, n in zip(COUNTED, counts):
+        f.launches = n
+
+
+def add_launches(counts: Tuple[int, ...]) -> None:
+    """Add ``counts`` (one per :data:`COUNTED` wrapper) to the wrappers'
+    ``launches``: a graph replay's launches."""
+    for f, n in zip(COUNTED, counts):
+        f.launches += n
 
 
 def phase_clocks(cfg: GameConfig, params: Dict[str, torch.Tensor],

@@ -45,11 +45,18 @@ axis whose first member is ``member_base`` draws those members' numbers.
 The words are 32-bit unsigned integers held in int64 tensors. A product
 of two of them wraps around in int64, but its low 64 bits are exact, so
 its high and low words are bits 32-63 and 0-31 (:func:`_mulhilo`).
+
+The key ``(seed, step)`` and the row base are Python integers or 0-dim
+int64 tensors on the draw's device (a captured training step's key, which
+the step advances on the device itself, ``game/train.py``); both give the
+same numbers bit for bit. Every index the draw needs is made on the
+device (``arange``, ``fill_``), never copied from the host, so a draw can
+be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -65,6 +72,9 @@ MEMBER_SHIFT = 16
 
 _MASK32 = 0xFFFFFFFF
 
+# A key word or a row base: a Python integer or a 0-dim int64 tensor.
+Word = Union[int, torch.Tensor]
+
 
 def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The high and low 32-bit words of ``m * a`` for 32-bit ``a`` held in
@@ -73,14 +83,15 @@ def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return (p >> 32) & _MASK32, p & _MASK32
 
 
-def philox4x32_10(counter, key: Tuple[int, int]
+def philox4x32_10(counter, key: Tuple[Word, Word]
                   ) -> Tuple[torch.Tensor, ...]:
     """Philox4x32 with 10 rounds.
 
     ``counter`` is four broadcastable int64 tensors (or integers) holding
-    32-bit words ``(c0, c1, c2, c3)``, ``key`` two 32-bit integers.
-    Returns the four output words, int64 tensors of the broadcast shape
-    on the counter's device."""
+    32-bit words ``(c0, c1, c2, c3)``, ``key`` two 32-bit words (integers
+    or 0-dim int64 tensors on the counter's device). Returns the four
+    output words, int64 tensors of the broadcast shape on the counter's
+    device."""
     dev = next((c.device for c in counter if isinstance(c, torch.Tensor)),
                None)
     c0, c1, c2, c3 = torch.broadcast_tensors(*(
@@ -94,9 +105,18 @@ def philox4x32_10(counter, key: Tuple[int, int]
     return c0, c1, c2, c3
 
 
+def _ints(values: Sequence[int], device) -> torch.Tensor:
+    """A 1-D int64 tensor of ``values``, made on ``device`` by fills
+    rather than copied from the host."""
+    out = torch.empty(len(values), dtype=torch.int64, device=device)
+    for i, v in enumerate(values):
+        out[i:i + 1].fill_(v)
+    return out
+
+
 def _draw(streams: Dict[str, int], widths: Dict[str, int], turns: int,
-          batch: int, seed: int, step: int, members: Optional[int],
-          device, row_base: int = 0, member_base: int = 0
+          batch: int, seed: Word, step: Word, members: Optional[int],
+          device, row_base: Word = 0, member_base: int = 0
           ) -> Dict[str, torch.Tensor]:
     """Each set ``name``'s ``(turns, batch, widths[name])`` float32
     uniforms on stream ``streams[name]`` (with a leading ``members`` axis
@@ -107,23 +127,23 @@ def _draw(streams: Dict[str, int], widths: Dict[str, int], turns: int,
     quads = -(-max(widths.values()) // 4)
     dev = torch.device(device or "cpu")
 
-    def axis(values, dim):
+    def axis(values: torch.Tensor, dim):
         shape = [1] * 5
         shape[dim] = -1
-        return torch.as_tensor(list(values), dtype=torch.int64,
-                               device=dev).reshape(shape)
+        return values.reshape(shape)
+
+    def arange(n):
+        return torch.arange(n, dtype=torch.int64, device=dev)
 
     # (streams, members, turns, rows, column quads)
-    q = axis(range(quads), 4)
+    q = axis(arange(quads), 4)
     word0 = q if members is None else (
-        (axis(range(member_base, member_base + members), 1) + 1)
-        << MEMBER_SHIFT) + q
+        (axis(arange(members) + (member_base + 1), 1)) << MEMBER_SHIFT) + q
     shape = (len(names), members or 1, turns, batch, quads)
     words = philox4x32_10(
         tuple(w.expand(shape) for w in (
-            word0, axis(range(row_base, row_base + batch), 3),
-            axis(range(turns), 2),
-            axis([streams[n] for n in names], 0))),
+            word0, axis(arange(batch) + row_base, 3), axis(arange(turns), 2),
+            axis(_ints([streams[n] for n in names], dev), 0))),
         (seed, step))
     x = torch.stack(words, dim=-1).reshape(shape[:-1] + (4 * quads,))
     u = (x >> 8).to(torch.float32) * (2.0 ** -24)
@@ -134,16 +154,16 @@ def _draw(streams: Dict[str, int], widths: Dict[str, int], turns: int,
 
 
 def uniforms_for(stream: int, turns: int, batch: int, width: int,
-                 seed: int, step: int, device=None,
-                 row_base: int = 0) -> torch.Tensor:
+                 seed: Word, step: Word, device=None,
+                 row_base: Word = 0) -> torch.Tensor:
     """The ``(turns, batch, width)`` float32 uniforms of one stream, for
     global rows ``row_base`` on."""
     return _draw({"u": stream}, {"u": width}, turns, batch, seed, step,
                  None, device, row_base)["u"]
 
 
-def philox_uniforms(cfg, batch: int, seed: int, step: int,
-                    device=None, row_base: int = 0
+def philox_uniforms(cfg, batch: int, seed: Word, step: Word,
+                    device=None, row_base: Word = 0
                     ) -> Dict[str, torch.Tensor]:
     """The uniforms the train-mode kernel draws for ``(seed, step)``:
     ``{s, z, w[, fz, fw]}``, each ``(max_exchange, batch, dim)`` float32,
@@ -159,8 +179,8 @@ def _eval_streams(slot: int) -> Dict[str, int]:
             for name, index in STREAMS.items()}
 
 
-def philox_eval_uniforms(cfg, batch: int, seed: int, step: int, slot: int,
-                         device=None, row_base: int = 0
+def philox_eval_uniforms(cfg, batch: int, seed: Word, step: Word,
+                         slot: int, device=None, row_base: Word = 0
                          ) -> Optional[Dict[str, torch.Tensor]]:
     """The ``fz``/``fw`` uniforms of one eval conversation under
     ``flipout_dev``, keyed by ``(seed, step)`` and ``slot``, each

@@ -3,7 +3,8 @@
 The port of ``multimodalgame_tpu/serve.py``: the deterministic eval
 conversation as a checkpoint-loadable predictor. On a GPU each request
 batch runs the whole conversation in one CUDA kernel launch
-(ops/cuda_exchange.py) for every config the kernel supports; the others
+(ops/cuda_exchange.py), inside one captured CUDA graph a request shape
+with the answer, for every config the kernel supports; the others
 (attention, ``mou``, ``-flipout_dev`` with flipout) run the plain
 conversation. Visual attention with ``attn_extra_context`` needs each
 request's ``fc`` context, description attention the pack's padded word
@@ -42,9 +43,8 @@ from multimodalgame_tpu_torch.game.agents import AgentModules
 from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.game.exchange import (description_inputs,
                                                     turns_run)
-from multimodalgame_tpu_torch.game.losses import get_rec_outp
-from multimodalgame_tpu_torch.game.masks import assemble_loss_masks
-from multimodalgame_tpu_torch.game.train import make_eval_exchange
+from multimodalgame_tpu_torch.game.train import (answer_scores,
+                                                 make_eval_exchange)
 from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 from multimodalgame_tpu_torch.utils.device import resolve_device
 from multimodalgame_tpu_torch.utils.torch_interop import (
@@ -62,12 +62,15 @@ class Predictor:
     ``device`` defaults to ``cuda`` (and raises without a GPU); pass
     ``device="cpu"`` for the plain PyTorch path on the CPU, or a list of
     devices (one may repeat) to split each request's rows over them.
-    ``use_kernel`` routes supported configs through the fused CUDA kernel.
+    ``use_kernel`` routes supported configs through the fused CUDA kernel;
+    on a card each request shape then runs as one captured CUDA graph
+    (``game/train.py:make_eval_exchange``); ``graph=False`` launches it
+    eagerly.
     """
 
     def __init__(self, cfg: GameConfig, modules: AgentModules,
                  desc_pack: DescriptionPack, device: Devices = None,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, graph: Optional[bool] = None):
         self.devices = [resolve_device(d) for d in (
             device if isinstance(device, (list, tuple)) else [device])]
         self.device = self.devices[0]
@@ -84,7 +87,8 @@ class Predictor:
             descs = description_inputs(desc_pack, cfg, dev)
             self._replicas[dev] = (mods, descs,
                                    make_eval_exchange(mods,
-                                                      use_kernel=use_kernel))
+                                                      use_kernel=use_kernel,
+                                                      graph=graph))
         self.modules, self._descs, self._exchange = \
             self._replicas[self.device]
         self._desc = self._descs["desc"].contiguous()
@@ -120,19 +124,17 @@ class Predictor:
         blocks = [self._block(features, data_context, lo, lo + per, dev)
                   for lo, dev in zip(range(0, batch, per), self.devices)]
         if len(blocks) == 1:
-            ex = blocks[0]
+            ex, dist = blocks[0]
         else:
-            ex = blocks[0]._replace(**{k: torch.cat(
-                [getattr(b, k).to(self.device) for b in blocks], dim=1)
+            ex = blocks[0][0]._replace(**{k: torch.cat(
+                [getattr(b, k).to(self.device) for b, _ in blocks], dim=1)
                 for k in _ANSWER})
             ex = ex._replace(n_steps=turns_run(ex.stop_masks,
                                                self.cfg.fixed_exchange))
-        # Fixed exchanges score the LAST turn, like training and eval
-        # (the stop unit gets no training signal in fixed mode).
-        y_masks = (None if self.cfg.fixed_exchange
-                   else assemble_loss_masks(ex.stop_masks).y)
-        outp, _ = get_rec_outp(ex.y, y_masks)
-        dist = torch.log_softmax(outp, dim=-1).cpu().numpy()
+            # Fixed exchanges score the LAST turn, like training and eval
+            # (the stop unit gets no training signal in fixed mode).
+            dist = answer_scores(self.cfg, ex)
+        dist = dist.cpu().numpy()
         n = int(ex.n_steps)
         return {
             "prediction": dist.argmax(axis=1),
@@ -148,7 +150,8 @@ class Predictor:
                data_context: Optional[np.ndarray], lo: int, hi: int,
                dev: torch.device):
         """The eval conversation of rows ``[lo, hi)`` on ``dev``'s replica,
-        with those rows' ``-flipout_dev`` draws."""
+        with those rows' ``-flipout_dev`` draws, and its answer (on a
+        card, with the kernel, both from one captured graph)."""
         mods, descs, run = self._replicas[dev]
         data = torch.as_tensor(features[lo:hi], device=dev).contiguous()
         ctx = (None if data_context is None else torch.as_tensor(
@@ -157,7 +160,8 @@ class Predictor:
                    desc_set_padded=descs["desc_set_padded"],
                    desc_set_mask=descs["desc_set_mask"],
                    uniforms=philox_eval_uniforms(self.cfg, hi - lo, 0, 0, 0,
-                                                 dev, row_base=lo))
+                                                 dev, row_base=lo),
+                   answer=True)
 
 
 def refuse_mesh_model(flags: Flags) -> None:

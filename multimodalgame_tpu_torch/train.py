@@ -47,8 +47,8 @@ from multimodalgame_tpu_torch.data.descriptions import (DescriptionPack,
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.game.agents import AgentModules, init_params
 from multimodalgame_tpu_torch.game.config import GameConfig
-from multimodalgame_tpu_torch.game.driver import (SAMPLER_LINE, mesh_banner,
-                                                  resolve_mesh)
+from multimodalgame_tpu_torch.game.driver import (SAMPLER_LINE, STEP_LINE,
+                                                  mesh_banner, resolve_mesh)
 from multimodalgame_tpu_torch.game.train import (init_opt_states,
                                                  make_eval_exchange)
 from multimodalgame_tpu_torch.utils.checkpoint import (ORBAX_NOT_PORTED,
@@ -463,7 +463,8 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
     from multimodalgame_tpu_torch.eval import context_of, eval_dev
     from multimodalgame_tpu_torch.game.exchange import description_inputs
     from multimodalgame_tpu_torch.game.logpack import LogPacker
-    from multimodalgame_tpu_torch.game.train import make_train_step
+    from multimodalgame_tpu_torch.game.train import (make_train_step,
+                                                     step_route)
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
         train_kernel_supports)
     from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
@@ -477,6 +478,7 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
     sampler = ("kernel" if train_kernel_supports(cfg, flags.batch_size,
                                                  desc.shape[0]) else "plain")
     flogger.Log(SAMPLER_LINE.format(sampler))
+    flogger.Log(STEP_LINE.format(step_route(device)))
     train_step = make_train_step(
         modules, flags.top_k_train, flags.batch_size,
         fast="kernel" if sampler == "kernel" else "auto",

@@ -1,0 +1,113 @@
+"""CUDA graphs of the port's steps: the counterpart of one compiled XLA
+program.
+
+The JAX package runs K optimizer updates as one compiled program
+(``make_multistep_train_step``, a ``jax.jit`` of a ``lax.scan``) and each
+eval conversation as one more, so the host dispatches once where the
+port's eager step launches thousands of kernels. :class:`Captured` holds
+a body (a function of no arguments that reads static input buffers and
+returns its outputs) and runs it:
+
+* its first ``warmup`` calls run the body eagerly on a side stream, as
+  whole-network capture requires (``torch.cuda.graphs``): the kernel
+  library is loaded, the kernels' one-time launch set-up runs, the
+  autograd engine and cuBLAS are initialized, and nothing of that is
+  recorded. These runs are real steps: the caller gets their outputs;
+* the next call captures the body as one ``torch.cuda.CUDAGraph``, in a
+  memory pool of its own, and replays it; every later call replays it.
+  A replay's outputs are the graph's static tensors, which the next
+  replay overwrites: the caller copies out what it keeps.
+
+A capture records kernel launches without running them, so the counted
+wrappers' ``launches`` (``ops/cuda_exchange.py``) are set back after the
+capture, and the capture's counts are added at each replay. A failed
+capture or replay raises; nothing falls back to the eager body.
+
+On the CPU (``capture`` False) every call runs the body as it is, on the
+same static buffers: the tests' way to hold the body that a graph
+captures against the eager step.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from multimodalgame_tpu_torch.ops.cuda_exchange import (add_launches,
+                                                        launch_counts,
+                                                        set_launch_counts)
+
+
+def clone_tree(x):
+    """``x`` with every tensor cloned: a tensor, a (named) tuple, a dict
+    or a value that passes through."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        vals = [clone_tree(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    return x
+
+
+class Captured:
+    """``body`` run eagerly ``warmup`` times, then captured once and
+    replayed; ``capture`` False runs it eagerly on every call. The class
+    counts the captures and replays of the process (``captures``,
+    ``replays``), which show that a path ran on its graphs."""
+
+    captures = 0
+    replays = 0
+
+    def __init__(self, body: Callable[[], Any], device: torch.device,
+                 warmup: int, capture: bool = True):
+        self.body = body
+        self.device = torch.device(device)
+        self.warmup = warmup
+        self.capture = capture
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs = None
+        self.runs = 0
+        self.replay_launches: Optional[Tuple[int, ...]] = None
+        self._side: Optional[torch.cuda.Stream] = None
+
+    def __call__(self) -> Tuple[Any, bool]:
+        """One run: ``(outputs, replayed)``. A replay's outputs are the
+        graph's static tensors."""
+        if not self.capture:
+            return self.body(), False
+        if self.graph is None and self.runs < self.warmup:
+            self.runs += 1
+            return self._eager(), False
+        if self.graph is None:
+            self._capture()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        add_launches(self.replay_launches)
+        Captured.replays += 1
+        return self.outputs, True
+
+    def _eager(self):
+        """The body on a side stream, ordered after the current stream's
+        work and before its later work."""
+        main = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            out = self.body()
+        main.wait_stream(self._side)
+        return out
+
+    def _capture(self) -> None:
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(graph):
+            self.outputs = self.body()
+        counts = launch_counts()
+        self.replay_launches = tuple(a - b for a, b in zip(counts, before))
+        set_launch_counts(before)
+        self.graph = graph
+        Captured.captures += 1

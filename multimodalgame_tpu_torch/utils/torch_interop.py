@@ -176,7 +176,12 @@ def load_opt_states(optimizers: Dict[str, Dict[str, Any]],
                 if i in state:
                     dst.copy_(torch.as_tensor(state[i][theirs]))
         if optim_type == "Adam":
-            st["count"] = max(int(v.get("step", 0)) for v in state.values())
+            # In place: a captured step reads the count where it lies.
+            count = max(int(v.get("step", 0)) for v in state.values())
+            if isinstance(st["count"], torch.Tensor):
+                st["count"].fill_(count)
+            else:
+                st["count"] = count
 
 
 def save_reference_checkpoint(path: str, data: Dict[str, Any],

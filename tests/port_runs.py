@@ -55,10 +55,11 @@ _STAMP = re.compile(r"^\d\d-\d\d-\d\d \d\d:\d\d:\d\d \[\d\] ", re.M)
 _FLOAT = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?")
 
 # Lines left out of the comparisons: the modules' reprs, the resume lines,
-# wall-clock timings (the flag dumps start the runs) and the port's line
-# naming phase A's sampler, which the JAX package does not print.
+# wall-clock timings (the flag dumps start the runs) and the port's lines
+# naming phase A's sampler and the step's route, which the JAX package
+# does not print.
 SKIPPED = ("Architecture:", "Loading from", "Loaded at step", "step timing",
-           "Phase A sampler")
+           "Phase A sampler", "Step: graph", "Step: eager")
 
 
 def runs_of(path):

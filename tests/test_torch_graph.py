@@ -1,0 +1,447 @@
+"""The port's graph route on the CPU: the pieces a captured training step
+and a captured eval conversation are made of, held against the eager
+step and the JAX package.
+
+A CUDA graph needs a card, so here each piece runs uncaptured:
+
+* Philox keyed by a tensor ``(seed, step, row_base)`` equals the int key
+  bit for bit, every stream, at row bases 0 and 32; the train kernel's
+  plain version under ``key=`` equals it under ``seed``/``step``, and
+  phase A takes the key on either sampler;
+* Adam's count as a device tensor: against JAX's
+  ``make_multistep_train_step_indexed`` at K = 3 in float64 (~1e-9, as
+  tests/test_torch_multistep.py holds the staged chunk), and bit for bit
+  against the int count's update;
+* the body that a graph captures (``graph=True`` on the CPU runs it on
+  the same static buffers and device counter) equals today's eager chunk
+  bit for bit at K = 4, then a second chunk and a full-metrics step,
+  for RMSprop and Adam with the kernel sampler (its plain version), the
+  plain sampler and the plain exchange;
+* ``step_route``: one CUDA device gives "graph", the CPU, a mesh and
+  ``tp`` "eager", decided without a card; the driver logs ``Step: eager``;
+* the eval conversation's packed weights follow a change that bumped no
+  version once the modules' ``generation`` advances, and its graph body
+  equals the eager conversation;
+* a ``.pt`` of the tensor count, read back by JAX's
+  ``load_reference_checkpoint`` and by the port, in place.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodalgame_tpu.game.agents import AgentModules as JaxModules
+from multimodalgame_tpu.game.agents import init_params as jax_init_params
+from multimodalgame_tpu.game.config import GameConfig as JaxConfig
+from multimodalgame_tpu.game.train import (
+    init_opt_states as jax_init_opt_states)
+from multimodalgame_tpu.game.train import (
+    make_multistep_train_step_indexed as jax_multistep)
+from multimodalgame_tpu.utils import torch_interop as jax_interop
+from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES, AgentModules,
+                                                  init_params)
+from multimodalgame_tpu_torch.game.config import GameConfig
+from multimodalgame_tpu_torch.game.train import (
+    _flat_view, flat_order, init_opt_states, make_eval_exchange,
+    make_multistep_train_step, make_multistep_train_step_indexed,
+    make_train_step, make_train_step_indexed, optimizer_update, step_route)
+from multimodalgame_tpu_torch.ops import cuda_exchange
+from multimodalgame_tpu_torch.ops.cuda_exchange import (
+    fused_train_forward, kernel_params)
+from multimodalgame_tpu_torch.ops.philox import (member_uniforms,
+                                                 philox4x32_10,
+                                                 philox_eval_uniforms,
+                                                 philox_uniforms)
+from multimodalgame_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                       save_checkpoint)
+from tests.jax_uniforms import jax_step_provider
+from tests.port_runs import port_flags, small_argv
+from tests.test_torch_train import (ATOL, BASE, BATCH, DELTA_ATOL,
+                                    DELTA_RTOL, NUM_CLASSES, RTOL, TOP_K,
+                                    _f64, _np_tree, _port_agents)
+from tests.tp_cases import params_np_of
+
+# Both flipout streams on, so that every training stream is drawn.
+FLIP = dict(BASE, flipout_sen=0.1, flipout_rec=0.2)
+ROWS = 40
+K = 4
+
+
+def _key(seed, step, row_base):
+    return torch.tensor([seed, step, row_base], dtype=torch.int64)
+
+
+def _equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+# ------------------------------------------------------------------ Philox
+
+@pytest.mark.parametrize("row_base", [0, 32])
+def test_tensor_key_philox_equals_int_key(row_base):
+    """Every training stream, the eval slots' and the members', and the
+    generator itself: the same words from a tensor key as from ints."""
+    cfg = GameConfig(**FLIP, flipout_dev=True)
+    seed, step = 2 ** 32 - 5, 123456
+    k = _key(seed, step, row_base)
+    want = philox_uniforms(cfg, 7, seed, step, row_base=row_base)
+    got = philox_uniforms(cfg, 7, k[0], k[1], row_base=k[2])
+    assert sorted(want) == ["fw", "fz", "s", "w", "z"]
+    assert _equal(got, want)
+    for slot in (0, 3):
+        assert _equal(philox_eval_uniforms(cfg, 5, k[0], k[1], slot,
+                                           row_base=k[2]),
+                      philox_eval_uniforms(cfg, 5, seed, step, slot,
+                                           row_base=row_base))
+    assert _equal(member_uniforms(cfg, 4, k[0], k[1], 3),
+                  member_uniforms(cfg, 4, seed, step, 3))
+    counter = tuple(torch.arange(6) + i for i in range(4))
+    for a, b in zip(philox4x32_10(counter, (k[0], k[1])),
+                    philox4x32_10(counter, (seed, step))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("row_base", [0, 32])
+@pytest.mark.parametrize("variant", [{}, {"flipout_sen": 0.1,
+                                          "flipout_rec": 0.2},
+                                     {"fixed_exchange": True}],
+                         ids=["adaptive", "flipout", "fixed"])
+def test_kernel_plain_version_under_tensor_key(variant, row_base):
+    cfg = GameConfig(**{**BASE, **variant})
+    params = kernel_params(init_params(AgentModules(cfg), seed=3))
+    rng = np.random.RandomState(4)
+    data = torch.from_numpy(rng.randn(9, cfg.img_feat_dim).astype(
+        np.float32))
+    desc = torch.from_numpy(rng.randn(NUM_CLASSES, cfg.wv_dim).astype(
+        np.float32))
+    want = fused_train_forward(cfg, params, data, desc, seed=11, step=7,
+                               row_base=row_base)
+    got = fused_train_forward(cfg, params, data, desc,
+                              key=_key(11, 7, row_base))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sampler", ["kernel", "plain"])
+def test_sample_conversation_takes_the_key(sampler):
+    """Phase A under ``key=`` on either sampler equals it under the same
+    key's uniforms."""
+    from multimodalgame_tpu_torch.game.fast_train import sample_conversation
+    cfg = GameConfig(**FLIP)
+    mods = init_params(AgentModules(cfg), seed=3)
+    rng = np.random.RandomState(4)
+    data = torch.from_numpy(rng.randn(9, cfg.img_feat_dim).astype(
+        np.float32))
+    desc = torch.from_numpy(rng.randn(NUM_CLASSES, cfg.wv_dim).astype(
+        np.float32))
+    got = sample_conversation(mods, data, desc, sampler, key=_key(5, 6, 32))
+    want = sample_conversation(mods, data, desc, sampler,
+                               uniforms=philox_uniforms(cfg, 9, 5, 6,
+                                                        row_base=32))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_kernel_key_is_checked():
+    cfg = GameConfig(**BASE)
+    params = kernel_params(init_params(AgentModules(cfg), seed=3))
+    data = torch.zeros(3, cfg.img_feat_dim)
+    desc = torch.zeros(NUM_CLASSES, cfg.wv_dim)
+    with pytest.raises(ValueError, match="exactly one"):
+        fused_train_forward(cfg, params, data, desc, seed=1, step=2,
+                            key=_key(1, 2, 0))
+    with pytest.raises(ValueError, match="int64"):
+        fused_train_forward(cfg, params, data, desc,
+                            key=_key(1, 2, 0).int())
+    with pytest.raises(ValueError, match="row_base"):
+        fused_train_forward(cfg, params, data, desc, key=_key(1, 2, 0),
+                            row_base=4)
+
+
+def test_launch_counts_round_trip():
+    """What a graph's owner does around a capture and at each replay."""
+    before = cuda_exchange.launch_counts()
+    try:
+        cuda_exchange.set_launch_counts((3, 5))
+        cuda_exchange.add_launches((1, 2))
+        assert cuda_exchange.fused_eval_exchange.launches == 4
+        assert cuda_exchange.fused_train_forward.launches == 7
+    finally:
+        cuda_exchange.set_launch_counts(before)
+
+
+# -------------------------------------------------------------------- Adam
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adam_tensor_count_equals_int_count(dtype):
+    """Five of Adam's updates, the count an int and a 0-dim int64 tensor:
+    the same updates and slots, bit for bit."""
+    cfg = GameConfig(**{**BASE, "optim_type": "Adam"})
+    rng = np.random.RandomState(0)
+    shapes = [(4, 3), (3,), (7,)]
+    zeros = [torch.zeros(s, dtype=dtype) for s in shapes]
+    states = [{"mu": list(zeros), "nu": list(zeros), "count": 0},
+              {"mu": list(zeros), "nu": list(zeros),
+               "count": torch.zeros((), dtype=torch.int64)}]
+    for _ in range(5):
+        grads = [torch.from_numpy(rng.randn(*s)).to(dtype) for s in shapes]
+        out = [optimizer_update(cfg, grads, st) for st in states]
+        for a, b in zip(out[0][0], out[1][0]):
+            assert torch.equal(a, b)
+        states = [st for _, st in out]
+    assert isinstance(states[1]["count"], torch.Tensor)
+    assert int(states[1]["count"]) == states[0]["count"] == 5
+    for slot in ("mu", "nu"):
+        for a, b in zip(states[0][slot], states[1][slot]):
+            assert torch.equal(a, b)
+
+
+def _indexed_data(seed=5):
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(ROWS, BASE["img_feat_dim"])
+    targets = rng.randint(0, NUM_CLASSES, ROWS)
+    desc = rng.randn(NUM_CLASSES, BASE["wv_dim"])
+    idx = np.stack([np.sort(rng.permutation(ROWS)[:BATCH]) for _ in range(K)])
+    return feats, targets, desc, idx
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["eager", "graph_body"])
+@pytest.mark.parametrize("preset", ["Adaptive", "Fixed"])
+def test_adam_tensor_count_matches_jax_indexed_chunk(preset, graph):
+    """K = 3 Adam steps of JAX's indexed trainer in float64 against the
+    port's, eager and on the graph body, handed JAX's per-step uniforms:
+    losses at ~1e-9, every weight's change at the trajectory tolerances,
+    and the count a tensor at 3."""
+    kw = {**BASE, "fixed_exchange": preset == "Fixed", "optim_type": "Adam"}
+    feats, targets, desc, idx = _indexed_data()
+    key = jax.random.PRNGKey(8)
+    with jax.enable_x64(True):
+        jmods = JaxModules(JaxConfig(**kw))
+        params = _f64(jax_init_params(jmods, jax.random.PRNGKey(1),
+                                      num_classes=NUM_CLASSES))
+        start = _np_tree(params)
+        chunk = jax_multistep(jmods, top_k=TOP_K, batch_denom=BATCH,
+                              fast="auto")
+        new, _, jm = chunk(params, jax_init_opt_states(jmods.cfg, params),
+                           jnp.asarray(feats), jnp.asarray(targets),
+                           jnp.asarray(idx[:3]), jnp.asarray(desc), key,
+                           step0=0)
+        new = _np_tree(new)
+        want = {f: np.asarray(getattr(jm, f)) for f in jm._fields}
+        provider = jax_step_provider(jmods.cfg, key, BATCH,
+                                     dtype=jnp.float64)
+        for s in range(3):
+            provider(s)
+    mods = _port_agents(kw, start)
+    opts = init_opt_states(mods.cfg, mods)
+    port = make_multistep_train_step_indexed(
+        mods, TOP_K, BATCH, fast="kernel", uniforms=provider, device="cpu",
+        graph=graph)
+    sm = port(opts, torch.from_numpy(feats), torch.from_numpy(targets),
+              idx[:3], torch.from_numpy(desc), 0)
+    for f, v in want.items():
+        np.testing.assert_allclose(getattr(sm, f).numpy(), v, rtol=RTOL,
+                                   atol=ATOL, err_msg=f)
+    got = params_np_of(mods)
+    from multimodalgame_tpu_torch.utils.torch_interop import (
+        params_to_torch_state)
+    want_p, base = params_to_torch_state(new), params_to_torch_state(start)
+    for agent in AGENT_NAMES:
+        for name, p in got[agent].items():
+            np.testing.assert_allclose(
+                p - base[agent][name], want_p[agent][name] - base[agent][name],
+                rtol=DELTA_RTOL, atol=DELTA_ATOL, err_msg=f"{agent}.{name}")
+        assert isinstance(opts[agent]["count"], torch.Tensor)
+        assert int(opts[agent]["count"]) == 3
+
+
+# ------------------------------------------------------ the captured body
+
+def _run(optim, fast, graph, staged=False):
+    """Two chunks (K and 2 steps) and a full-metrics step on the same
+    agents, from the same seed; the metrics, weights and slots."""
+    feats, targets, desc, idx = (torch.from_numpy(a) if i < 3 else a
+                                 for i, a in enumerate(_indexed_data(3)))
+    cfg = GameConfig(**{**BASE, "optim_type": optim})
+    mods = init_params(AgentModules(cfg), seed=1).double()
+    opts = init_opt_states(cfg, mods)
+    kw = dict(fast=fast, seed=9, device="cpu", graph=graph)
+    if staged:
+        chunk = make_multistep_train_step(mods, TOP_K, BATCH, **kw)
+        plan = torch.from_numpy(idx)
+        first = chunk(opts, feats[plan], targets[plan], desc, 5)
+        second = chunk(opts, feats[plan[:2]], targets[plan[:2]], desc, 9)
+        full = make_train_step(mods, TOP_K, BATCH, **kw)(
+            opts, feats[plan[3]], targets[plan[3]], desc, 11)
+    else:
+        chunk = make_multistep_train_step_indexed(mods, TOP_K, BATCH, **kw)
+        first = chunk(opts, feats, targets, idx, desc, 5)
+        second = chunk(opts, feats, targets, idx[:2], desc, 9)
+        full = make_train_step_indexed(mods, TOP_K, BATCH, **kw)(
+            opts, feats, targets, idx[3], desc, 11)
+    return dict(first=first, second=second, full=full, mods=mods, opts=opts)
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["indexed", "staged"])
+@pytest.mark.parametrize("fast", ["kernel", "auto", False],
+                         ids=["kernel_plain_version", "plain_sampler",
+                              "plain_exchange"])
+@pytest.mark.parametrize("optim", ["RMSprop", "Adam"])
+def test_graph_body_equals_eager_chunk(optim, fast, staged):
+    eager = _run(optim, fast, graph=False, staged=staged)
+    body = _run(optim, fast, graph=True, staged=staged)
+    for part in ("first", "second"):
+        for f in eager[part]._fields:
+            assert torch.equal(getattr(eager[part], f),
+                               getattr(body[part], f)), (part, f)
+    assert eager["first"].loss_rec.shape == (K,)
+    for f in ("loss_rec", "loss_sen", "accuracy", "dist", "argmax"):
+        assert torch.equal(getattr(eager["full"], f),
+                           getattr(body["full"], f)), f
+    assert torch.equal(eager["full"].exchange.sen_feats,
+                       body["full"].exchange.sen_feats)
+    for (k, p), q in zip(eager["mods"].named_parameters(),
+                         body["mods"].parameters()):
+        assert torch.equal(p, q), k
+    for agent in AGENT_NAMES:
+        a, b = eager["opts"][agent], body["opts"][agent]
+        for slot in ("mu", "nu"):
+            for x, y in zip(a.get(slot, []), b.get(slot, [])):
+                assert torch.equal(x, y), (agent, slot)
+        if optim == "Adam":
+            assert int(a["count"]) == int(b["count"]) == K + 3
+    # Graph-routed chunks advance the generation the eval cache keys on.
+    assert body["mods"].generation == 3
+
+
+# ------------------------------------------------------------------- route
+
+def test_step_route_by_configuration():
+    assert step_route(None) == "graph"
+    assert step_route("cuda") == "graph"
+    assert step_route(torch.device("cuda", 0)) == "graph"
+    assert step_route("cpu") == "eager"
+    mesh = types.SimpleNamespace(device=torch.device("cpu"), size=2)
+    assert step_route("cuda", mesh=mesh) == "eager"
+    assert step_route("cuda", tp=object()) == "eager"
+
+
+def test_graph_refused_on_a_mesh():
+    mods = init_params(AgentModules(GameConfig(**BASE)), seed=1)
+    mesh = types.SimpleNamespace(device=torch.device("cpu"), size=2)
+    with pytest.raises(ValueError, match="cannot be captured"):
+        make_multistep_train_step_indexed(mods, TOP_K, BATCH, fast="auto",
+                                          device="cpu", mesh=mesh,
+                                          graph=True)
+
+
+def test_driver_logs_eager_route_on_the_cpu(synthetic_dataset, tmp_path):
+    from multimodalgame_tpu_torch.train import run
+    flags = port_flags(small_argv(synthetic_dataset, tmp_path, "route"))
+    out = run(flags, max_steps=3, device="cpu")
+    assert out["step"] == 3
+    log = open(flags.log_file).read()
+    assert "Step: eager" in log and "Step: graph" not in log
+
+
+# -------------------------------------------------------------------- eval
+
+def _eval_inputs(cfg, batch=7):
+    rng = np.random.RandomState(2)
+    return (torch.from_numpy(rng.randn(batch, cfg.img_feat_dim).astype(
+        np.float32)), torch.from_numpy(rng.randn(NUM_CLASSES, cfg.wv_dim)
+                                       .astype(np.float32)))
+
+
+def test_eval_cache_follows_generation():
+    """A change through the flat buffer bumps no parameter's version (as
+    a graph replay's update does not): the eval conversation sees it once
+    the modules' generation advances."""
+    cfg = GameConfig(**BASE)
+    mods = init_params(AgentModules(cfg), seed=1)
+    data, desc = _eval_inputs(cfg)
+    opts = init_opt_states(cfg, mods)
+    # Lay the carry out flat with one eager step.
+    make_train_step(mods, TOP_K, BATCH, fast="kernel", device="cpu")(
+        opts, data[:BATCH].double().numpy(), np.arange(BATCH) % NUM_CLASSES,
+        desc, 0)
+    run = make_eval_exchange(mods)
+    before = run(data, desc)
+    params = list(mods.sender.parameters())
+    versions = [p._version for p in params]
+    with torch.no_grad():
+        _flat_view(params, flat_order(params)).add_(0.5)
+    assert [p._version for p in params] == versions
+    fresh = make_eval_exchange(mods)(data, desc)
+    assert not torch.equal(fresh.y, before.y)
+    # Without the generation the cache keeps (some of) the old weights.
+    assert not torch.equal(run(data, desc).y, fresh.y)
+    mods.generation += 1
+    got = run(data, desc)
+    for a, b in zip(got, fresh):
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fixed", [False, True], ids=["adaptive", "fixed"])
+def test_eval_graph_body_equals_eager(fixed):
+    """The body an eval graph captures (uncaptured here, twice, with a
+    corrupt mask and without) against the eager kernel route, and the
+    answer against ``answer_scores`` of the eager record."""
+    from multimodalgame_tpu_torch.game.train import answer_scores
+    cfg = GameConfig(**BASE, fixed_exchange=fixed)
+    mods = init_params(AgentModules(cfg), seed=1)
+    data, desc = _eval_inputs(cfg)
+    mask = torch.zeros(cfg.rec_w_dim)
+    mask[:3] = 1
+    eager, body = make_eval_exchange(mods), make_eval_exchange(mods,
+                                                               graph=True)
+    for corrupt in (None, mask, None):
+        want = eager(data, desc, corrupt)
+        got, dist = body(data, desc, corrupt, answer=True)
+        for f in want._fields:
+            a, b = getattr(want, f), getattr(got, f)
+            assert (a is None and b is None) or torch.equal(a, b), f
+        assert torch.equal(dist, answer_scores(cfg, want))
+
+
+# -------------------------------------------------------------- checkpoint
+
+def test_tensor_count_round_trips_through_pt(tmp_path):
+    """Three Adam steps, then the ``.pt``: JAX reads the count as each
+    slot's ``step``, and the port reads it back into its tensor in
+    place."""
+    kw = {**BASE, "optim_type": "Adam"}
+    feats, targets, desc, idx = _indexed_data()
+    mods = init_params(AgentModules(GameConfig(**kw)), seed=1).double()
+    opts = init_opt_states(mods.cfg, mods)
+    make_multistep_train_step_indexed(mods, TOP_K, BATCH, fast="kernel",
+                                      device="cpu", graph=True)(
+        opts, torch.from_numpy(feats), torch.from_numpy(targets), idx[:3],
+        torch.from_numpy(desc), 0)
+    path = str(tmp_path / "count.pt")
+    save_checkpoint(path, {"step": 3, "best_dev_acc": 0.0}, mods, opts)
+    raw = torch.load(path, weights_only=False)
+    assert all(s["step"] == 3 for s in
+               raw["optimizers"]["sender"]["state"].values())
+    jmods = JaxModules(JaxConfig(**kw))
+    template = jax_init_params(jmods, jax.random.PRNGKey(0),
+                               num_classes=NUM_CLASSES)
+    jopts = jax_init_opt_states(jmods.cfg, template)
+    data, _, new_opts = jax_interop.load_reference_checkpoint(
+        path, template, jopts, "Adam")
+    assert data["step"] == 3
+    back = jax_interop.opt_state_to_torch(
+        "sender", template["sender"], new_opts["sender"], "Adam",
+        step=3)["state"]
+    assert all(int(s["step"]) == 3 for s in back.values())
+    other = AgentModules(GameConfig(**kw)).double()
+    port_opts = init_opt_states(other.cfg, other)
+    counts = {a: port_opts[a]["count"] for a in AGENT_NAMES}
+    load_checkpoint(path, other, port_opts)
+    for agent in AGENT_NAMES:
+        assert port_opts[agent]["count"] is counts[agent]
+        assert int(counts[agent]) == 3

@@ -145,6 +145,14 @@ def test_predictor_serves_through_the_kernel(cuda):
     before = fused_eval_exchange.launches
     got = kernel.predict(x)
     assert fused_eval_exchange.launches == before + 1
+    # Captured on the second request, replayed on the third: the same
+    # answers, one launch each.
+    for n in (2, 3):
+        again = kernel.predict(x)
+        assert fused_eval_exchange.launches == before + n
+        for k, v in got.items():
+            np.testing.assert_array_equal(again[k], v)
+    before += 2
     want = plain.predict(x)
     assert fused_eval_exchange.launches == before + 1
     assert got["n_steps"] == want["n_steps"] > 1
@@ -172,6 +180,9 @@ def _numpy_uniforms(cfg, batch, seed):
 
 
 def _check_train(cfg, params, data, desc, mode):
+    """One launch in ``mode``: given uniforms, Philox keyed by value, or
+    Philox keyed by the device tensor ``[seed, step, row_base]`` (which
+    must also equal the by-value launch bit for bit)."""
     batch = data.shape[0]
     with torch.inference_mode():
         if mode == "uniforms":
@@ -181,6 +192,13 @@ def _check_train(cfg, params, data, desc, mode):
             u = philox_uniforms(cfg, batch, 7, 3, device="cuda")
             got = fused_train_forward(cfg, params, data, desc, seed=7,
                                       step=3)
+            if mode == "key":
+                by_value = got
+                got = fused_train_forward(
+                    cfg, params, data, desc,
+                    key=torch.tensor([7, 3, 0], device="cuda"))
+                for a, b in zip(got, by_value):
+                    assert torch.equal(a, b)
         want = fused_train_forward_reference(cfg, params, data, desc, u)
     torch.cuda.synchronize()
     rep = compare_outputs(cfg, got, want, uniforms=u)
@@ -188,7 +206,7 @@ def _check_train(cfg, params, data, desc, mode):
     return got
 
 
-@pytest.mark.parametrize("mode", ["uniforms", "philox"])
+@pytest.mark.parametrize("mode", ["uniforms", "philox", "key"])
 @pytest.mark.parametrize("batch", [1, 8, 13])
 @pytest.mark.parametrize("name", list(TRAIN_VARIANTS))
 def test_train_kernel_matches_plain_version(cuda, name, batch, mode):
@@ -197,7 +215,7 @@ def test_train_kernel_matches_plain_version(cuda, name, batch, mode):
     _check_train(cfg, kernel_params(mods), data, desc, mode)
 
 
-@pytest.mark.parametrize("mode", ["uniforms", "philox"])
+@pytest.mark.parametrize("mode", ["uniforms", "philox", "key"])
 def test_train_kernel_matches_plain_version_canonical_width(cuda, mode):
     cfg, mods, data, desc = _case(CANON, 64, 30, seed=1, stop_bias=0.0)
     got = _check_train(cfg, kernel_params(mods), data, desc, mode)
@@ -238,6 +256,58 @@ def test_train_kernel_row_base_numbers_a_shards_rows(cuda, dims, batch,
         torch.testing.assert_close(
             torch.cat([getattr(p, k) for p in parts], 1), getattr(whole, k),
             rtol=0, atol=1e-5)
+
+
+def test_train_kernel_device_key_is_read_when_it_runs(cuda):
+    """A launch recorded in a CUDA graph under ``key=`` draws the numbers
+    of the key as the device holds it at each replay."""
+    cfg, mods, data, desc = _case(SMALL, 8, 5, stop_bias=0.0)
+    params = kernel_params(mods)
+    key = torch.tensor([7, 3, 0], device="cuda")
+    with torch.inference_mode():
+        fused_train_forward(cfg, params, data, desc, key=key)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = fused_train_forward(cfg, params, data, desc, key=key)
+        for step in (3, 4, 9):
+            key[1] = step
+            graph.replay()
+            want = fused_train_forward(cfg, params, data, desc, seed=7,
+                                       step=step)
+            torch.cuda.synchronize()
+            for a, b in zip(static, want):
+                assert torch.equal(a, b)
+
+
+def test_graph_route_replays_equal_eager_steps(cuda):
+    """The bare trainer on the graph route (two eager warm-up steps, then
+    replays) against the eager route from the same seed: weights and
+    scalars equal after every step, one launch a step either way."""
+    cfg = GameConfig(**SMALL, entropy_s=0.08, entropy_sen=0.01,
+                     entropy_rec=0.01, baseline_hid_dim=16)
+    rng = np.random.RandomState(0)
+    feats = torch.from_numpy(rng.randn(40, 64).astype(np.float32)).cuda()
+    targets = torch.from_numpy(rng.randint(0, 5, 40)).cuda()
+    desc = torch.from_numpy(rng.randn(5, 24).astype(np.float32)).cuda()
+    idx = np.stack([rng.permutation(40)[:8] for _ in range(6)])
+    runs = []
+    for graph in (False, True):
+        mods = init_params(AgentModules(cfg), seed=0, device="cuda")
+        chunk = make_multistep_train_step_indexed(
+            mods, 2, 8, fast="kernel", seed=3, device="cuda", graph=graph)
+        opts = init_opt_states(cfg, mods)
+        before = fused_train_forward.launches
+        steps = []
+        for i in range(6):
+            m = chunk(opts, feats, targets, idx[i:i + 1], desc, i)
+            steps.append((torch.stack(list(m)).cpu(),
+                          [p.detach().cpu().clone()
+                           for p in mods.parameters()]))
+        assert fused_train_forward.launches == before + 6
+        runs.append(steps)
+    for (ma, pa), (mb, pb) in zip(*runs):
+        assert torch.equal(ma, mb)
+        assert all(torch.equal(a, b) for a, b in zip(pa, pb))
 
 
 def test_train_kernel_each_call_is_one_launch(cuda):
@@ -331,13 +401,15 @@ def test_kernel_matches_plain_version_across_plans(cuda, name):
     assert fused_eval_exchange.launches == before + 1
 
 
-@pytest.mark.parametrize("mode", ["uniforms", "philox"])
+@pytest.mark.parametrize("mode", ["uniforms", "philox", "key"])
 @pytest.mark.parametrize("name", list(PLAN_CASES))
 def test_train_kernel_matches_plain_version_across_plans(cuda, name, mode):
     cfg, params, data, desc = _plan_case(name, stop_bias=0.0)
     before = fused_train_forward.launches
     _check_train(cfg, params, data, desc, mode)
-    assert fused_train_forward.launches == before + 1
+    # The key mode launches once more: by value, then under the key.
+    assert fused_train_forward.launches == before + (2 if mode == "key"
+                                                     else 1)
 
 
 @pytest.mark.parametrize("train", [False, True])

@@ -213,8 +213,8 @@ def test_flat_update_matches_per_leaf_rule(optim):
     params = list(mods.sender.parameters())
     leaf_params = [p.detach().clone() for p in params]
     opts = init_opt_states(cfg, mods)
-    leaf_state = {k: [t.clone() for t in v] if isinstance(v, list) else v
-                  for k, v in opts["sender"].items()}
+    leaf_state = {k: [t.clone() for t in v] if isinstance(v, list)
+                  else v.clone() for k, v in opts["sender"].items()}
     rng = np.random.RandomState(3)
     order = flat_order(params)
     for _ in range(3):
