@@ -61,7 +61,7 @@ result line):
 6b. graph  — the graph route (``game/train.py:step_route``: one CUDA
              device, no mesh, no tensor parallelism; the port of the JAX
              package's one compiled program per K updates), which phases
-             5-7, 8-10 and 12-16 take by default (their counts hold
+             5-7, 8-10, 12, 13 and 16 take by default (their counts hold
              unchanged: a graph's replays add the launches its capture
              recorded). The bare trainer from seed 0, 2 eager warm-up
              steps then 8 replays, one step a chunk, against 8 + 2 eager
@@ -130,22 +130,49 @@ result line):
              made on the card from a seed (1.55 GB staged), with a dev set
              of the same width in memory: launches and log counts from
              the cadences, finite losses, steps/s;
-14. population — one step of a 4-member population against four
-             single-game steps with the same weights and uniforms, in
-             float64 (bits and accuracies equal, losses within 1e-5,
-             parameters within 5e-3) and float32 (the same but the losses,
-             which are logged);
+13a. population_graph — the population's graph route
+             (``parallel/population.py:population_route``: any CUDA
+             device, with or without a mesh; the port of the JAX
+             package's one jitted program per population chunk and per
+             dev batch), which phases 14-16 and 20 take by default: 4
+             canonical members at learning-rate scales 0.5, 1, 2 and 4
+             from seed 0, 2 eager warm-up steps then 8 replays, one step
+             a chunk, against 10 eager steps (``graph=False``), for
+             RMSprop and Adam: a digest of every member's weights and
+             slots after every step must be equal (or, if capture rounded
+             otherwise, the first differing step and the largest
+             difference are reported and the weights held at
+             POPULATION_PARAM_ATOL), Adam's count equal, the first call's
+             inputs (not the graph's carry) left as they were and the
+             carry, passed back, trained in place; the dev batch's graph
+             against the eager ``batch_correct`` at batches 64 and 8 (the
+             sweep's truncated last batch), ``-flipout_dev`` off and on
+             (uniforms keyed by a device counter, equal to the int
+             key's), three calls a shape, equal hit counts; the host's
+             launch calls an update from ``torch.profiler`` at one step a
+             chunk (graph and eager) and in a chunk of 8 (at most 3 on
+             the graph), with the device's kernels a step and busy share;
+14. population — one step of a 4-member population (on the graph route:
+             its first step is an eager warm-up) against four single-game
+             steps with the same weights and uniforms, in float64 (bits
+             and accuracies equal, losses within 1e-5, parameters within
+             5e-3) and float32 (the same but the losses, which are
+             logged);
 15. sweep   — ``sweep.run_sweep`` with ``-population 16 -lr_scales
              0.5,1,2,4`` for 5 epochs (230 steps; cut from 10,
-             SWEEP_ARGV's note) on the canonical sets:
+             SWEEP_ARGV's note) on the canonical sets, every step after
+             the warm-up and every dev batch after its shape's first a
+             graph replay (at least 228 replays):
              16 member lines and the summary, no kernel launch, the
              winner's best dev top-6 at least 0.5, ``-eval_only`` on its
              ``_best`` reproducing its final dev accuracy; then the
-             population step's time, game-steps/s and device busy share
+             population step of 16 on the graph against the eager step in
+             turns (eager, graph, graph, eager): ms, game-steps/s, device
+             kernels a step, busy share and host launch calls a step,
              beside a single-game step on the same sampler;
-16. sweep_one — ``-population 1 -lr_scales 0.5`` for 2 epochs: 92 train
-             launches, one dev sweep's 6 eval launches, ``-eval_only``
-             agreeing;
+16. sweep_one — ``-population 1 -lr_scales 0.5`` for 2 epochs on the
+             single game's graph route: 92 train launches, one dev
+             sweep's 6 eval launches, ``-eval_only`` agreeing;
 17. row_base — the train kernel at batch 64 under Philox as two launches
              of 32 rows (``row_base`` 0 and 32) against one launch of 64:
              bits, masks and the turn count equal, probabilities within
@@ -187,9 +214,12 @@ result line):
              not scaling);
 20. sweep_mesh — ``run_sweep`` at ``-population 4`` for 10 steps (dev
              sweeps at 5 and 10) with its members split over the two
-             ranks, against the unsharded sweep from the same seed: every
+             ranks, each rank's steps and dev batches on the graph route,
+             against the unsharded sweep from the same seed: every
              member's dev accuracies equal but for one tie row, and the
              winner equal (cut from 2 epochs: SWEEP_MESH_ARGV's note);
+             both runs' game-steps/s (set-up and, on the mesh, the ranks'
+             start included);
 21. serve_mesh — the serve phase's ``Predictor`` over two blocks on the
              card against the one-device ``Predictor`` at batches 1, 64
              and 100: bits equal but for counted tie rows, class scores
@@ -215,7 +245,8 @@ result line):
 ``python3 chip_smoke.py --mesh`` runs only the build, the serve and driver
 phases and phases 17-21 (no result line); ``--staged`` only the build,
 phase 6a and ``mesh_step``; ``--graph`` only the build, phase 4 and
-phase 6b; ``--mesh-cpu`` ``mesh_step``'s readings with
+phase 6b; ``--population`` only the build, phases 13a, 14, 15, 16 and
+20; ``--mesh-cpu`` ``mesh_step``'s readings with
 every rank on the CPU (no card needed, no result line). ``python3
 chip_smoke.py --times [OUT [OTHER]]`` runs only the probe, the batch-64
 times of both kernels (both rulers) and of ``Predictor.predict``, and one
@@ -312,6 +343,12 @@ SWEEP_ARGV = ["-population", "16", "-lr_scales", "0.5,1,2,4",
 SWEEP_ONE_ARGV = ["-population", "1", "-lr_scales", "0.5", "-max_epoch",
                   str(VARIANT_EPOCHS), "-experiment_name", "sweep_one"]
 POPULATION_MEMBERS = 4
+# The population on the graph route: its members' learning-rate scales,
+# and the most host launch calls a replayed update may take in a chunk of
+# PROFILED_CHUNK (one counter-and-plan copy, 8 replays, one metrics copy:
+# 1.25).
+POPULATION_SCALES = [0.5, 1, 2, 4]
+POPULATION_HOST_CALLS = 3
 # float64: each member's change of weights (new minus start) against its
 # single-game step's, and the losses, absolute. One RMSprop step at lr 1e-4
 # moves a weight by ~1e-3, so only a limit far below that sees a wrong or
@@ -1437,13 +1474,13 @@ def check_population(device, smi, dtype_name: str):
 
 
 def population_timing(device, smi, n: int = 16):
-    """The canonical population step of ``n`` members at batch 64 (host
-    clock around steps that each end in a synchronize), game-steps/s, and
-    the device's kernels a step and busy share over a few profiled steps;
-    beside it one single-game step on the same plain sampler."""
+    """The canonical population step of ``n`` members at batch 64, one
+    step a chunk, on the graph route against the eager step in turns
+    (eager, graph, graph, eager): host-clock median ms (steps that each
+    end in a synchronize), game-steps/s, and the device's kernels a step,
+    busy share and the host's launch calls a step over a few profiled
+    steps; beside it one single-game step on the same plain sampler."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from multimodalgame_tpu_torch.game.agents import AgentModules
     from multimodalgame_tpu_torch.game.train import (
         init_opt_states, make_multistep_train_step_indexed)
@@ -1454,59 +1491,291 @@ def population_timing(device, smi, n: int = 16):
     _, _, train, _ = canonical_inputs(device)
     desc = torch.from_numpy(descriptions()).to(device)
     plan = train.epoch_indices(0, True, TRAIN_BATCH)
-    state = {"pop": init_population(cfg, 0, n, device), "step": 0}
-    state["opts"] = init_population_opt_states(cfg, state["pop"])
-    chunk = make_population_train_step(AgentModules(cfg).to(device), 6,
-                                       TRAIN_BATCH, seed=1)
-    scale = np.asarray([0.5, 1, 2, 4] * (n // 4), np.float32)
+    scale = np.asarray(POPULATION_SCALES * (n // 4), np.float32)
+    turns = {}
+    for graph in (False, True, True, False):
+        state = {"pop": init_population(cfg, 0, n, device), "step": 0}
+        state["opts"] = init_population_opt_states(cfg, state["pop"])
+        chunk = make_population_train_step(AgentModules(cfg).to(device), 6,
+                                           TRAIN_BATCH, seed=1, graph=graph)
 
-    def pop_step():
-        i = state["step"]
-        state["pop"], state["opts"], _ = chunk(
-            state["pop"], state["opts"], train.feats, train.targets,
-            plan[i % len(plan)][None], desc, i, lr_scale=scale)
-        state["step"] += 1
-        torch.cuda.synchronize()
+        def pop_step():
+            i = state["step"]
+            state["pop"], state["opts"], _ = chunk(
+                state["pop"], state["opts"], train.feats, train.targets,
+                plan[i % len(plan)][None], desc, i, lr_scale=scale)
+            state["step"] += 1
+            torch.cuda.synchronize()
 
-    mods = member_modules(cfg, state["pop"], 0)
+        ms = host_median_ms(pop_step)
+        prof = profile_steps(pop_step, 3)
+        turns.setdefault("graph" if graph else "eager", []).append({
+            "population_step_ms": ms, "game_steps_per_s": 1e3 * n / ms,
+            **{k: prof[k] for k in (
+                "device_kernels_per_step", "device_busy_share",
+                "host_launch_calls_per_step", "host_calls_per_step",
+                "top_device_kernels_us_per_step")}})
+        del state, chunk
+        torch.cuda.empty_cache()
+
+    mods = member_modules(cfg, init_population(cfg, 0, 1, device), 0)
     single = make_multistep_train_step_indexed(mods, 6, TRAIN_BATCH,
                                                fast=True, seed=1,
                                                device=device)
     opts = init_opt_states(cfg, mods)
+    done = [0]
 
     def one_step():
-        i = state["step"]
+        i = done[0]
         single(opts, train.feats, train.targets, plan[i % len(plan)][None],
                desc, i)
+        done[0] += 1
         torch.cuda.synchronize()
 
-    pop_ms = host_median_ms(pop_step)
     one_ms = host_median_ms(one_step)
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            pop_step()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    graph_ms = statistics.median(r["population_step_ms"]
+                                 for r in turns["graph"])
+    eager_ms = statistics.median(r["population_step_ms"]
+                                 for r in turns["eager"])
     row = {"phase": "timing", "population": n, "batch": TRAIN_BATCH,
-           "population_step_ms": pop_ms,
-           "game_steps_per_s": 1e3 * n / pop_ms,
+           "turns": turns,
+           "population_step_ms": graph_ms,
+           "eager_population_step_ms": eager_ms,
+           "game_steps_per_s": 1e3 * n / graph_ms,
+           "eager_game_steps_per_s": 1e3 * n / eager_ms,
+           "graph_over_eager": graph_ms / eager_ms,
            "single_plain_step_ms": one_ms,
            "single_plain_steps_per_s": 1e3 / one_ms,
-           "population_over_single": pop_ms / one_ms,
-           "device_kernels_per_step": sum(e.count for e in events) / n_prof,
-           "device_busy_share": (device_us / wall_us) if device_us else None,
-           "top_device_kernels_us_per_step": [
-               [e.key[:60], e.self_device_time_total / n_prof]
-               for e in top],
+           "population_over_single": graph_ms / one_ms,
+           "device_kernels_per_step":
+               turns["graph"][0]["device_kernels_per_step"],
+           "device_busy_share": turns["graph"][0]["device_busy_share"],
            "card": smi}
     log(row)
     return row
+
+
+def population_digest(pop, opts) -> str:
+    """A SHA-256 of every member's weights and optimizer slots (Adam's
+    count included): equal digests, equal carries."""
+    import hashlib
+    import torch
+    leaves = list(pop.values()) + [
+        t for st in opts.values() for v in st.values()
+        for t in (v if isinstance(v, list) else [v])]
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def population_replays(cfg, train, desc, device) -> dict:
+    """POPULATION_MEMBERS canonical members from seed 0 at
+    POPULATION_SCALES: GRAPH_WARMUP eager steps then GRAPH_REPLAYS
+    replays on the graph route, one step a chunk, against as many eager
+    steps (``graph=False``), with a digest of every member's weights and
+    slots after every step. Bit-equal, or (if capture rounded otherwise)
+    the first differing step and the largest difference, held at the
+    population phase's float32 tolerance. The first call is made on
+    tensors that are not the carry, which must be left as they were; the
+    later calls pass the carry back, which must be trained in place."""
+    import torch
+    from multimodalgame_tpu_torch.game.agents import AgentModules
+    from multimodalgame_tpu_torch.game.train import GRAPH_WARMUP
+    from multimodalgame_tpu_torch.parallel.population import (
+        init_population, init_population_opt_states,
+        make_population_train_step)
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+    steps = GRAPH_WARMUP + GRAPH_REPLAYS
+    plan = train.epoch_indices(0, True, TRAIN_BATCH)
+    scale = np.asarray(POPULATION_SCALES, np.float32)
+    runs = {}
+    for graph in (False, True):
+        pop = init_population(cfg, 0, POPULATION_MEMBERS, device)
+        opts = init_population_opt_states(cfg, pop)
+        given = {k: v.clone() for k, v in pop.items()}
+        chunk = make_population_train_step(AgentModules(cfg).to(device), 6,
+                                           TRAIN_BATCH, seed=1, graph=graph)
+        replays = Captured.replays
+        digests, scalars, in_place = [], [], True
+        caller = pop
+        for i in range(steps):
+            out, opts, sm = chunk(pop, opts, train.feats, train.targets,
+                                  plan[i:i + 1], desc, i, lr_scale=scale)
+            if graph and i > 0:
+                in_place &= all(out[k] is pop[k] for k in pop)
+            pop = out
+            scalars.append(torch.stack(list(sm)).cpu())
+            digests.append(population_digest(pop, opts))
+        runs[graph] = {
+            "digests": digests, "scalars": scalars,
+            "replays": Captured.replays - replays,
+            "inputs_unchanged": all(torch.equal(caller[k], v)
+                                    for k, v in given.items()),
+            "carry_in_place": in_place,
+            "params": {k: v.cpu() for k, v in pop.items()},
+            "count": {a: int(o["count"]) for a, o in opts.items()
+                      if "count" in o}}
+    eager, graph = runs[False], runs[True]
+    first = first_difference(eager["digests"], graph["digests"])
+    row = {"optim": cfg.optim_type, "members": POPULATION_MEMBERS,
+           "lr_scale": POPULATION_SCALES, "steps": steps,
+           "eager_warmup_steps": GRAPH_WARMUP,
+           "replayed_steps": graph["replays"],
+           "bit_equal_after_every_step": first is None,
+           "scalars_equal": all(torch.equal(a, b) for a, b in zip(
+               eager["scalars"], graph["scalars"])),
+           "first_differing_step": first, "adam_count": graph["count"],
+           "caller_inputs_unchanged": graph["inputs_unchanged"],
+           "carry_trained_in_place": graph["carry_in_place"]}
+    if first is not None:
+        row["max_abs_diff"] = max(
+            float((graph["params"][k] - v).abs().max())
+            for k, v in eager["params"].items())
+    row["ok"] = (graph["replays"] == GRAPH_REPLAYS
+                 and (first is None
+                      or row["max_abs_diff"] <= POPULATION_PARAM_ATOL)
+                 and graph["count"] == eager["count"]
+                 and graph["inputs_unchanged"] and graph["carry_in_place"])
+    return row
+
+
+def population_eval_graphs(device) -> dict:
+    """The population's dev batch on the graph route against the eager
+    ``batch_correct`` at dev batches 64 and 8 (the sweep's truncated last
+    batch), ``-flipout_dev`` off and on (its uniforms keyed by a device
+    counter, as the sweep draws them, and equal to the int key's): each
+    shape three times (eager warm-up, capture and replay, replay), the
+    hit counts equal every time."""
+    import torch
+    from multimodalgame_tpu_torch.game.agents import AgentModules
+    from multimodalgame_tpu_torch.ops.philox import member_uniforms
+    from multimodalgame_tpu_torch.parallel.population import (
+        init_population, make_population_eval)
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+    _, _, _, dev = canonical_inputs(device)
+    desc = torch.from_numpy(descriptions()).to(device)
+    n, out = POPULATION_MEMBERS, {}
+    for flip in (False, True):
+        cfg = canonical_cfg(**TRAIN_HP, **(
+            dict(flipout_dev=True, flipout_sen=0.1, flipout_rec=0.1)
+            if flip else {}))
+        pop = init_population(cfg, 0, n, device)
+        # Random weights stop every conversation after turn 0 (STOP_BIAS).
+        pop["receiver.s.bias"] = torch.full_like(pop["receiver.s.bias"],
+                                                 STOP_BIAS)
+        runs = {g: make_population_eval(AgentModules(cfg).to(device), 6,
+                                        graph=g) for g in (False, True)}
+        key = torch.tensor([1, 46], dtype=torch.int64, device=device)
+        replays = Captured.replays
+        for batch in (64, 8):
+            rows = torch.arange(batch, device=device) + 64 * (batch == 8)
+            data, target = dev.feats[rows], dev.targets[rows]
+            u = member_uniforms(cfg, batch, key[0], key[1], n, device,
+                                slot=1)
+            same_u = u is None or all(torch.equal(v, w) for v, w in zip(
+                u.values(), member_uniforms(cfg, batch, 1, 46, n, device,
+                                            slot=1).values()))
+            want = runs[False](pop, data, target, desc, uniforms=u)
+            got = [runs[True](pop, data, target, desc, uniforms=u)
+                   for _ in range(3)]
+            out[f"flipout_dev={flip},batch={batch}"] = {
+                "hits": want.tolist(),
+                "equal": all(torch.equal(g, want) for g in got),
+                "tensor_key_uniforms_equal": same_u}
+        out[f"flipout_dev={flip},replays"] = Captured.replays - replays
+    return out
+
+
+def check_population_graph(device, smi):
+    """The population on the graph route (``parallel/population.py:
+    population_route``): replayed steps against eager ones for RMSprop
+    and Adam, the caller's inputs left as they were, the dev batch's
+    graph against eager, and the host's launch calls an update at one
+    step a chunk and in a chunk of PROFILED_CHUNK, graph against eager;
+    all fatal."""
+    import torch
+    from multimodalgame_tpu_torch.game.agents import AgentModules
+    from multimodalgame_tpu_torch.parallel.population import (
+        init_population, init_population_opt_states,
+        make_population_train_step)
+    t_start = t0 = time.perf_counter()
+    _, _, train, _ = canonical_inputs(device)
+    desc = torch.from_numpy(descriptions()).to(device)
+    out = {"seconds": {}}
+    for optim in ("RMSprop", "Adam"):
+        row = population_replays(canonical_cfg(**{**TRAIN_HP,
+                                                  "optim_type": optim}),
+                                 train, desc, device)
+        log({"phase": "population_graph", "check": "replay_against_eager",
+             **row, "card": smi})
+        if not row["ok"]:
+            raise SystemExit(f"population_graph: replays part from eager: "
+                             f"{row}")
+        out[optim] = row
+    out["seconds"]["replays"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    evals = population_eval_graphs(device)
+    log({"phase": "population_graph", "check": "eval", **evals,
+         "card": smi})
+    if not all(v["equal"] and v["tensor_key_uniforms_equal"]
+               for v in evals.values() if isinstance(v, dict)) or not all(
+                   v == 4 for k, v in evals.items() if k.endswith("replays")):
+        raise SystemExit(f"population_graph: the eval graph differs: "
+                         f"{evals}")
+    out["eval"] = evals
+    out["seconds"]["eval"] = time.perf_counter() - t0
+
+    # Host calls an update: one step a chunk, then PROFILED_CHUNK steps
+    # in one chunk, graph against eager.
+    t0 = time.perf_counter()
+    cfg = canonical_cfg(**TRAIN_HP)
+    plan = train.epoch_indices(1, True, TRAIN_BATCH)
+    scale = np.asarray(POPULATION_SCALES, np.float32)
+    calls = {}
+    for graph in (False, True):
+        state = {"pop": init_population(cfg, 0, POPULATION_MEMBERS, device),
+                 "step": 0}
+        state["opts"] = init_population_opt_states(cfg, state["pop"])
+        chunk = make_population_train_step(AgentModules(cfg).to(device), 6,
+                                           TRAIN_BATCH, seed=1, graph=graph)
+
+        def run(k):
+            i = state["step"]
+            state["pop"], state["opts"], _ = chunk(
+                state["pop"], state["opts"], train.feats, train.targets,
+                plan[:k], desc, i, lr_scale=scale)
+            state["step"] += k
+            torch.cuda.synchronize()
+
+        for _ in range(3):
+            run(1)
+        per = {"one_step_a_chunk": (profile_steps(lambda: run(1), 2), 1)}
+        # An eager chunk makes the same calls a step as one step does.
+        if graph:
+            per["chunk_of_8_per_update"] = (profile_steps(
+                lambda: run(PROFILED_CHUNK), 1), PROFILED_CHUNK)
+        calls["graph" if graph else "eager"] = {
+            k: {"host_launch_calls": p["host_launch_calls_per_step"] / d,
+                "host_calls": {c: v / d for c, v in
+                               p["host_calls_per_step"].items()},
+                "device_kernels": p["device_kernels_per_step"] / d,
+                "device_busy_share": p["device_busy_share"]}
+            for k, (p, d) in per.items()}
+    log({"phase": "population_graph", "check": "host_calls",
+         "members": POPULATION_MEMBERS, "batch": TRAIN_BATCH, **calls,
+         "card": smi})
+    seen = calls["eager"]["one_step_a_chunk"]["host_launch_calls"] > 0
+    per_update = calls["graph"]["chunk_of_8_per_update"]["host_launch_calls"]
+    out["seconds"]["host_calls"] = time.perf_counter() - t0
+    if seen and per_update > POPULATION_HOST_CALLS:
+        raise SystemExit(f"population_graph: {per_update} host launch "
+                         f"calls an update on the graph route")
+    out["calls"] = calls
+    out["seconds"]["all"] = time.perf_counter() - t_start
+    log({"phase": "population_graph", "seconds": out["seconds"]})
+    return out
 
 
 def drive_sweep(device, workdir, smi, argv, phase, min_top6=None):
@@ -1517,7 +1786,9 @@ def drive_sweep(device, workdir, smi, argv, phase, min_top6=None):
     from multimodalgame_tpu_torch.config import flags_from_argv
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
         fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.game.train import GRAPH_WARMUP
     from multimodalgame_tpu_torch.sweep import run_sweep
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
     log_path = os.path.join(workdir, phase)
     flags = flags_from_argv(DEMO_ARGV + argv + ["-log_path", log_path])
     inputs = canonical_inputs(device)
@@ -1532,6 +1803,7 @@ def drive_sweep(device, workdir, smi, argv, phase, min_top6=None):
             "eval_launches": sweeps * dev_batches if n == 1 else 0}
     fused_train_forward.launches = 0
     fused_eval_exchange.launches = 0
+    replays, captures = Captured.replays, Captured.captures
     t0 = time.perf_counter()
     summary = run_sweep(flags, device=device, inputs=inputs)
     torch.cuda.synchronize()
@@ -1539,7 +1811,11 @@ def drive_sweep(device, workdir, smi, argv, phase, min_top6=None):
     got = {"steps": summary["steps"], "members": len(summary["members"]),
            "train_launches": fused_train_forward.launches,
            "eval_launches": fused_eval_exchange.launches}
-    log({"phase": phase, **got, "expected": want,
+    # The graph route: every step after the warm-up is a replay, and so
+    # is every dev batch after its shape's first.
+    graph = {"replays": Captured.replays - replays,
+             "captures": Captured.captures - captures}
+    log({"phase": phase, **got, **graph, "expected": want,
          "winner": summary["winner"],
          "winner_best_dev_acc": summary["winner_best_dev_acc"],
          "winner_final_dev_acc": summary["winner_final_dev_acc"],
@@ -1549,6 +1825,9 @@ def drive_sweep(device, workdir, smi, argv, phase, min_top6=None):
     for k, v in want.items():
         if got[k] != v:
             raise SystemExit(f"{phase}: {k} {got[k]}, expected {v}")
+    if graph["replays"] < steps - GRAPH_WARMUP:
+        raise SystemExit(f"{phase}: {graph['replays']} graph replays over "
+                         f"{steps} steps")
     accs = [m[k] for m in summary["members"]
             for k in ("final_dev_acc", "best_dev_acc")]
     if not all(np.isfinite(accs)):
@@ -1568,7 +1847,7 @@ def drive_sweep(device, workdir, smi, argv, phase, min_top6=None):
         raise SystemExit(f"{phase}: -eval_only gave {out['dev_acc']} on "
                          f"_best, the sweep {summary['winner_final_dev_acc']}")
     return {"train_launches": got["train_launches"],
-            "eval_launches": got["eval_launches"],
+            "eval_launches": got["eval_launches"], **graph,
             "game_steps_per_s": n * steps / secs,
             "steps_per_sec_total": summary["steps_per_sec_total"],
             "winner_best_dev_acc": summary["winner_best_dev_acc"]}
@@ -2462,6 +2741,11 @@ def sweep_mesh(device, workdir, smi):
            "most_dev_rows_apart": rows_apart,
            "winner": [runs["one"]["winner"], runs["mesh"]["winner"]],
            "seconds": {k: r["seconds"] for k, r in runs.items()},
+           "game_steps_per_s": {
+               k: r["population"] * r["steps"] / r["seconds"]
+               for k, r in runs.items()},
+           "steps_per_sec_total": {k: r["steps_per_sec_total"]
+                                   for k, r in runs.items()},
            "card": smi}
     log(row)
     if (rows_apart > SWEEP_MESH_TIE_ROWS
@@ -3369,11 +3653,17 @@ def times_only(out: str = None, other: str = None) -> int:
 
 
 def run_new_paths(workdir, smi) -> dict:
-    """This slice's paths: bfloat16, CIFAR, the population step against
-    single games, the sweep of 16 members with its step's timing, and
-    the sweep of one."""
+    """bfloat16, CIFAR and the population's paths."""
     return {"bf16": drive_bf16("cuda", workdir, smi),
             "cifar": drive_cifar("cuda", workdir, smi),
+            **run_population_paths(workdir, smi)}
+
+
+def run_population_paths(workdir, smi) -> dict:
+    """The population on the graph route against eager, the population
+    step against single games, the sweep of 16 members with its step's
+    timing, and the sweep of one."""
+    return {"population_graph": check_population_graph("cuda", smi),
             "population": {d: check_population("cuda", smi, d)
                            for d in ("float64", "float32")},
             "sweep": drive_sweep("cuda", workdir, smi, SWEEP_ARGV, "sweep",
@@ -3404,6 +3694,16 @@ def main() -> int:
         build()
         check_train_kernels("cuda")
         check_graph("cuda", smi)
+        return 0
+    if sys.argv[1:] == ["--population"]:
+        # Only the build, the population's paths and the split sweep; no
+        # result line.
+        smi = probe()
+        build()
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as workdir:
+            run_population_paths(workdir, smi)
+            sweep_mesh("cuda", workdir, smi)
         return 0
     if sys.argv[1:] == ["--staged"]:
         # Only the build, the staged trainer and the two-rank step; no
@@ -3564,6 +3864,15 @@ def main() -> int:
         "sweep_winner_dev_top6": new["sweep"]["winner_best_dev_acc"],
         "population_step_device_busy_share":
             new["population_timing"]["device_busy_share"],
+        "population_graph_step_ms":
+            new["population_timing"]["population_step_ms"],
+        "population_eager_step_ms":
+            new["population_timing"]["eager_population_step_ms"],
+        "population_graph_host_launch_calls_per_update":
+            new["population_graph"]["calls"]["graph"][
+                "chunk_of_8_per_update"]["host_launch_calls"],
+        "sweep_mesh_game_steps_per_s":
+            mesh["sweep_mesh"]["game_steps_per_s"],
         "row_base_split_max_err": mesh["row_base"]["max_prob_err"],
         "mesh_driver_run_steps_per_s":
             mesh["mesh_driver"]["run_steps_per_s"],

@@ -48,7 +48,8 @@ its high and low words are bits 32-63 and 0-31 (:func:`_mulhilo`).
 
 The key ``(seed, step)`` and the row base are Python integers or 0-dim
 int64 tensors on the draw's device (a captured training step's key, which
-the step advances on the device itself, ``game/train.py``); both give the
+the step advances on the device itself, ``game/train.py``,
+``parallel/population.py``); both give the
 same numbers bit for bit. Every index the draw needs is made on the
 device (``arange``, ``fill_``), never copied from the host, so a draw can
 be captured in a CUDA graph.
@@ -194,7 +195,7 @@ def philox_eval_uniforms(cfg, batch: int, seed: Word, step: Word,
                  step, None, device, row_base)
 
 
-def member_uniforms(cfg, batch: int, seed: int, step: int, members: int,
+def member_uniforms(cfg, batch: int, seed: Word, step: Word, members: int,
                     device=None, slot: Optional[int] = None,
                     member_base: int = 0
                     ) -> Optional[Dict[str, torch.Tensor]]:
@@ -204,7 +205,9 @@ def member_uniforms(cfg, batch: int, seed: int, step: int, members: int,
     max_exchange, batch, dim)`` float32. With ``slot`` None the training
     streams (``{s, z, w[, fz, fw]}``), else the eval slot's ``fz``/``fw``
     under ``flipout_dev`` (``None`` when the eval conversation draws
-    nothing)."""
+    nothing). ``seed`` and ``step`` are integers or 0-dim int64 tensors
+    on ``device`` (a captured population step's counter), bit for bit
+    the same numbers; ``member_base`` is fixed per rank, an integer."""
     widths = uniform_widths(cfg, train=slot is None)
     if not widths:
         return None

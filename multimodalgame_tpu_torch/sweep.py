@@ -20,7 +20,11 @@ the member's learning-rate scale folded into the learning rate; there
 phase A is one launch of the train kernel where
 ``ops/cuda_exchange.py:train_kernel_supports`` holds, and a dev batch one
 launch of the eval kernel. A larger population samples and evaluates on
-the plain conversation under ``vmap``, as in the JAX package.
+the plain conversation under ``vmap``, as in the JAX package; on a CUDA
+device each of its steps and each dev batch is one replay of a captured
+CUDA graph (``parallel/population.py:population_route``), also on a
+member-split mesh, as JAX runs one compiled program per chunk and per
+dev batch.
 
 Deviation from the JAX package: the randomness. Member ``i``'s initial
 weights are ``init_params`` with seed ``random_seed + i``, and its
@@ -211,12 +215,16 @@ def _sweep(flags: Flags, max_steps: Optional[int],
         """Each member's dev top-k over the dev set, one copy at the end
         (on the mesh, after the ranks' members are gathered); under
         ``-flipout_dev`` batch ``i`` draws from eval slot ``1 + i`` of
-        ``(seed, step)``."""
+        ``(seed, step)``, a population's draws keyed by a device
+        counter."""
         if dev_ds.size == 0:
             raise ValueError("dev set is empty — nothing to evaluate")
         idx = dev_ds.epoch_indices(0, False, flags.batch_size_dev,
                                    truncate_final_batch=True)
         correct = torch.zeros((hi - lo,), dtype=torch.int64, device=device)
+        key = None if single else torch.tensor([seed, step],
+                                               dtype=torch.int64,
+                                               device=device)
         total = 0
         with torch.no_grad():
             for i, row in enumerate(idx):
@@ -235,9 +243,9 @@ def _sweep(flags: Flags, max_steps: Optional[int],
                 else:
                     correct += batch_eval(
                         state["pop"], data, target, desc_dev_t,
-                        uniforms=member_uniforms(cfg, len(row), seed, step,
-                                                 hi - lo, device, slot=1 + i,
-                                                 member_base=lo),
+                        uniforms=member_uniforms(cfg, len(row), key[0],
+                                                 key[1], hi - lo, device,
+                                                 slot=1 + i, member_base=lo),
                         data_context=ctx, **dev_descs)
                 total += len(row)
         got = host_view(correct, mesh, sharded=True)

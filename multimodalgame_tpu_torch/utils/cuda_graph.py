@@ -15,6 +15,9 @@ returns its outputs) and runs it:
   recorded. These runs are real steps: the caller gets their outputs;
 * the next call captures the body as one ``torch.cuda.CUDAGraph``, in a
   memory pool of its own, and replays it; every later call replays it.
+  Python's cycle collector runs just before the capture and is off
+  during it: a graph that is freed while another is being captured
+  invalidates that capture, and dropped graphs are cyclic garbage.
   A replay's outputs are the graph's static tensors, which the next
   replay overwrites: the caller copies out what it keeps.
 
@@ -30,6 +33,7 @@ captures against the eager step.
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -104,8 +108,19 @@ class Captured:
     def _capture(self) -> None:
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), torch.cuda.graph(graph):
-            self.outputs = self.body()
+        # A Captured and the owner of its body refer to each other, so a
+        # dropped graph is freed by the cycle collector, and freeing a
+        # graph while another is being captured invalidates that capture:
+        # collect first, and keep the collector off during the capture.
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(graph):
+                self.outputs = self.body()
+        finally:
+            if enabled:
+                gc.enable()
         counts = launch_counts()
         self.replay_launches = tuple(a - b for a, b in zip(counts, before))
         set_launch_counts(before)

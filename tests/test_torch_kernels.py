@@ -310,6 +310,84 @@ def test_graph_route_replays_equal_eager_steps(cuda):
         assert all(torch.equal(a, b) for a, b in zip(pa, pb))
 
 
+def test_population_graph_replays_equal_eager_steps(cuda):
+    """A population of three on the graph route (two eager warm-up steps,
+    then replays, the carry passed back) against the eager route from the
+    same seed: weights, slots and scalars equal after every step, and the
+    dev batch's graph equal to the eager batch at two shapes."""
+    from multimodalgame_tpu_torch.parallel.population import (
+        init_population, init_population_opt_states, make_population_eval,
+        make_population_train_step)
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+    cfg = GameConfig(**SMALL, entropy_s=0.08, entropy_sen=0.01,
+                     entropy_rec=0.01, baseline_hid_dim=16,
+                     optim_type="Adam")
+    rng = np.random.RandomState(0)
+    feats = torch.from_numpy(rng.randn(40, 64).astype(np.float32)).cuda()
+    targets = torch.from_numpy(rng.randint(0, 5, 40)).cuda()
+    desc = torch.from_numpy(rng.randn(5, 24).astype(np.float32)).cuda()
+    idx = np.stack([rng.permutation(40)[:8] for _ in range(6)])
+    runs, replays = [], Captured.replays
+    for graph in (False, True):
+        pop = init_population(cfg, 0, 3, "cuda")
+        opts = init_population_opt_states(cfg, pop)
+        chunk = make_population_train_step(AgentModules(cfg).cuda(), 2, 8,
+                                           seed=3, graph=graph)
+        steps = []
+        for i in range(6):
+            pop, opts, m = chunk(pop, opts, feats, targets, idx[i:i + 1],
+                                 desc, i, lr_scale=[0.5, 1, 2])
+            steps.append((torch.stack(list(m)).cpu(),
+                          [v.cpu() for v in pop.values()],
+                          [t.cpu() for st in opts.values()
+                           for v in st.values()
+                           for t in (v if isinstance(v, list) else [v])]))
+        runs.append((steps, pop))
+    assert Captured.replays == replays + 4
+    for (ma, pa, sa), (mb, pb, sb) in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(ma, mb)
+        assert all(torch.equal(a, b) for a, b in zip(pa + sa, pb + sb))
+    pop = runs[1][1]
+    evals = {g: make_population_eval(AgentModules(cfg).cuda(), 2, graph=g)
+             for g in (False, True)}
+    for rows in (slice(0, 8), slice(8, 11)):
+        want = evals[False](pop, feats[rows], targets[rows], desc)
+        for _ in range(3):
+            assert torch.equal(evals[True](pop, feats[rows], targets[rows],
+                                           desc), want)
+
+
+def test_capture_outlives_graphs_collected_as_garbage(cuda):
+    """Graphs dropped as cyclic garbage (a Captured and its body's owner
+    refer to each other) are not freed in the middle of another graph's
+    capture, which would invalidate it, however often the collector
+    would run."""
+    import gc
+
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+
+    class Owner:
+        def __init__(self):
+            self.x = torch.ones(4, device="cuda")
+            self.run = Captured(self.body, torch.device("cuda"), warmup=0)
+
+        def body(self):
+            junk = [[i] for i in range(2000)]   # allocations, for the GC
+            return self.x * 2 + len(junk)
+
+    thresholds = gc.get_threshold()
+    try:
+        for _ in range(3):
+            Owner().run()               # captured, then dropped in a cycle
+        gc.set_threshold(1, 1, 1)
+        out, replayed = Owner().run()
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert replayed and torch.equal(out, torch.full((4,), 2002.0,
+                                                    device="cuda"))
+
+
 def test_train_kernel_each_call_is_one_launch(cuda):
     cfg, mods, data, desc = _case(SMALL, 8, 5)
     params = kernel_params(mods)
