@@ -82,6 +82,27 @@ result line):
              batches 1, 7, 64 and 100, three times each (eager, capture,
              replay), bit for bit the eager ``Predictor(graph=False)``'s
              answers, one eval launch a request, and both ms;
+6c. mesh_graph — a rank of an NCCL mesh on the graph route
+             (``game/train.py:step_route``: every collective NCCL's, so
+             the step's all-reduces run inside its CUDA graph), in a
+             one-rank NCCL group on the card (``parallel/distributed.py:
+             launch``; NCCL refuses two ranks on one card, and one rank
+             runs the same ``ProcessGroupNCCL`` code): the bare trainer
+             from seed 0, 2 eager then 8 replayed steps against 10 eager
+             ones, for RMSprop and Adam, a digest of the weights, slots
+             and Adam's counts and the step's scalars after every step
+             (held bit for bit, or at JAX's mesh tolerance as the graph
+             phase holds them), the collective calls a step equal (held);
+             host launch calls an update (at most 4 in a chunk of 8) and
+             step ms, device kernels and busy share, graph against eager
+             in turns; the same on a 1 x 1 grid of that rank
+             (``make_mesh_2d``, tensor-parallel), its model axis held to
+             TP_MODEL_CALLS calls a step; then ``run_fast`` as that
+             rank (``train._run_rank``) with the demo's argv cut to
+             MESH_GRAPH_EPOCHS epochs: ``Step: graph`` in its log, the
+             cadences' counts and launches, dev top-6 at least 0.5. A
+             one-rank all-reduce moves no bytes: NCCL's cost across cards
+             is not measured;
 7. driver  — the training main path: ``train.run`` (what ``python -m
              multimodalgame_tpu_torch`` calls) with the demo's argv
              (tools/demo.sh:21-31), parsed by the port's config.py, on
@@ -190,8 +211,10 @@ result line):
              tolerance of one device's (rtol 5e-3, atol 1e-5,
              ``receiver.y2.bias`` left out; JAX holds them after 8 steps,
              tests/test_mesh_driver.py:73-93) and their share of it after
-             46 reported; then a one-rank NCCL group through the same code,
-             held the same way after 46; steps/s and the gradient
+             46 reported; then a one-rank NCCL group through the same code
+             (on the graph route: its all-reduces run inside the step's
+             graph, so no gradient all-reduce ms is read there), held the
+             same way after 46; steps/s and the gradient
              all-reduce's ms a step. The one device runs twice and must
              repeat itself bit for bit after every step
              (``single_device_first_diff_step`` None), and two threads of
@@ -245,9 +268,10 @@ result line):
 ``python3 chip_smoke.py --mesh`` runs only the build, the serve and driver
 phases and phases 17-21 (no result line); ``--staged`` only the build,
 phase 6a and ``mesh_step``; ``--graph`` only the build, phase 4 and
-phase 6b; ``--population`` only the build, phases 13a, 14, 15, 16 and
-20; ``--mesh-cpu`` ``mesh_step``'s readings with
-every rank on the CPU (no card needed, no result line). ``python3
+phase 6b; ``--mesh-graph`` only the build and phase 6c;
+``--population`` only the build, phases 13a, 14, 15, 16 and 20;
+``--mesh-cpu`` ``mesh_step``'s readings with every rank on the CPU (no
+card needed, no result line). ``python3
 chip_smoke.py --times [OUT [OTHER]]`` runs only the probe, the batch-64
 times of both kernels (both rulers) and of ``Predictor.predict``, and one
 step of the bare trainer (host ms, kernels a step, busy share), through
@@ -2039,6 +2063,9 @@ def drive_staged(device, smi):
             **row}
 
 
+# The mesh_graph phase's driver run: the demo's argv for 5 of its 30
+# epochs (230 steps, two dev sweeps), as tp_driver runs it.
+MESH_GRAPH_EPOCHS = 5
 # The graph phase: GRAPH_REPLAYS replayed steps of the bare trainer after
 # its eager warm-up, held against as many eager steps after every step;
 # PROFILED_CHUNK steps in one chunk for the host calls an update.
@@ -2050,26 +2077,48 @@ HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel",
                      "cuLaunchKernelEx", "cudaMemcpyAsync")
 
 
-def bare_trainer(cfg, train, desc, graph: bool, device):
+def bare_trainer(cfg, train, desc, graph: bool, device, mesh=None,
+                 grid: bool = False):
     """The bare trainer (``make_multistep_train_step_indexed``, phase A
-    in the train kernel) from seed 0 on ``graph``'s route."""
+    in the train kernel) from seed 0 on ``graph``'s route; with ``mesh``
+    as a rank of it, and with ``grid`` tensor-parallel over its model
+    axis (``mesh`` from ``make_mesh_2d``)."""
     from multimodalgame_tpu_torch.game.agents import (AgentModules,
                                                       init_params)
     from multimodalgame_tpu_torch.game.train import (
         init_opt_states, make_multistep_train_step_indexed)
+    from multimodalgame_tpu_torch.parallel.tensor import (
+        TensorParallel, init_tp_opt_states)
     mods = init_params(AgentModules(cfg), seed=0, device=device)
+    tp = (TensorParallel(mesh, mods, num_classes=NUM_CLASSES) if grid
+          else None)
     chunk = make_multistep_train_step_indexed(
         mods, top_k=6, batch_denom=TRAIN_BATCH, fast="kernel", seed=0,
-        device=device, graph=graph)
-    return mods, chunk, init_opt_states(cfg, mods)
+        device=device, graph=graph, mesh=mesh, tp=tp)
+    opts = (init_opt_states(cfg, mods) if tp is None
+            else init_tp_opt_states(cfg, tp))
+    return mods, chunk, opts
 
 
-def replay_against_eager(cfg, train, desc, device) -> dict:
+def collective_calls(mesh) -> dict:
+    """A mesh's collective calls so far, on each axis."""
+    if mesh is None:
+        return {}
+    out = {"data": mesh.calls}
+    if mesh.model is not None:
+        out["model"] = mesh.model.calls
+    return out
+
+
+def replay_against_eager(cfg, train, desc, device, mesh=None,
+                         grid: bool = False) -> dict:
     """GRAPH_WARMUP eager steps, then GRAPH_REPLAYS replays, one step a
-    chunk, against as many eager steps from the same seed: a weights
-    digest and the step's scalars after every step. Bit-equal, or (if
-    capture rounded otherwise) the first differing step, the largest
-    difference and the share of JAX's mesh tolerance it takes."""
+    chunk, against as many eager steps from the same seed (with ``mesh``
+    and ``grid``, :func:`bare_trainer`'s): a digest of the weights and
+    optimizer slots and the step's scalars after every step, and the
+    collective calls a step. Bit-equal, or (if capture rounded
+    otherwise) the first differing step, the largest difference and the
+    share of JAX's mesh tolerance it takes."""
     import torch
     from multimodalgame_tpu_torch.game.train import GRAPH_WARMUP
     from multimodalgame_tpu_torch.ops.cuda_exchange import (
@@ -2079,18 +2128,23 @@ def replay_against_eager(cfg, train, desc, device) -> dict:
     plan = train.epoch_indices(0, True, TRAIN_BATCH)
     runs = {}
     for graph in (False, True):
-        mods, chunk, opts = bare_trainer(cfg, train, desc, graph, device)
+        mods, chunk, opts = bare_trainer(cfg, train, desc, graph, device,
+                                         mesh, grid)
         fused_train_forward.launches = 0
         replays = Captured.replays
+        calls = collective_calls(mesh)
         digests, scalars = [], []
         for i in range(steps):
             sm = chunk(opts, train.feats, train.targets, plan[i:i + 1], desc,
                        i)
             scalars.append(torch.stack(list(sm)).cpu())
-            digests.append(weights_digest(mods))
+            digests.append(state_digest(mods, opts))
         runs[graph] = {"digests": digests, "scalars": scalars,
                        "launches": fused_train_forward.launches,
                        "replays": Captured.replays - replays,
+                       "calls_per_step": {
+                           k: (v - calls[k]) / steps
+                           for k, v in collective_calls(mesh).items()},
                        "params": {n: p.detach().cpu().clone()
                                   for n, p in mods.named_parameters()},
                        "count": {a: int(o["count"]) for a, o in opts.items()
@@ -2105,7 +2159,9 @@ def replay_against_eager(cfg, train, desc, device) -> dict:
            "bit_equal_after_every_step": first is None,
            "scalars_equal": all(torch.equal(a, b) for a, b in zip(
                eager["scalars"], graph["scalars"])),
-           "first_differing_step": first, "adam_count": graph["count"]}
+           "first_differing_step": first, "adam_count": graph["count"],
+           "collective_calls_per_step": {"eager": eager["calls_per_step"],
+                                         "graph": graph["calls_per_step"]}}
     if first is not None:
         row["max_abs_diff"] = max(
             float((graph["params"][k] - v).abs().max())
@@ -2115,9 +2171,79 @@ def replay_against_eager(cfg, train, desc, device) -> dict:
     ok = (graph["replays"] == GRAPH_REPLAYS
           and eager["launches"] == graph["launches"] == steps
           and (first is None or row["param_tolerance_use"] <= 1.0)
-          and graph["count"] == eager["count"])
+          and graph["count"] == eager["count"]
+          and graph["calls_per_step"] == eager["calls_per_step"])
     row["ok"] = ok
     return row
+
+
+def time_routes(make, train, desc) -> dict:
+    """The host's calls that put work on the card, the device's kernels
+    and busy share (``profile_steps``) and the step's host ms, graph
+    against eager in turns on the same card (eager, graph, graph, eager),
+    at one step a chunk and in a chunk of PROFILED_CHUNK steps;
+    ``make(graph)`` builds a fresh ``(mods, chunk, opts)`` of a route."""
+    import torch
+    plan_np = train.epoch_indices(1, True, TRAIN_BATCH)
+    timing = {}
+    for graph in (False, True, True, False):
+        mods, chunk, opts = make(graph)
+        done = [0]
+
+        def one_step():
+            i = done[0]
+            chunk(opts, train.feats, train.targets,
+                  plan_np[i % len(plan_np)][None], desc, i)
+            done[0] += 1
+            torch.cuda.synchronize()
+
+        def one_chunk():
+            i = done[0]
+            chunk(opts, train.feats, train.targets,
+                  plan_np[:PROFILED_CHUNK], desc, i)
+            done[0] += PROFILED_CHUNK
+            torch.cuda.synchronize()
+
+        for _ in range(3):
+            one_step()
+
+        def calls(prof, per):
+            return {"host_calls": {k: v / per for k, v in
+                                   prof["host_calls_per_step"].items()},
+                    "host_launch_calls":
+                        prof["host_launch_calls_per_step"] / per,
+                    "device_kernels": prof["device_kernels_per_step"] / per,
+                    "device_busy_share": prof["device_busy_share"]}
+
+        row = {"step_ms": host_median_ms(one_step),
+               "one_step_a_chunk": calls(profile_steps(one_step, 3), 1)}
+        if graph:
+            # An eager chunk makes the same calls a step as one step does.
+            one_chunk()
+            row["chunk_of_8_per_update"] = calls(profile_steps(one_chunk, 1),
+                                                 PROFILED_CHUNK)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one_chunk()
+            times.append(1e3 * (time.perf_counter() - t0))
+        row["chunk_ms_per_update"] = statistics.median(times) / PROFILED_CHUNK
+        timing.setdefault("graph" if graph else "eager", []).append(row)
+    return {k: {"step_ms": [r["step_ms"] for r in rows],
+                "chunk_ms_per_update": [r["chunk_ms_per_update"]
+                                        for r in rows],
+                "one_step_a_chunk": rows[0]["one_step_a_chunk"],
+                "chunk_of_8_per_update": rows[0].get(
+                    "chunk_of_8_per_update", rows[0]["one_step_a_chunk"])}
+            for k, rows in timing.items()}
+
+
+def graph_calls_held(calls) -> bool:
+    """At most 4 host launch calls an update on the graph route in a
+    chunk of 8, where the profiler saw the eager route's calls at all."""
+    seen = calls["eager"]["one_step_a_chunk"]["host_launch_calls"] > 0
+    per_update = calls["graph"]["chunk_of_8_per_update"]["host_launch_calls"]
+    return not seen or per_update <= 4
 
 
 def check_graph(device, smi):
@@ -2181,68 +2307,14 @@ def check_graph(device, smi):
     out["staged"] = learn
 
     # Host calls an update and the step's time, graph against eager, in
-    # turns on the same card: one step a chunk, then PROFILED_CHUNK steps
-    # in one chunk.
-    plan_np = train.epoch_indices(1, True, TRAIN_BATCH)
-    timing = {}
-    for graph in (False, True, True, False):
-        mods, chunk, opts = bare_trainer(cfg, train, desc, graph, device)
-        done = [0]
-
-        def one_step():
-            i = done[0]
-            chunk(opts, train.feats, train.targets,
-                  plan_np[i % len(plan_np)][None], desc, i)
-            done[0] += 1
-            torch.cuda.synchronize()
-
-        def one_chunk():
-            i = done[0]
-            chunk(opts, train.feats, train.targets,
-                  plan_np[:PROFILED_CHUNK], desc, i)
-            done[0] += PROFILED_CHUNK
-            torch.cuda.synchronize()
-
-        for _ in range(3):
-            one_step()
-
-        def calls(prof, per):
-            return {"host_calls": {k: v / per for k, v in
-                                   prof["host_calls_per_step"].items()},
-                    "host_launch_calls":
-                        prof["host_launch_calls_per_step"] / per,
-                    "device_kernels": prof["device_kernels_per_step"] / per,
-                    "device_busy_share": prof["device_busy_share"]}
-
-        row = {"step_ms": host_median_ms(one_step),
-               "one_step_a_chunk": calls(profile_steps(one_step, 3), 1)}
-        if graph:
-            # An eager chunk makes the same calls a step as one step does.
-            one_chunk()
-            row["chunk_of_8_per_update"] = calls(profile_steps(one_chunk, 1),
-                                                 PROFILED_CHUNK)
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            one_chunk()
-            times.append(1e3 * (time.perf_counter() - t0))
-        row["chunk_ms_per_update"] = statistics.median(times) / PROFILED_CHUNK
-        timing.setdefault("graph" if graph else "eager", []).append(row)
-    calls = {k: {"step_ms": [r["step_ms"] for r in rows],
-                 "chunk_ms_per_update": [r["chunk_ms_per_update"]
-                                         for r in rows],
-                 "one_step_a_chunk": rows[0]["one_step_a_chunk"],
-                 "chunk_of_8_per_update": rows[0].get(
-                     "chunk_of_8_per_update",
-                     rows[0]["one_step_a_chunk"])}
-             for k, rows in timing.items()}
+    # turns on the same card.
+    calls = time_routes(lambda graph: bare_trainer(cfg, train, desc, graph,
+                                                   device), train, desc)
     log({"phase": "graph", "check": "host_calls", "batch": TRAIN_BATCH,
          **calls, "card": smi})
-    seen = calls["eager"]["one_step_a_chunk"]["host_launch_calls"] > 0
-    per_update = calls["graph"]["chunk_of_8_per_update"]["host_launch_calls"]
-    if seen and per_update > 4:
-        raise SystemExit(f"graph: {per_update} host launch calls an "
-                         f"update on the graph route")
+    if not graph_calls_held(calls):
+        raise SystemExit(f"graph: more than 4 host launch calls an "
+                         f"update on the graph route: {calls['graph']}")
     out["calls"] = calls
 
     # Serving: the graph-captured eval conversation against the eager
@@ -2276,6 +2348,132 @@ def check_graph(device, smi):
     out["seconds"] = time.perf_counter() - t_start
     log({"phase": "graph", "seconds": out["seconds"]})
     return out
+
+
+def mesh_graph_drive(mesh, workdir) -> dict:
+    """``run_fast`` as one rank of ``mesh`` (``train._run_rank``, what
+    each rank of a ``-mesh`` run calls) with the demo's argv cut to
+    MESH_GRAPH_EPOCHS epochs on the in-memory sets: its counts, log and
+    seconds."""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.train import _run_rank
+    flags = flags_from_argv(DEMO_ARGV + [
+        "-max_epoch", str(MESH_GRAPH_EPOCHS), "-log_path",
+        os.path.join(workdir, "mesh_graph"), "-experiment_name",
+        "mesh_graph"])
+    inputs = canonical_inputs(mesh.device)
+    want = cadence_counts(flags, inputs[2].size, inputs[3].size)
+    fused_train_forward.launches = 0
+    fused_eval_exchange.launches = 0
+    t0 = time.perf_counter()
+    summary = _run_rank(mesh, flags, None, inputs, None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got, losses, last_dev, timing = read_log(flags, summary)
+    text = open(flags.log_file).read()
+    got.update(train_launches=summary["launches"]["train"],
+               eval_launches=summary["launches"]["eval"])
+    return {"counts": got, "expected": want, "losses": losses,
+            "last_dev_top6": last_dev, "seconds": secs,
+            "run_steps_per_s": want["steps"] / secs,
+            "last_epoch_steps_per_s": timing["steps_per_sec"],
+            "step_graph": "Step: graph" in text,
+            "step_eager": "Step: eager" in text,
+            "collective_calls_per_step":
+                summary["collectives"]["calls"] / want["steps"]}
+
+
+def mesh_graph_rank(mesh, workdir) -> dict:
+    """The ``mesh_graph`` phase inside one rank of an NCCL group: the
+    route; on ``mesh`` and on a 1 x 1 grid of it (``make_mesh_2d``), the
+    bare trainer's replays against eager steps (RMSprop, Adam) and its
+    host calls, kernels, busy share and step ms graph against eager in
+    turns; then the driver on ``mesh``."""
+    import torch
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    from multimodalgame_tpu_torch.game.train import step_route
+    from multimodalgame_tpu_torch.parallel.tensor import make_mesh_2d
+    dev = mesh.device
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=dev)
+    desc = torch.from_numpy(descriptions()).to(dev)
+    grid = make_mesh_2d(mesh, 1)
+    out = {"backend": mesh.backend,
+           "route": {"mesh": step_route(dev, mesh),
+                     "grid": step_route(dev, grid)}}
+    for name, axis, is_grid in (("mesh", mesh, False), ("grid", grid, True)):
+        replays = [replay_against_eager(
+            canonical_cfg(**{**TRAIN_HP, "optim_type": optim}), train, desc,
+            dev, axis, is_grid) for optim in ("RMSprop", "Adam")]
+        cfg = canonical_cfg(**TRAIN_HP)
+        calls = time_routes(lambda graph: bare_trainer(
+            cfg, train, desc, graph, dev, axis, is_grid), train, desc)
+        out[name] = {"replays": replays, "calls": calls}
+    out["driver"] = mesh_graph_drive(mesh, workdir)
+    return out
+
+
+def mesh_graph(workdir, smi) -> dict:
+    """A rank of an NCCL mesh on the graph route (``game/train.py:
+    step_route``: its collectives inside the step's CUDA graph), in a
+    one-rank NCCL group on the card (two ranks on one card are refused by
+    NCCL, and a one-rank group runs the same ``ProcessGroupNCCL`` code):
+    replays bit-equal to eager steps after every step and the collective
+    calls a step equal, on the mesh and on a 1 x 1 grid (its model axis
+    TP_MODEL_CALLS a step), host launch calls an update and step ms graph
+    against eager, and ``run_fast`` on the mesh logging ``Step: graph``
+    with the driver's counts and a dev top-6 of at least MIN_DEV_TOP6; all
+    fatal. A one-rank all-reduce moves no bytes: nothing here measures
+    NCCL's cost across cards."""
+    from multimodalgame_tpu_torch.parallel.distributed import launch
+    t0 = time.perf_counter()
+    got, = launch(mesh_graph_rank, ["cuda:0"], (workdir,), backend="nccl")
+    seconds = time.perf_counter() - t0
+    failed = []
+    if got["backend"] != "nccl" or set(got["route"].values()) != {"graph"}:
+        failed.append(f"route {got['route']} on {got['backend']}")
+    for name in ("mesh", "grid"):
+        for row in got[name]["replays"]:
+            log({"phase": "mesh_graph", "on": name,
+                 "check": "replay_against_eager", **row, "card": smi})
+            if not row["ok"]:
+                failed.append(f"{name} {row['optim']} replays part from "
+                              f"eager steps")
+            model = row["collective_calls_per_step"]["graph"].get("model")
+            if name == "grid" and model != TP_MODEL_CALLS:
+                failed.append(f"grid: {model} model-axis calls a step, "
+                              f"expected {TP_MODEL_CALLS}")
+        calls = got[name]["calls"]
+        log({"phase": "mesh_graph", "on": name, "check": "host_calls",
+             "batch": TRAIN_BATCH, **calls, "card": smi})
+        if not graph_calls_held(calls):
+            failed.append(f"{name}: more than 4 host launch calls an "
+                          f"update on the graph route")
+    drv = got["driver"]
+    log({"phase": "mesh_graph", "check": "driver", **drv["counts"],
+         "expected": drv["expected"], "finite_losses": len(drv["losses"]),
+         **{k: v for k, v in drv.items()
+            if k not in ("counts", "expected", "losses")}, "card": smi})
+    check_counts("mesh_graph", drv["counts"], drv["expected"],
+                 drv["losses"])
+    if not drv["step_graph"] or drv["step_eager"]:
+        failed.append("the driver's log does not say Step: graph")
+    if drv["last_dev_top6"] < MIN_DEV_TOP6:
+        failed.append(f"dev top-6 {drv['last_dev_top6']} is below "
+                      f"{MIN_DEV_TOP6}")
+    log({"phase": "mesh_graph", "seconds": seconds})
+    if failed:
+        raise SystemExit(f"mesh_graph: {failed}")
+    rows = [r for n in ("mesh", "grid") for r in got[n]["replays"]]
+    return {"train_launches": drv["counts"]["train_launches"] + sum(
+                sum(r["train_launches"].values()) for r in rows),
+            "eval_launches": drv["counts"]["eval_launches"],
+            "calls": {n: got[n]["calls"] for n in ("mesh", "grid")},
+            "dev_top6": drv["last_dev_top6"],
+            "run_steps_per_s": drv["run_steps_per_s"]}
 
 
 def thread_meshes(size: int, device):
@@ -2336,6 +2534,19 @@ def weights_digest(mods) -> str:
     import torch
     flat = torch.cat([p.detach().reshape(-1) for p in mods.parameters()])
     return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def state_digest(mods, opts) -> str:
+    """A SHA-256 of the weights, every optimizer slot and Adam's counts
+    (each exact in float64): equal digests, equal states."""
+    import hashlib
+    import torch
+    parts = [p.detach().reshape(-1).double() for p in mods.parameters()]
+    parts += [x.detach().reshape(-1).double() for st in opts.values()
+              for k in ("mu", "nu", "count") if k in st
+              for x in (st[k] if isinstance(st[k], list) else [st[k]])]
+    return hashlib.sha256(torch.cat(parts).cpu().numpy().tobytes()
+                          ).hexdigest()
 
 
 def first_difference(a, b):
@@ -2510,8 +2721,7 @@ def mesh_step(device, smi):
                              "accuracy_max_err": nccl_acc_err,
                              "param_tolerance_use": nccl_excess,
                              "steps_per_s": nccl["steps_per_s"],
-                             "grad_reduce_ms_per_step":
-                                 nccl["grad_reduce_ms_per_step"]},
+                             "route": "graph"},
            "note": "steps/s with a weights digest after every step",
            "card": smi}
     log(row)
@@ -2662,9 +2872,13 @@ def mesh_drive(device, workdir, smi, driven):
                for r in ranks],
            "collective_calls_per_step": [
                r["collectives"]["calls"] / want["steps"] for r in ranks],
+           "step_eager": "Step: eager" in open(flags.log_file).read(),
            "card": smi}
     log(row)
     check_counts("mesh_driver", got, want, losses)
+    if not row["step_eager"]:
+        raise SystemExit("mesh_driver: two gloo ranks sharing the card "
+                         "must step eagerly (Step: eager)")
     if any(n != want["train_launches"] for n in launches["train"]) or any(
             n != want["eval_launches"] for n in launches["eval"]):
         raise SystemExit(f"mesh_driver: launches {launches}, expected "
@@ -3009,14 +3223,17 @@ def tp_drive(device, workdir, smi):
                1e3 * r["collectives"]["model"]["seconds"] / want["steps"]
                for r in ranks],
            "banner": "Mesh: 2 devices = 1 data x 2 model" in open(
-               flags.log_file).read(), "card": smi}
+               flags.log_file).read(),
+           "step_eager": "Step: eager" in open(flags.log_file).read(),
+           "card": smi}
     log(row)
     check_counts("tp_driver", got, want, losses)
-    if not row["banner"] or any(
+    if not row["banner"] or not row["step_eager"] or any(
             n != want["train_launches"] for n in launches["train"]) or any(
             n != want["eval_launches"] for n in launches["eval"]):
-        raise SystemExit(f"tp_driver: launches {launches} or the banner, "
-                         f"expected {want['train_launches']} and "
+        raise SystemExit(f"tp_driver: launches {launches}, the banner or "
+                         f"Step: eager (gloo ranks), expected "
+                         f"{want['train_launches']} and "
                          f"{want['eval_launches']} on each rank")
     best = check_reloads("tp_driver", flags, device)
     eval_flags = flags_from_argv(["-log_load", flags.json_file,
@@ -3695,6 +3912,15 @@ def main() -> int:
         check_train_kernels("cuda")
         check_graph("cuda", smi)
         return 0
+    if sys.argv[1:] == ["--mesh-graph"]:
+        # Only the build and the NCCL rank on the graph route; no result
+        # line.
+        smi = probe()
+        build()
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as workdir:
+            mesh_graph(workdir, smi)
+        return 0
     if sys.argv[1:] == ["--population"]:
         # Only the build, the population's paths and the split sweep; no
         # result line.
@@ -3734,6 +3960,7 @@ def main() -> int:
         trained = train_game("cuda", workdir)
         staged = drive_staged("cuda", smi)
         graphed = check_graph("cuda", smi)
+        mesh_graphed = mesh_graph(workdir, smi)
         driven = drive("cuda", workdir, smi)
         # The attention presets and the variants: neither kernel
         # launches on them.
@@ -3798,6 +4025,7 @@ def main() -> int:
             "driver_attention": attention["counts"]["eval_launches"],
             "serve_attention": served_attn["launches"],
             "variants": variants["eval_launches"],
+            "mesh_graph": mesh_graphed["eval_launches"],
             **{k: new[k]["eval_launches"] for k in new_paths},
             **{k: mesh[k]["eval_launches"] for k in mesh_paths},
             **{k: tp[k]["eval_launches"] for k in tp_paths}},
@@ -3827,6 +4055,7 @@ def main() -> int:
             "driver": driven["train_launches"],
             "driver_attention": attention["counts"]["train_launches"],
             "variants": variants["train_launches"],
+            "mesh_graph": mesh_graphed["train_launches"],
             **{k: new[k]["train_launches"] for k in new_paths},
             **{k: mesh[k]["train_launches"] for k in mesh_paths},
             **{k: tp[k]["train_launches"] for k in tp_paths}},
@@ -3853,6 +4082,15 @@ def main() -> int:
             "chunk_of_8_per_update"]["host_launch_calls"],
         "eager_host_launch_calls_per_update": graphed["calls"]["eager"][
             "chunk_of_8_per_update"]["host_launch_calls"],
+        "mesh_graph": {
+            on: {"graph_step_ms": c["graph"]["step_ms"],
+                 "eager_step_ms": c["eager"]["step_ms"],
+                 "graph_host_launch_calls_per_update": c["graph"][
+                     "chunk_of_8_per_update"]["host_launch_calls"],
+                 "eager_host_launch_calls_per_update": c["eager"][
+                     "chunk_of_8_per_update"]["host_launch_calls"]}
+            for on, c in mesh_graphed["calls"].items()},
+        "mesh_graph_driver_dev_top6": mesh_graphed["dev_top6"],
         "driver_run_steps_per_s": driven["run_steps_per_s"],
         "dev_top6": driven["last_dev_top6"],
         "attention_run_steps_per_s": attention["run_steps_per_s"],

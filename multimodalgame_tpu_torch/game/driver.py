@@ -28,12 +28,14 @@ On a GPU every training step's phase A is one launch of the train-mode
 kernel (``fast="kernel"`` where
 ``ops/cuda_exchange.py:train_kernel_supports`` holds for the config, a
 rank's rows and the class count; the log names the sampler) and every
-eval conversation one launch of the eval-mode kernel. On one card every
+eval conversation one launch of the eval-mode kernel. On a card every
 step is one replay of a captured CUDA graph and every eval conversation
 of the kernel another (``game/train.py:step_route``, the port of the JAX
-package's one compiled program per K updates; the log names the route
-as ``Step: graph``); the CPU, ``-mesh`` and ``-mesh_model`` step eagerly
-(``Step: eager``). The configs it
+package's one compiled program per K updates and per sharded step; the
+log names the route as ``Step: graph``), a ``-mesh`` or ``-mesh_model``
+rank's too when its ranks are on distinct cards (NCCL, whose
+collectives run inside the graph); the CPU and ranks that share a card
+(gloo) step eagerly (``Step: eager``). The configs it
 rejects (attention, ``mou``, ``-flipout_dev`` with flipout) and the sizes
 that no launch plan fits (the big game's 1,000 classes) run both on the
 plain conversation; a ``-compute_dtype bfloat16`` game samples on the plain
@@ -135,8 +137,9 @@ def make_piece_planner(cap: int = _EXACT_CAP):
 SAMPLER_LINE = "Phase A sampler: {}"
 # The driver's line naming how the steps run (``game/train.py:
 # step_route``): "graph", each update one replay of a captured CUDA graph
-# (one CUDA device), or "eager" (the CPU, a mesh, a grid). The JAX package
-# prints no such line either.
+# (a CUDA device, alone or a rank of an NCCL mesh or grid), or "eager"
+# (the CPU, ranks that share a card over gloo). The JAX package prints no
+# such line either.
 STEP_LINE = "Step: {}"
 
 

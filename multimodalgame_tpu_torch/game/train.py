@@ -467,17 +467,25 @@ INDEX_CAPACITY = 512
 
 def step_route(device: Optional[Union[str, torch.device]] = None,
                mesh=None, tp=None) -> str:
-    """How a trainer takes its steps: ``"graph"`` on one CUDA device
-    (``None`` is ``cuda``) with no mesh and no tensor parallelism, each
-    step a replay of one captured CUDA graph (the port of the JAX
-    package's one compiled program per K updates, train.py:470-491);
-    ``"eager"`` on the CPU, and on a mesh or a grid, whose gloo
-    collectives go through the host and cannot be captured. A route by
-    configuration, decided from the arguments alone, without a card."""
-    if mesh is not None or tp is not None:
-        return "eager"
+    """How a trainer takes its steps: ``"graph"`` on a CUDA device
+    (``None`` is ``cuda``) when every collective of the step is NCCL's
+    (no mesh, or a mesh and, under a grid, its model axis of ranks on
+    distinct cards), each step a replay of one captured CUDA graph with
+    the step's collectives inside it (the port of the JAX package's one
+    compiled program per K updates, train.py:470-491, and per sharded
+    step, parallel/mesh.py:101-131); ``"eager"`` on the CPU, and on a
+    card for ranks that share it, whose gloo collectives run on the host
+    and cannot be captured. A route by configuration, decided from the
+    arguments alone (``tp``'s axes are ``tp.mesh`` and its ``model``),
+    without a card."""
     dev = torch.device("cuda" if device is None else device)
-    return "graph" if dev.type == "cuda" else "eager"
+    if dev.type != "cuda":
+        return "eager"
+    if tp is not None:
+        mesh = tp.mesh
+    axes = (mesh, getattr(mesh, "model", None))
+    return ("graph" if all(a.backend == "nccl" for a in axes
+                           if a is not None) else "eager")
 
 
 def _detach(x):
@@ -502,8 +510,10 @@ class _Trainer:
 
     ``graph`` (default: :func:`step_route`) runs the steps on the graph
     route (:class:`_StepGraph`): one captured CUDA graph a step signature,
-    replayed once per update. ``graph=True`` on the CPU runs the body that
-    a graph captures, uncaptured, on the same static buffers."""
+    replayed once per update, a mesh's NCCL collectives inside it.
+    ``graph=True`` on the CPU runs the body that a graph captures,
+    uncaptured, on the same static buffers, with or without a mesh;
+    on a card it needs the route to be "graph" (a gloo mesh raises)."""
 
     def __init__(self, modules: AgentModules, top_k: int, batch_denom: int,
                  fast: Union[bool, str], seed: int,
@@ -525,6 +535,14 @@ class _Trainer:
                 "-flipout_dev with flipout, and float32 compute (the "
                 "kernel samples in float32 only; bfloat16 takes the plain "
                 "sampler)")
+        where = device if mesh is None else mesh.device
+        route = step_route(where, mesh, tp)
+        if graph and route != "graph" and torch.device(
+                "cuda" if where is None else where).type == "cuda":
+            raise ValueError("a step over gloo collectives (ranks that "
+                             "share a card) runs eagerly: gloo's "
+                             "collectives cannot be captured")
+        self.graph = route == "graph" if graph is None else bool(graph)
         self.tp = tp
         self.modules = modules if tp is None else tp.shard
         self.cfg = cfg
@@ -536,8 +554,7 @@ class _Trainer:
         # The data axis's collectives: none on one data shard of a grid.
         self.reduce = (None if tp is not None and mesh.size == 1
                        else mesh)
-        self.device = resolve_device(device if mesh is None
-                                     else mesh.device)
+        self.device = resolve_device(where)
         modules.to(self.device)
         self.dtype = next(modules.parameters()).dtype
         self.update_names = AGENT_NAMES if cfg.use_binary else ("receiver",)
@@ -549,17 +566,20 @@ class _Trainer:
                                              .parameters()),
                                         self.sharded[name])
                        for name in self.update_names}
-        if graph and (mesh is not None or tp is not None):
-            raise ValueError("a mesh or tensor-parallel step runs eagerly: "
-                             "its gloo collectives cannot be captured")
-        self.graph = (step_route(self.device, mesh, tp) == "graph"
-                      if graph is None else bool(graph))
         # Shape signature -> (carry and input addresses, _StepGraph).
         self._graphs: Dict[tuple, Tuple[tuple, "_StepGraph"]] = {}
 
     def tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype or self.dtype,
                                device=self.device)
+
+    def counters(self) -> List[Tuple[Any, str]]:
+        """The collective counts of the step's axes (``Mesh.calls``,
+        ``grad_calls``), which a graph's replays advance
+        (:class:`Captured`)."""
+        axes = [] if self.mesh is None else [self.mesh, self.mesh.model]
+        return [(a, k) for a in axes if a is not None
+                for k in ("calls", "grad_calls")]
 
     def rows(self, batch: int) -> slice:
         """This rank's rows of a batch of ``batch`` (all of them off the
@@ -671,13 +691,19 @@ class _Trainer:
         fixed) -> (data, target, desc, inputs)`` builds a step's batch
         from its rows. Returns the last step's :class:`TrainMetrics` with
         ``full``, else the steps' :class:`ScanMetrics`, copied out of the
-        graph's buffers. The modules' ``generation`` is advanced, as the
-        replays bump no parameter's version."""
+        graph's buffers. On a mesh the stacks (axis 1 the batch) and a
+        uniform source's numbers are cut to this rank's rows first, and
+        the counter's ``row_base`` is the rank's first row. The modules'
+        ``generation`` is advanced (under tensor parallelism the whole
+        agents' too, which the step's sync writes), as the replays bump
+        no parameter's version."""
+        rows = self.rows(next(iter(stacks.values())).shape[1])
+        stacks = {k: v[:, rows] for k, v in stacks.items()}
         if self.uniforms is not None:
             drawn = [self.uniforms(int(step0) + i) for i in range(steps)]
             for name in drawn[0]:
                 stacks["u:" + name] = torch.stack(
-                    [u[name].to(self.device) for u in drawn])
+                    [u[name][:, rows].to(self.device) for u in drawn])
         shape_key = (kind, full, tuple(
             (k, tuple(v.shape[1:]), str(v.dtype)) for k, v in
             stacks.items()), tuple(
@@ -694,10 +720,12 @@ class _Trainer:
                                          make_batch, full, capacity))
             self._graphs[shape_key] = known
         sg = known[1]
-        sg.load(steps, int(step0), stacks)
+        sg.load(steps, int(step0), rows.start, stacks)
         for _ in range(steps):
             out = sg.step()
         self.modules.generation += 1
+        if self.tp is not None:
+            self.tp.full.generation += 1
         return out if full else ScanMetrics(*sg.out[:, :steps].clone())
 
     def update(self, opt_states, metrics: TrainMetrics,
@@ -748,17 +776,20 @@ class _StepGraph:
     """One step signature's training step on the graph route.
 
     Static buffers hold the step's inputs for a chunk of up to
-    ``capacity`` steps: the int64 counter ``[seed, step, row_base, i]``
-    (the Philox key the step reads and the chunk row it trains on) with,
+    ``capacity`` steps (on a mesh, this rank's rows of them): the int64
+    counter ``[seed, step, row_base, i]`` (the Philox key the step reads,
+    ``row_base`` the rank's first row, and the chunk row it trains on)
+    with,
     behind it, the index plan when it comes from the host, so that a
     chunk's plan and key reach the card in one copy; the other stacks
     (staged batches, a uniform source's numbers) in buffers of their own,
     and the scalars of each step (:class:`ScanMetrics`) in ``out``, a row
     a step. The body (:meth:`_body`) gathers row ``i`` of the stacks, runs
     the trainer's step (zero_grad, phase A, phase B, backward and the
-    flat update) and advances the counter; :class:`Captured` runs it
-    eagerly for the first GRAPH_WARMUP steps, then captures it and
-    replays it once per update."""
+    flat update, on a mesh with its collectives) and advances the
+    counter; :class:`Captured` runs it eagerly for the first GRAPH_WARMUP
+    steps, then captures it and replays it once per update, the mesh's
+    collective counts advanced at each replay."""
 
     def __init__(self, tr: _Trainer, opt_states, stacks: Dict[str, Any],
                  fixed: Dict[str, Any], make_batch: Callable, full: bool,
@@ -788,14 +819,17 @@ class _StepGraph:
             (len(ScanMetrics._fields), capacity), dtype=tr.dtype,
             device=dev))
         self.run = Captured(self._body, dev, GRAPH_WARMUP,
-                            capture=dev.type == "cuda")
+                            capture=dev.type == "cuda",
+                            counters=tr.counters())
 
-    def load(self, steps: int, step0: int, stacks: Dict[str, Any]) -> None:
+    def load(self, steps: int, step0: int, row_base: int,
+             stacks: Dict[str, Any]) -> None:
         """The chunk's stacks into the static buffers and the counter to
-        ``(seed, step0, 0, 0)``: one host-to-device copy of the counter
-        and the host's index plan, and one device copy per other stack."""
+        ``(seed, step0, row_base, 0)``: one host-to-device copy of the
+        counter and the host's index plan, and one device copy per other
+        stack."""
         host = np.concatenate(
-            [np.array([self.tr.seed, step0, 0, 0], np.int64)]
+            [np.array([self.tr.seed, step0, row_base, 0], np.int64)]
             + [np.asarray(stacks[k], np.int64).reshape(-1)
                for k in self.host])
         src = torch.from_numpy(host)
@@ -880,11 +914,13 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
     (``parallel/tensor.py``, ``mesh`` its data axis) it trains the rank's
     shards; ``opt_states`` are then ``init_tp_opt_states``'.
 
-    ``graph`` (default :func:`step_route`: one CUDA device, no mesh, no
-    ``tp``) runs each step as a replay of a captured CUDA graph, bit for
-    bit the eager step; the batch is copied into the graph's buffers and
-    the metrics out of them. The descriptions are read where they lie:
-    give the same device tensors every step.
+    ``graph`` (default :func:`step_route`: a CUDA device whose collectives,
+    if any, are NCCL's) runs each step as a replay of a captured CUDA
+    graph, bit for bit the eager step, a mesh's collectives and the full
+    metrics' gathers inside it; the batch (this rank's rows of it) is
+    copied into the graph's buffers and the metrics out of them. The
+    descriptions are read where they lie: give the same device tensors
+    every step.
     """
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
                   mesh, tp, graph)

@@ -54,10 +54,20 @@ class Mesh:
     """This process's place in a data-parallel job: its ``rank`` among
     ``size`` ranks, its ``device`` and the process group's ``backend``.
     It is the losses' reduction seam (:meth:`sum`, :attr:`size`) and
-    counts the host seconds spent in collectives (``seconds``; the
-    gradient all-reduces alone in ``grad_seconds``, ``grad_calls``).
-    Under gloo a collective returns when it is done; under NCCL when it
-    is enqueued, so its seconds are the host's part only.
+    counts the collectives it runs (``calls``; the gradient all-reduces
+    alone in ``grad_calls``) and the host seconds spent in them
+    (``seconds``, ``grad_seconds``).
+
+    On the eager route each collective is called from Python: under gloo
+    it returns when it is done, under NCCL when it is enqueued, so its
+    seconds are the host's part only. On the graph route (NCCL,
+    ``game/train.py:step_route``) a step's collectives are recorded once,
+    at the capture, and run inside each replay: the graph's owner
+    (``utils/cuda_graph.py:Captured``) takes the capture's calls back and
+    adds them at each replay, so ``calls`` and ``grad_calls`` count what
+    ran; the seconds cover the eager warm-up steps only, since a
+    collective recorded into a graph is not timed and a replayed one has
+    no host part of its own.
 
     On a 2-D ``(data, model)`` grid (``parallel/tensor.py:make_mesh_2d``)
     the mesh is the data axis: ``rank`` and ``size`` are this rank's data
@@ -94,7 +104,7 @@ class Mesh:
         import torch.distributed as dist
         t0 = time.perf_counter()
         dist.all_reduce(x, group=self.group)
-        self.seconds += time.perf_counter() - t0
+        self.seconds += host_seconds(x, t0)
         self.calls += 1
         return x
 
@@ -130,6 +140,15 @@ class Mesh:
         return out
 
 
+def host_seconds(x: torch.Tensor, t0: float) -> float:
+    """The host seconds since ``t0`` of a collective on ``x``, or 0 while
+    ``x``'s stream is being captured into a CUDA graph (the call only
+    recorded the collective)."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return 0.0
+    return time.perf_counter() - t0
+
+
 _SUMMED = ("loss_rec", "loss_sen", "nll_loss", "loss_binary_rec",
            "loss_binary_s", "loss_bas_rec", "loss_bas_sen",
            "ent_binary_sen", "ent_binary_rec", "ent_y_rec", "accuracy")
@@ -150,7 +169,7 @@ def all_reduce_grads(mesh: Mesh, params: Sequence[torch.nn.Parameter],
     flat = torch.cat(parts)
     t0 = time.perf_counter()
     mesh.all_reduce_(flat)
-    mesh.grad_seconds += time.perf_counter() - t0
+    mesh.grad_seconds += host_seconds(flat, t0)
     mesh.grad_calls += 1
     off = sum(p.numel() for p in params)
     grads = flat[:off]

@@ -46,6 +46,12 @@ sender's ``h_x`` for its baseline (forward); the ``f`` of the code input
 and of the head's ``h_z`` (backward); the partial gradients of the
 class-sharded head, the clip norm and the sync — 10 a step at the
 canonical width (tests/test_torch_tensor_parallel.py counts them).
+
+On a grid of ranks on distinct cards (NCCL; ``game/train.py:
+step_route``) all of them run inside the rank's step graph, phase A's
+launch on :attr:`TensorParallel.full` too, which reads what the last
+replay's sync wrote in place; each replay adds the capture's calls to
+the model axis's ``calls``. Ranks that share a card (gloo) step eagerly.
 """
 
 from __future__ import annotations

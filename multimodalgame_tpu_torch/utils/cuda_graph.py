@@ -23,8 +23,20 @@ returns its outputs) and runs it:
 
 A capture records kernel launches without running them, so the counted
 wrappers' ``launches`` (``ops/cuda_exchange.py``) are set back after the
-capture, and the capture's counts are added at each replay. A failed
-capture or replay raises; nothing falls back to the eager body.
+capture, and the capture's counts are added at each replay. The same
+holds for the body's other ``counters`` (a data-parallel mesh's
+collective calls, ``parallel/mesh.py:Mesh``). A failed capture or
+replay raises; nothing falls back to the eager body.
+
+A body may call NCCL collectives (a rank's step on a mesh of distinct
+cards, ``game/train.py:step_route``). The communicator exists before the
+capture: the process group is bound to its device
+(``parallel/distributed.py:initialize``) and the eager warm-up runs the
+collectives first. Every rank captures and replays the same collectives
+in the same order, since every rank runs the same steps. NCCL's blocking
+wait (``TORCH_NCCL_BLOCKING_WAIT``) must stay off: its host-side wait
+inside a capture would fail it. Gloo's collectives run on the host and
+cannot be captured.
 
 On the CPU (``capture`` False) every call runs the body as it is, on the
 same static buffers: the tests' way to hold the body that a graph
@@ -34,7 +46,7 @@ captures against the eager step.
 from __future__ import annotations
 
 import gc
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,16 +70,22 @@ def clone_tree(x):
 
 class Captured:
     """``body`` run eagerly ``warmup`` times, then captured once and
-    replayed; ``capture`` False runs it eagerly on every call. The class
-    counts the captures and replays of the process (``captures``,
-    ``replays``), which show that a path ran on its graphs."""
+    replayed; ``capture`` False runs it eagerly on every call.
+    ``counters`` are ``(object, attribute)`` pairs of integer counts that
+    the body advances besides the kernels' launches: like those, they are
+    set back after the capture and advanced by the capture's counts at
+    each replay. The class counts the captures and replays of the
+    process (``captures``, ``replays``), which show that a path ran on
+    its graphs."""
 
     captures = 0
     replays = 0
 
     def __init__(self, body: Callable[[], Any], device: torch.device,
-                 warmup: int, capture: bool = True):
+                 warmup: int, capture: bool = True,
+                 counters: Sequence[Tuple[Any, str]] = ()):
         self.body = body
+        self.counters = tuple(counters)
         self.device = torch.device(device)
         self.warmup = warmup
         self.capture = capture
@@ -75,6 +93,7 @@ class Captured:
         self.outputs = None
         self.runs = 0
         self.replay_launches: Optional[Tuple[int, ...]] = None
+        self.replay_counts: Tuple[int, ...] = ()
         self._side: Optional[torch.cuda.Stream] = None
 
     def __call__(self) -> Tuple[Any, bool]:
@@ -90,6 +109,8 @@ class Captured:
         with torch.cuda.device(self.device):
             self.graph.replay()
         add_launches(self.replay_launches)
+        for (obj, name), n in zip(self.counters, self.replay_counts):
+            setattr(obj, name, getattr(obj, name) + n)
         Captured.replays += 1
         return self.outputs, True
 
@@ -105,8 +126,11 @@ class Captured:
         main.wait_stream(self._side)
         return out
 
+    def _counts(self) -> Tuple[int, ...]:
+        return tuple(getattr(obj, name) for obj, name in self.counters)
+
     def _capture(self) -> None:
-        before = launch_counts()
+        before, counted = launch_counts(), self._counts()
         graph = torch.cuda.CUDAGraph()
         # A Captured and the owner of its body refer to each other, so a
         # dropped graph is freed by the cycle collector, and freeing a
@@ -124,5 +148,9 @@ class Captured:
         counts = launch_counts()
         self.replay_launches = tuple(a - b for a, b in zip(counts, before))
         set_launch_counts(before)
+        self.replay_counts = tuple(a - b for a, b in zip(self._counts(),
+                                                         counted))
+        for (obj, name), n in zip(self.counters, counted):
+            setattr(obj, name, n)
         self.graph = graph
         Captured.captures += 1

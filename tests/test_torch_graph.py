@@ -17,8 +17,12 @@ A CUDA graph needs a card, so here each piece runs uncaptured:
   bit for bit at K = 4, then a second chunk and a full-metrics step,
   for RMSprop and Adam with the kernel sampler (its plain version), the
   plain sampler and the plain exchange;
-* ``step_route``: one CUDA device gives "graph", the CPU, a mesh and
-  ``tp`` "eager", decided without a card; the driver logs ``Step: eager``;
+* ``step_route``: a CUDA device alone or on an NCCL mesh or grid gives
+  "graph", the CPU and a gloo mesh or grid "eager", decided without a
+  card; ``graph=True`` with a gloo mesh on a card is refused before the
+  device is touched, and taken on the CPU; the driver logs
+  ``Step: eager`` (tests/test_torch_mesh_graph.py holds the body on a
+  mesh);
 * the eval conversation's packed weights follow a change that bumped no
   version once the modules' ``generation`` advances, and its graph body
   equals the eager conversation;
@@ -320,23 +324,38 @@ def test_graph_body_equals_eager_chunk(optim, fast, staged):
 
 # ------------------------------------------------------------------- route
 
+def _mesh(backend, device="cuda", model=None):
+    return types.SimpleNamespace(device=torch.device(device), size=2,
+                                 backend=backend, model=model)
+
+
 def test_step_route_by_configuration():
     assert step_route(None) == "graph"
     assert step_route("cuda") == "graph"
     assert step_route(torch.device("cuda", 0)) == "graph"
     assert step_route("cpu") == "eager"
-    mesh = types.SimpleNamespace(device=torch.device("cpu"), size=2)
-    assert step_route("cuda", mesh=mesh) == "eager"
-    assert step_route("cuda", tp=object()) == "eager"
+    assert step_route("cuda", mesh=_mesh("nccl")) == "graph"
+    assert step_route("cuda", mesh=_mesh("gloo")) == "eager"
+    assert step_route("cpu", mesh=_mesh("gloo", "cpu")) == "eager"
+    for backend, want in (("nccl", "graph"), ("gloo", "eager")):
+        grid = _mesh(backend, model=_mesh(backend))
+        tp = types.SimpleNamespace(mesh=grid, axis=grid.model)
+        assert step_route("cuda", mesh=grid, tp=tp) == want
 
 
 def test_graph_refused_on_a_mesh():
+    """A gloo mesh on a card steps eagerly: ``graph=True`` there raises,
+    before the modules move to the device (this machine may have none);
+    on the CPU it runs the body uncaptured."""
     mods = init_params(AgentModules(GameConfig(**BASE)), seed=1)
-    mesh = types.SimpleNamespace(device=torch.device("cpu"), size=2)
     with pytest.raises(ValueError, match="cannot be captured"):
         make_multistep_train_step_indexed(mods, TOP_K, BATCH, fast="auto",
-                                          device="cpu", mesh=mesh,
-                                          graph=True)
+                                          mesh=_mesh("gloo"), graph=True)
+    assert next(mods.parameters()).device.type == "cpu"
+    chunk = make_multistep_train_step_indexed(
+        mods, TOP_K, BATCH, fast="auto", mesh=_mesh("gloo", "cpu"),
+        graph=True)
+    assert callable(chunk)
 
 
 def test_driver_logs_eager_route_on_the_cpu(synthetic_dataset, tmp_path):

@@ -310,6 +310,58 @@ def test_graph_route_replays_equal_eager_steps(cuda):
         assert all(torch.equal(a, b) for a, b in zip(pa, pb))
 
 
+def nccl_rank_steps(mesh) -> dict:
+    """On a one-rank NCCL mesh, six steps of the small game one a chunk
+    through the train kernel, eagerly and on the graph route from the
+    same seed: the scalars and weights after every step, the kernel's
+    launches, the mesh's collective calls and the replays of each."""
+    from multimodalgame_tpu_torch.game.train import step_route
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+    cfg = GameConfig(**SMALL, entropy_s=0.08, entropy_sen=0.01,
+                     entropy_rec=0.01, baseline_hid_dim=16,
+                     optim_type="Adam")
+    rng = np.random.RandomState(0)
+    dev = mesh.device
+    feats = torch.from_numpy(rng.randn(40, 64).astype(np.float32)).to(dev)
+    targets = torch.from_numpy(rng.randint(0, 5, 40)).to(dev)
+    desc = torch.from_numpy(rng.randn(5, 24).astype(np.float32)).to(dev)
+    idx = np.stack([rng.permutation(40)[:8] for _ in range(6)])
+    out = {"route": step_route(dev, mesh)}
+    for graph in (False, True):
+        mods = init_params(AgentModules(cfg), seed=0, device=dev)
+        chunk = make_multistep_train_step_indexed(
+            mods, 2, 8, fast="kernel", seed=3, mesh=mesh, graph=graph)
+        opts = init_opt_states(cfg, mods)
+        launches, calls = fused_train_forward.launches, mesh.calls
+        replays, steps = Captured.replays, []
+        for i in range(6):
+            m = chunk(opts, feats, targets, idx[i:i + 1], desc, i)
+            steps.append((torch.stack(list(m)).cpu(),
+                          [p.detach().cpu().clone()
+                           for p in mods.parameters()]))
+        out[graph] = dict(steps=steps,
+                          launches=fused_train_forward.launches - launches,
+                          calls=mesh.calls - calls,
+                          replays=Captured.replays - replays)
+    return out
+
+
+def test_nccl_mesh_graph_replays_equal_eager_steps(cuda):
+    """A rank of an NCCL mesh takes the graph route, its collectives
+    inside the graph: replays equal the eager mesh steps after every
+    step, with the same launches and collective calls."""
+    from multimodalgame_tpu_torch.parallel.distributed import launch
+    got, = launch(nccl_rank_steps, ["cuda:0"], backend="nccl", timeout=300)
+    assert got["route"] == "graph"
+    eager, graph = got[False], got[True]
+    assert graph["replays"] == 4 and eager["replays"] == 0
+    assert eager["launches"] == graph["launches"] == 6
+    assert eager["calls"] == graph["calls"] > 0
+    for (ma, pa), (mb, pb) in zip(eager["steps"], graph["steps"]):
+        assert torch.equal(ma, mb)
+        assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
 def test_population_graph_replays_equal_eager_steps(cuda):
     """A population of three on the graph route (two eager warm-up steps,
     then replays, the carry passed back) against the eager route from the

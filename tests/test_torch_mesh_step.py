@@ -121,9 +121,11 @@ def _jax_case(name):
                         for k in BITS + ("n_steps",)})
 
 
-def port_case(mesh, case):
+def port_case(mesh, case, make_step=None):
     """One rank's sharded step of a case (run in each rank's process):
-    the whole batch's metrics and the updated weights, as numpy."""
+    the whole batch's metrics and the updated weights, as numpy.
+    ``make_step(mods, fast, uniforms)`` builds the step (default:
+    ``make_sharded_train_step``)."""
     kw, params_np, fast, data, target, desc, uniforms = case
     mods = AgentModules(GameConfig(**kw)).double()
     load_torch_state(mods, {a: {k: torch.from_numpy(np.array(v, np.float64))
@@ -131,8 +133,9 @@ def port_case(mesh, case):
                             for a, sd in params_to_torch_state(
                                 params_np).items()})
     u = {k: torch.from_numpy(v) for k, v in uniforms.items()}
-    step = make_sharded_train_step(mods, TOP_K, BATCH, mesh, fast,
-                                   uniforms=lambda s: u)
+    step = (make_step(mods, fast, lambda s: u) if make_step is not None
+            else make_sharded_train_step(mods, TOP_K, BATCH, mesh, fast,
+                                         uniforms=lambda s: u))
     opts = init_opt_states(mods.cfg, mods)
     m = step(opts, data, target, desc, 0)
     return dict(losses={k: float(getattr(m, k)) for k in LOSSES},
@@ -148,24 +151,30 @@ def port_cases(mesh, cases):
     return [port_case(mesh, c) for c in cases]
 
 
+def jax_inputs(name):
+    """A case's inputs for a rank (``port_case``'s ``case``), from JAX's
+    run of it."""
+    want = _jax_case(name)
+    return (want["kw"], want["params"], CASES[name][1], want["data"],
+            want["target"], want["desc"], want["uniforms"])
+
+
 @pytest.fixture(scope="module")
 def port_results():
     """Every case through two gloo ranks, in one launch."""
-    cases = []
-    for name, (_, fast, _, _, _) in CASES.items():
-        want = _jax_case(name)
-        cases.append((want["kw"], want["params"], fast, want["data"],
-                      want["target"], want["desc"], want["uniforms"]))
+    cases = [jax_inputs(name) for name in CASES]
     ranks = launch(port_cases, ["cpu"] * RANKS, (cases,), timeout=300)
     return {name: [r[i] for r in ranks] for i, name in enumerate(CASES)}
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_sharded_step_matches_jax(name, port_results):
+def check_matches_jax(name, results):
+    """Each rank's step of a case (``port_case``'s dict) against JAX's:
+    the bits, the losses, the accuracy and every weight's change; and the
+    ranks' weights equal."""
     want = _jax_case(name)
     base = params_to_torch_state(want["params"])
     new = params_to_torch_state(want["new_params"])
-    for got in port_results[name]:
+    for got in results:
         for k in BITS:
             np.testing.assert_array_equal(got["ex"][k], want["ex"][k],
                                           err_msg=k)
@@ -181,11 +190,16 @@ def test_sharded_step_matches_jax(name, port_results):
                     rtol=DELTA_RTOL, atol=DELTA_ATOL,
                     err_msg=f"{name} {agent}.{k}")
     # Every rank applies the same update.
-    a, b = port_results[name]
+    a, b = results
     for agent in AGENT_NAMES:
         for k in a["params"][agent]:
             np.testing.assert_array_equal(a["params"][agent][k],
                                           b["params"][agent][k])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sharded_step_matches_jax(name, port_results):
+    check_matches_jax(name, port_results[name])
 
 
 def test_split_stops_case_has_halves_that_differ():
