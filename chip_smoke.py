@@ -113,10 +113,25 @@ result line):
              batch of every dev sweep); the log must hold the predicted
              counts of "Training Accuracy", "Development Accuracy" and
              "Checkpointing." lines, only finite losses, and a last dev
-             top-6 of at least 0.5 (chance 0.2); the .pt and its _best
-             reload with equal weights and optimizer slots; an
-             ``-eval_only`` run on _best (``-log_load`` of the run's JSON)
-             must reproduce _best's ``best_dev_acc``;
+             top-6 of at least 0.5 (chance 0.2); the checkpoint and its
+             _best, the JAX package's msgpack files, reload with the
+             weights and optimizer slots ``read_checkpoint`` reads from
+             them; an ``-eval_only`` run on _best (``-log_load`` of the
+             run's JSON) must reproduce _best's ``best_dev_acc``;
+7a. ckpt_msgpack — the checkpoint path: ``train.run`` resumed from the
+             driver's msgpack _best for CKPT_EPOCHS epochs (230 steps,
+             across a second checkpoint step) and again from a reference
+             .pt of the same state: each logs ``Step: graph``, launches
+             the train kernel once a step and the eval kernel as the
+             cadences give from the resumed step, reaches dev top-6 0.5,
+             and rewrites its checkpoint in the format it resumed (the
+             .pt named in its log); ``Predictor.from_checkpoint`` on the
+             resumed msgpack file and on a .pt of the same modules at
+             batches 1 and 64 (one eval launch a request, answers equal
+             bit for bit); an Orbax-shaped directory refused with a
+             ``ValueError`` naming it, no memory allocated and no kernel
+             launched; then each format's bytes and write and read ms
+             (medians of CKPT_REPS, in turns);
 8. driver_attention — ``train.run`` with ``-model_type AdaptiveAttention``
              and the demo's other flags (benchmarks/adaptive_attention_run.py
              :76-96 for the model, the demo's cadences) on in-memory
@@ -266,7 +281,8 @@ result line):
              phase 8 (phase A on the plain conversation).
 
 ``python3 chip_smoke.py --mesh`` runs only the build, the serve and driver
-phases and phases 17-21 (no result line); ``--staged`` only the build,
+phases and phases 17-21 (no result line); ``--ckpt`` only the build and
+phases 7 and 7a; ``--staged`` only the build,
 phase 6a and ``mesh_step``; ``--graph`` only the build, phase 4 and
 phase 6b; ``--mesh-graph`` only the build and phase 6c;
 ``--population`` only the build, phases 13a, 14, 15, 16 and 20;
@@ -320,6 +336,10 @@ TRAIN_HP = dict(entropy_s=0.08, entropy_sen=0.01, entropy_rec=0.01,
 TRAIN_BATCH, TRAIN_PER_CLASS, DEV_PER_CLASS = 64, 100, 20
 EPOCHS = 5                  # the bare trainer's; the driver runs the demo's
 MIN_DEV_TOP6 = 0.5
+# The ckpt_msgpack phase: each resume trains 5 epochs (230 steps) from the
+# driver's _best, so its run crosses a second checkpoint step (every 200);
+# each format's write and read is timed CKPT_REPS times, in turns.
+CKPT_EPOCHS, CKPT_REPS = 5, 7
 # The demo's training command (tools/demo.sh:21-31) without its file
 # paths: the driver phase hands the sets over in memory.
 DEMO_ARGV = ["-experiment_name", "demo", "-model_type", "Adaptive",
@@ -921,18 +941,21 @@ def serve_requests(device, workdir):
     return {"launches": launches, "tie_rows": ties, "pred": pred}
 
 
-def cadence_counts(flags, train_size: int, dev_size: int) -> dict:
-    """What the driver's cadences predict for a run from step 0: steps,
-    log windows, dev sweeps, periodic checkpoints, and the launches of
-    each kernel (one train launch a step; one eval launch for each log
+def cadence_counts(flags, train_size: int, dev_size: int,
+                   start: int = 0) -> dict:
+    """What the driver's cadences predict for a run from step ``start``
+    (a resumed run trains ``max_epoch`` epochs from its step): the last
+    step, log windows, dev sweeps, periodic checkpoints, and the launches
+    of each kernel (one train launch a step; one eval launch for each log
     window's dump and for each batch of each dev sweep)."""
     steps = flags.max_epoch * (train_size // flags.batch_size)
-    logs = len(range(0, steps, flags.log_interval))
-    devs = len(range(0, steps, flags.log_dev))
-    saves = sum(1 for t in range(steps) if t >= flags.save_after
+    span = range(start, start + steps)
+    logs = sum(1 for t in span if t % flags.log_interval == 0)
+    devs = sum(1 for t in span if t % flags.log_dev == 0)
+    saves = sum(1 for t in span if t >= flags.save_after
                 and t % flags.save_interval == 0)
     dev_batches = -(-dev_size // flags.batch_size_dev)
-    return {"steps": steps, "log_windows": logs, "dev_sweeps": devs,
+    return {"steps": start + steps, "log_windows": logs, "dev_sweeps": devs,
             "checkpoints": saves,
             "train_launches": steps,
             "eval_launches": logs * (flags.exchange_samples > 0)
@@ -988,19 +1011,23 @@ def check_counts(phase, got, want, losses):
 
 
 def check_reloads(phase, flags, device):
-    """The .pt and its _best reload with equal weights and optimizer
-    slots; returns _best's data."""
+    """The checkpoint and its _best, the JAX package's msgpack files,
+    reload with weights and optimizer slots equal to what
+    ``read_checkpoint`` reads from them; returns _best's data."""
     import torch
     from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES,
                                                       AgentModules)
     from multimodalgame_tpu_torch.game.config import GameConfig
     from multimodalgame_tpu_torch.game.train import init_opt_states
-    from multimodalgame_tpu_torch.utils.checkpoint import load_checkpoint
+    from multimodalgame_tpu_torch.utils.checkpoint import (
+        checkpoint_format, load_checkpoint, read_checkpoint)
     from multimodalgame_tpu_torch.utils.torch_interop import (
-        opt_states_to_torch, read_reference_checkpoint)
+        opt_states_to_torch)
     cfg = GameConfig.from_flags(flags)
     for path in (flags.checkpoint, flags.checkpoint + "_best"):
-        payload = read_reference_checkpoint(path)
+        if checkpoint_format(path) != "msgpack":
+            raise SystemExit(f"{phase}: {path} is not a msgpack file")
+        payload = read_checkpoint(path)
         mods = AgentModules(cfg).to(device)
         opts = init_opt_states(cfg, mods)
         data = load_checkpoint(path, mods, opts)
@@ -1018,8 +1045,9 @@ def check_reloads(phase, flags, device):
                 if isinstance(v, torch.Tensor))
             if not ok:
                 raise SystemExit(f"{phase}: {path}: {agent} did not reload")
-    best = read_reference_checkpoint(flags.checkpoint + "_best")["data"]
-    log({"phase": phase, "checkpoints_reloaded": 2, "best": best,
+    best = read_checkpoint(flags.checkpoint + "_best")["data"]
+    log({"phase": phase, "checkpoints_reloaded": 2, "format": "msgpack",
+         "best": best,
          "sender_entries": sorted(payload["models"]["sender"])})
     return best
 
@@ -1094,7 +1122,191 @@ def drive(device, workdir, smi):
             "last_epoch_steps_per_s": timing["steps_per_sec"],
             "run_steps_per_s": want["steps"] / secs,
             "last_dev_top6": last_dev, "log_file": flags.log_file,
-            "batch_accuracy": summary["batch_accuracy"]}
+            "batch_accuracy": summary["batch_accuracy"], "flags": flags,
+            "checkpoint_s": summary["seconds"]["checkpoints"]}
+
+
+def resume_counted(name, source, root, inputs, device, smi, start):
+    """``train.run`` resumed from a copy of ``source`` at ``root/name``
+    for CKPT_EPOCHS epochs of the demo's argv: the cadences' counts from
+    ``start``, ``Step: graph``, finite losses, a last dev top-6 of at
+    least MIN_DEV_TOP6, and the file at the path rewritten in
+    ``source``'s format at the last checkpoint step. Returns its row."""
+    import shutil
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.utils.checkpoint import (checkpoint_format,
+                                                           read_checkpoint)
+    path = os.path.join(root, name)
+    shutil.copyfile(source, path)
+    fmt = checkpoint_format(path)
+    flags = flags_from_argv(DEMO_ARGV + [
+        "-log_path", root, "-experiment_name", name, "-checkpoint", path,
+        "-max_epoch", str(CKPT_EPOCHS)])
+    want = cadence_counts(flags, inputs[2].size, inputs[3].size, start)
+    summary, secs, counts = run_counted(flags, inputs, device)
+    got, losses, last_dev, _ = read_log(flags, summary)
+    got.update(counts)
+    with open(flags.log_file) as f:
+        text = f.read()
+    last_save = max(t for t in range(start, want["steps"])
+                    if t >= flags.save_after
+                    and t % flags.save_interval == 0)
+    row = {"phase": "ckpt_msgpack", "resumed_from": fmt, **got,
+           "expected": want, "step_graph": "Step: graph" in text,
+           "adopted_line": "Checkpoint is a reference .pt file" in text,
+           "written_format": checkpoint_format(path),
+           "written_step": read_checkpoint(path)["data"]["step"],
+           "last_dev_top6": last_dev, "seconds": secs,
+           "checkpoint_s": summary["seconds"]["checkpoints"], "card": smi}
+    log(row)
+    check_counts("ckpt_msgpack", got, want, losses)
+    if not row["step_graph"] or row["adopted_line"] != (fmt == "pt"):
+        raise SystemExit(f"ckpt_msgpack: the {fmt} resume's log lacks "
+                         "Step: graph or names the wrong format")
+    if row["written_format"] != fmt or row["written_step"] != last_save:
+        raise SystemExit(f"ckpt_msgpack: the {fmt} resume wrote "
+                         f"{row['written_format']} at step "
+                         f"{row['written_step']}, not {fmt} at {last_save}")
+    if last_dev < MIN_DEV_TOP6:
+        raise SystemExit(f"ckpt_msgpack: the {fmt} resume's dev top-6 "
+                         f"{last_dev} is below {MIN_DEV_TOP6}")
+    return dict(row, flags=flags, summary=summary)
+
+
+def ckpt_msgpack(device, workdir, smi, driven):
+    """The JAX package's msgpack checkpoint on the card: the driver
+    resumed from the ``driver`` phase's msgpack ``_best`` and from a
+    ``.pt`` of the same state (each keeps its format), ``Predictor`` on a
+    msgpack file against one on a ``.pt`` of the same modules, an Orbax
+    directory refused before the device is touched, and each format's
+    bytes and write and read ms."""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    from multimodalgame_tpu_torch.game.agents import AgentModules
+    from multimodalgame_tpu_torch.game.config import GameConfig
+    from multimodalgame_tpu_torch.game.train import init_opt_states
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange, fused_train_forward)
+    from multimodalgame_tpu_torch.serve import Predictor
+    from multimodalgame_tpu_torch.train import run
+    from multimodalgame_tpu_torch.utils.checkpoint import (
+        checkpoint_format, load_agents, load_checkpoint, save_checkpoint)
+    from multimodalgame_tpu_torch.utils.torch_interop import (
+        save_reference_checkpoint)
+
+    best = driven["flags"].checkpoint + "_best"
+    if checkpoint_format(best) != "msgpack":
+        raise SystemExit(f"ckpt_msgpack: {best} is not a msgpack file")
+    root = os.path.join(workdir, "ckpt")
+    os.makedirs(root)
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    dev = DeviceDataset(*synthetic_set(DEV_PER_CLASS, seed=2), device=device)
+    pack = description_pack()
+    inputs = (pack, pack, train, dev)
+    cfg = GameConfig.from_flags(driven["flags"])
+    mods = AgentModules(cfg).to(device)
+    opts = init_opt_states(cfg, mods)
+    data = load_checkpoint(best, mods, opts)
+    as_pt = os.path.join(root, "best.pt")
+    save_checkpoint(as_pt, data, mods, opts, fmt="pt")
+
+    # 1 and 3: resumed from the msgpack _best, then from its .pt.
+    rows = {fmt: resume_counted("from_" + fmt, src, root, inputs, device,
+                                smi, data["step"])
+            for fmt, src in (("msgpack", best), ("pt", as_pt))}
+    a, b = (r["summary"]["modules"].state_dict() for r in rows.values())
+    same_weights = all(torch.equal(a[k], b[k]) for k in a)
+
+    # 2: Predictor on the resumed msgpack file and on a .pt of its modules.
+    served = rows["msgpack"]["flags"].checkpoint
+    sdata, smods = load_agents(served, cfg)
+    served_pt = os.path.join(root, "served.pt")
+    save_reference_checkpoint(served_pt, sdata, smods)
+    preds = {}
+    for fmt, path in (("msgpack", served), ("pt", served_pt)):
+        flags = flags_from_argv(DEMO_ARGV + ["-log_path", root,
+                                             "-checkpoint", path])
+        preds[fmt] = Predictor.from_checkpoint(flags, pack, device=device)
+    requests = [features(b, seed=300 + b) for b in (1, 64)]
+    fused_eval_exchange.launches = 0
+    outs = {fmt: [p.predict(x) for x in requests]
+            for fmt, p in preds.items()}
+    torch.cuda.synchronize()
+    serve_launches = fused_eval_exchange.launches
+    keys = ("prediction", "log_probs", "sender_messages",
+            "receiver_messages", "conversation_length")
+    served_equal = all(
+        m["n_steps"] == p["n_steps"]
+        and all(np.array_equal(m[k], p[k]) for k in keys)
+        for m, p in zip(outs["msgpack"], outs["pt"]))
+    log({"phase": "ckpt_msgpack", "served_step": sdata["step"],
+         "requests": [len(x) for x in requests],
+         "eval_kernel_launches": serve_launches,
+         "msgpack_and_pt_predictors_bit_equal": served_equal,
+         "card": smi})
+    if serve_launches != 2 * len(requests) or not served_equal:
+        raise SystemExit("ckpt_msgpack: the two Predictors differ or "
+                         f"launched {serve_launches} times")
+
+    # 4: an Orbax-shaped directory is refused before the device is used.
+    orbax = os.path.join(root, "orbax_ckpt")
+    os.makedirs(os.path.join(orbax, "models"))
+    with open(os.path.join(orbax, "_CHECKPOINT_METADATA"), "w") as f:
+        f.write("{}")
+    flags = flags_from_argv(DEMO_ARGV + [
+        "-log_path", os.path.join(root, "orbax_run"), "-checkpoint", orbax])
+    torch.cuda.synchronize()
+    memory = torch.cuda.memory_allocated()
+    fused_train_forward.launches = fused_eval_exchange.launches = 0
+    try:
+        run(flags, device=device, inputs=inputs)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise SystemExit("ckpt_msgpack: an Orbax directory was accepted")
+    untouched = (torch.cuda.memory_allocated() == memory
+                 and fused_train_forward.launches == 0
+                 and fused_eval_exchange.launches == 0
+                 and not os.path.exists(flags.log_file))
+    log({"phase": "ckpt_msgpack", "orbax_refused": refusal,
+         "device_untouched": untouched})
+    if not untouched or orbax not in refusal:
+        raise SystemExit("ckpt_msgpack: the Orbax refusal touched the "
+                         "device or did not name the path")
+
+    # 5: bytes and write/read ms of each format, in turns.
+    ms = {fmt: {"write": [], "read": []} for fmt in ("msgpack", "pt")}
+    back = AgentModules(cfg).to(device)
+    back_opts = init_opt_states(cfg, back)
+    for rep in range(CKPT_REPS):
+        for fmt in (("msgpack", "pt") if rep % 2 == 0 else ("pt", "msgpack")):
+            path = os.path.join(root, "timed." + fmt)
+            t0 = time.perf_counter()
+            save_checkpoint(path, data, mods, opts, fmt=fmt)
+            t1 = time.perf_counter()
+            load_checkpoint(path, back, back_opts)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ms[fmt]["write"].append((t1 - t0) * 1e3)
+            ms[fmt]["read"].append((t2 - t1) * 1e3)
+    sizes = {fmt: os.path.getsize(os.path.join(root, "timed." + fmt))
+             for fmt in ms}
+    timing = {fmt: {"bytes": sizes[fmt],
+                    "write_ms": statistics.median(v["write"]),
+                    "read_ms": statistics.median(v["read"]),
+                    "write_ms_all": v["write"], "read_ms_all": v["read"]}
+              for fmt, v in ms.items()}
+    log({"phase": "ckpt_msgpack", "timing": timing,
+         "msgpack_over_pt_bytes": sizes["msgpack"] / sizes["pt"],
+         "reps": CKPT_REPS, "driver_checkpoint_s": driven["checkpoint_s"],
+         "pt_and_msgpack_resumes_bit_equal": same_weights, "card": smi})
+    return {"train_launches": sum(r["train_launches"]
+                                  for r in rows.values()),
+            "eval_launches": sum(r["eval_launches"] for r in rows.values())
+            + serve_launches,
+            "timing": timing, "resumes_bit_equal": same_weights}
 
 
 def drive_attention(device, workdir, smi):
@@ -3939,6 +4151,15 @@ def main() -> int:
         drive_staged("cuda", smi)
         mesh_step("cuda", smi)
         return 0
+    if sys.argv[1:] == ["--ckpt"]:
+        # Only the build, the driver phase and the checkpoint phase that
+        # resumes its _best; no result line.
+        smi = probe()
+        build()
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as workdir:
+            ckpt_msgpack("cuda", workdir, smi, drive("cuda", workdir, smi))
+        return 0
     if sys.argv[1:] == ["--mesh"]:
         # Only the build, the serving and driver phases the mesh phases
         # are held against, and the mesh phases; no result line.
@@ -3962,6 +4183,7 @@ def main() -> int:
         graphed = check_graph("cuda", smi)
         mesh_graphed = mesh_graph(workdir, smi)
         driven = drive("cuda", workdir, smi)
+        ckpt = ckpt_msgpack("cuda", workdir, smi, driven)
         # The attention presets and the variants: neither kernel
         # launches on them.
         attention = drive_attention("cuda", workdir, smi)
@@ -4022,6 +4244,7 @@ def main() -> int:
         "launches_by_path": {
             "serve": served["launches"], "staged": staged["eval_launches"],
             "driver": driven["eval_launches"],
+            "ckpt_msgpack": ckpt["eval_launches"],
             "driver_attention": attention["counts"]["eval_launches"],
             "serve_attention": served_attn["launches"],
             "variants": variants["eval_launches"],
@@ -4053,6 +4276,7 @@ def main() -> int:
         "launches_by_path": {
             "train": trained["launches"], "staged": staged["train_launches"],
             "driver": driven["train_launches"],
+            "ckpt_msgpack": ckpt["train_launches"],
             "driver_attention": attention["counts"]["train_launches"],
             "variants": variants["train_launches"],
             "mesh_graph": mesh_graphed["train_launches"],
@@ -4093,6 +4317,7 @@ def main() -> int:
         "mesh_graph_driver_dev_top6": mesh_graphed["dev_top6"],
         "driver_run_steps_per_s": driven["run_steps_per_s"],
         "dev_top6": driven["last_dev_top6"],
+        "checkpoint_formats": ckpt["timing"],
         "attention_run_steps_per_s": attention["run_steps_per_s"],
         "attention_step_steps_per_s": attention_row["steps_per_s"],
         "attention_dev_top6": attention["last_dev_top6"],

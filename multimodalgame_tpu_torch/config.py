@@ -226,9 +226,11 @@ _HELP = {
                    "per-batch host loop.",
     "random_seed": "Master PRNG seed for parameter init and sampling "
                    "streams.",
-    "ckpt_format": "Checkpoint format. The port writes the reference's "
-                   "single-file .pt (atomic rename) under msgpack, the "
-                   "default: it has no msgpack writer. orbax is not "
+    "ckpt_format": "Checkpoint format: msgpack (default) writes the JAX "
+                   "package's single-file msgpack checkpoint (atomic "
+                   "rename), which either package resumes. A resume "
+                   "reads a msgpack file or a reference .pt by its "
+                   "content and keeps writing that format. orbax is not "
                    "ported and raises.",
     "compute_dtype": "Training conversation precision: bfloat16 runs the "
                      "conversation on bfloat16 copies of the float32 "

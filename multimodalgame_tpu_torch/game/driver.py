@@ -401,7 +401,8 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
             t0 = time.perf_counter()
             save_checkpoint(flags.checkpoint + "_best",
                             dict(step=t, best_dev_acc=best_dev_acc),
-                            modules, opt_states, mesh, tp)
+                            modules, opt_states, mesh, tp,
+                            fmt=flags.ckpt_format)
             spent["checkpoints"] += time.perf_counter() - t0
 
     def run_save(t):
@@ -415,7 +416,8 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         t0 = time.perf_counter()
         save_checkpoint(flags.checkpoint,
                         dict(step=t, best_dev_acc=best_dev_acc),
-                        modules, opt_states, mesh, tp)
+                        modules, opt_states, mesh, tp,
+                        fmt=flags.ckpt_format)
         spent["checkpoints"] += time.perf_counter() - t0
         timer.start()
 

@@ -22,7 +22,7 @@ where the answer is computed as for one device. ``-mesh N`` (``-1``: every
 card) serves on the first N visible cards, and raises when there are
 fewer.
 
-CLI: ``python -m multimodalgame_tpu_torch.serve -checkpoint <path.pt>
+CLI: ``python -m multimodalgame_tpu_torch.serve -checkpoint <path>
 -log_load <train json> -dev_file <hdf5>`` prints JSONL predictions, the
 same lines as the JAX package's serve.
 """
@@ -46,9 +46,8 @@ from multimodalgame_tpu_torch.game.exchange import (description_inputs,
 from multimodalgame_tpu_torch.game.train import (answer_scores,
                                                  make_eval_exchange)
 from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
+from multimodalgame_tpu_torch.utils.checkpoint import load_agents
 from multimodalgame_tpu_torch.utils.device import resolve_device
-from multimodalgame_tpu_torch.utils.torch_interop import (
-    load_reference_checkpoint)
 
 Device = Optional[Union[str, torch.device]]
 Devices = Union[Device, Sequence[Union[str, torch.device]]]
@@ -97,12 +96,13 @@ class Predictor:
     def from_checkpoint(cls, flags: Flags, desc_pack: DescriptionPack,
                         device: Devices = None,
                         use_kernel: bool = True) -> "Predictor":
-        """Load ``flags.checkpoint``, a reference-layout ``.pt``.
-        ``-mesh_model`` raises ``ValueError``, as JAX's serving does
-        (serve.py:166-169)."""
+        """Load ``flags.checkpoint``: the JAX package's msgpack file or a
+        reference ``.pt``, told apart by content, as JAX's serving reads
+        both (serve.py:104-118). ``-mesh_model`` raises ``ValueError``, as
+        JAX's serving does (serve.py:166-169)."""
         refuse_mesh_model(flags)
         cfg = GameConfig.from_flags(flags)
-        _, modules = load_reference_checkpoint(flags.checkpoint, cfg)
+        _, modules = load_agents(flags.checkpoint, cfg)
         return cls(cfg, modules, desc_pack, device=device,
                    use_kernel=use_kernel)
 

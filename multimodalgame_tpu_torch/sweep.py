@@ -12,8 +12,10 @@ plus the sweep's own::
 
 It prints one JSON line per member (index, learning-rate scale, final and
 best dev top-k) and a summary line, and saves the winner's final weights
-and optimizer slots as a single-game ``.pt`` at ``<checkpoint>_best``,
-which ``-eval_only`` and ``serve.py`` read.
+and optimizer slots as a single-game checkpoint at ``<checkpoint>_best``
+in the run's ``-ckpt_format`` (JAX sweep.py:310-312: the JAX package's
+msgpack file), which ``-eval_only``, ``serve.py`` and the JAX package
+read.
 
 A population of one trains through the single-game indexed trainer with
 the member's learning-rate scale folded into the learning rate; there
@@ -345,7 +347,7 @@ def _sweep(flags: Flags, max_steps: Optional[int],
         save_checkpoint(flags.checkpoint + "_best",
                         dict(step=step, best_dev_acc=float(best[winner]),
                              final_dev_acc=float(accs[winner])),
-                        win_mods, win_opts)
+                        win_mods, win_opts, fmt=flags.ckpt_format)
     if mesh is not None:
         mesh.barrier()
 

@@ -2,7 +2,7 @@
 
 The port of ``multimodalgame_tpu/train.py``. Flow: flag dump -> the four
 agents (with their parameter counts) -> descriptions -> optimizer states
--> resume from the ``.pt`` checkpoint when it exists -> ``-eval_only`` /
+-> resume from the checkpoint when it exists -> ``-eval_only`` /
 ``-binary_only`` -> training, by the chunked driver (``game/driver.py``)
 or, with ``-nofast_driver``, the per-batch loop over the HDF5 file below.
 Both print their interval logs through :func:`emit_log_window`.
@@ -16,6 +16,12 @@ cifar`` (the CIFAR-10 test split's pixels as features; PIL reads and
 resizes them, or the caller stages them through ``inputs``). The one flag
 value the port does not cover, ``-ckpt_format orbax``, raises
 ``NotImplementedError``.
+
+Checkpoints (``utils/checkpoint.py``) are the JAX package's msgpack
+files. A resume reads the file at ``-checkpoint`` whatever its format and
+adopts it, as JAX's driver does (train.py:304-316): a reference ``.pt``
+left by an earlier port run keeps being written as a ``.pt``, and an
+Orbax directory there raises before the device is touched.
 
 ``-mesh N`` trains (or, with ``-eval_only``, evaluates) data-parallel,
 one process a device (``parallel/distributed.py``), and ``-mesh N
@@ -52,6 +58,7 @@ from multimodalgame_tpu_torch.game.driver import (SAMPLER_LINE, STEP_LINE,
 from multimodalgame_tpu_torch.game.train import (init_opt_states,
                                                  make_eval_exchange)
 from multimodalgame_tpu_torch.utils.checkpoint import (ORBAX_NOT_PORTED,
+                                                       checkpoint_format,
                                                        load_checkpoint,
                                                        save_checkpoint)
 from multimodalgame_tpu_torch.utils.device import resolve_device
@@ -263,6 +270,8 @@ def run(flags: Flags, max_steps: Optional[int] = None,
     axis's, and the model axis's under ``model``) and, on a card, its
     ``peak_memory_bytes``."""
     check_supported(flags)
+    if os.path.exists(flags.checkpoint):
+        checkpoint_format(flags.checkpoint)   # an Orbax directory raises
     if inputs is not None and (flags.binary_only or not flags.fast_driver):
         raise ValueError("in-memory inputs serve the staged paths only; "
                          "-binary_only and -nofast_driver read the files")
@@ -372,6 +381,12 @@ def _run(flags: Flags, max_steps: Optional[int], device: torch.device,
     step = 0
     best_dev_acc = 0.0
     if os.path.exists(flags.checkpoint):
+        # The artifact at the path decides the format this run writes
+        # (JAX train.py:304-316).
+        if checkpoint_format(flags.checkpoint) == "pt":
+            flags.ckpt_format = "pt"
+            flogger.Log("Checkpoint is a reference .pt file; writing .pt "
+                        "checkpoints for this run")
         flogger.Log("Loading from: " + flags.checkpoint)
         data = load_checkpoint(flags.checkpoint, modules, opt_states)
         step = int(data["step"])
@@ -589,14 +604,15 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
                     save_checkpoint(flags.checkpoint + "_best",
                                     dict(step=step,
                                          best_dev_acc=best_dev_acc),
-                                    modules, opt_states)
+                                    modules, opt_states,
+                                    fmt=flags.ckpt_format)
 
             # Periodic checkpoint (model.py:1578-1584).
             if step >= flags.save_after and step % flags.save_interval == 0:
                 flogger.Log("Checkpointing.")
                 save_checkpoint(flags.checkpoint,
                                 dict(step=step, best_dev_acc=best_dev_acc),
-                                modules, opt_states)
+                                modules, opt_states, fmt=flags.ckpt_format)
 
             step += 1
             if max_steps is not None and step >= max_steps:

@@ -54,12 +54,13 @@ def port_flags(argv):
 _STAMP = re.compile(r"^\d\d-\d\d-\d\d \d\d:\d\d:\d\d \[\d\] ", re.M)
 _FLOAT = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?")
 
-# Lines left out of the comparisons: the modules' reprs, the resume lines,
-# wall-clock timings (the flag dumps start the runs) and the port's lines
-# naming phase A's sampler and the step's route, which the JAX package
-# does not print.
-SKIPPED = ("Architecture:", "Loading from", "Loaded at step", "step timing",
-           "Phase A sampler", "Step: graph", "Step: eager")
+# Lines left out of the comparisons: the modules' reprs, the resume lines
+# (the format a resume adopts among them), wall-clock timings (the flag
+# dumps start the runs) and the port's lines naming phase A's sampler and
+# the step's route, which the JAX package does not print.
+SKIPPED = ("Architecture:", "Loading from", "Loaded at step",
+           "Checkpoint is a", "step timing", "Phase A sampler",
+           "Step: graph", "Step: eager")
 
 
 def runs_of(path):

@@ -7,6 +7,10 @@ the CPU (``cli.main(argv, device="cpu")``).
 * ``-binary_only``: the two datasets of ``bv.hdf5`` equal JAX
   ``extract_binary``'s (ids, indices, ranks and bits exactly, the
   probabilities and scores to 1e-5).
+* JAX's own msgpack file: the port's ``-eval_only`` on it writes JAX's
+  eval CSV and conf-mat for the same file, and ``Predictor`` answers as
+  JAX's; a run resumed from a msgpack file or a ``.pt`` keeps writing its
+  format, and JAX restores the port's msgpack file.
 * Bad flags fail as in the JAX CLI; without a GPU and without
   ``device="cpu"`` the CLI raises; ``python -m`` reaches it.
 """
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from multimodalgame_tpu import cli as jax_cli
+from multimodalgame_tpu import serve as jax_serve
 from multimodalgame_tpu.data.descriptions import (
     load_descriptions as jax_load_descriptions)
 from multimodalgame_tpu.game.agents import AgentModules as JaxModules
@@ -32,7 +37,12 @@ from multimodalgame_tpu.game.train import (
 from multimodalgame_tpu.utils import checkpoint as jax_checkpoint
 from multimodalgame_tpu.utils import torch_interop as jax_interop
 from multimodalgame_tpu_torch import cli
-from tests.port_runs import jax_flags, small_argv
+from multimodalgame_tpu_torch.data.descriptions import load_descriptions
+from multimodalgame_tpu_torch.data.hdf5_loader import load_hdf5
+from multimodalgame_tpu_torch.serve import Predictor
+from multimodalgame_tpu_torch.utils.checkpoint import (checkpoint_format,
+                                                       read_checkpoint)
+from tests.port_runs import jax_flags, port_flags, small_argv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -127,6 +137,88 @@ def test_binary_only_matches_jax(synthetic_dataset, tmp_path):
                                            atol=1e-5, err_msg=field)
 
 
+def test_eval_only_and_predictor_read_jax_msgpack(synthetic_dataset,
+                                                 tmp_path):
+    """JAX's msgpack file of ``_checkpoints``, read by the port: the eval
+    CSV and conf-mat of its ``-eval_only`` are JAX's on the same file, and
+    ``Predictor.from_checkpoint`` answers each dev batch as JAX's."""
+    paths = synthetic_dataset
+    ckpt = str(tmp_path / "ckpt.msgpack")
+    dirs = {k: tmp_path / k for k in ("jax", "port")}
+    argvs = {k: small_argv(paths, d, "cli", ["-checkpoint", ckpt,
+                                             "-eval_only"])
+             for k, d in dirs.items()}
+    for d in dirs.values():
+        os.makedirs(d)
+    _checkpoints(paths, argvs["jax"], ckpt, str(tmp_path / "unused.pt"))
+    assert checkpoint_format(ckpt) == "msgpack"
+    jax_cli.main(argvs["jax"])
+    cli.main(argvs["port"], device="cpu")
+    jd, pd = dirs["jax"], dirs["port"]
+    want = _read(jd / "cli.eval.csv", jd).splitlines()
+    got = _read(pd / "cli.eval.csv", pd).splitlines()
+    assert got[0] == want[0]
+    g, w = got[1].split(","), want[1].split(",")
+    assert g[:5] == w[:5] == [ckpt, paths["dev"], "2", "3", "0.25"]
+    np.testing.assert_allclose([float(x) for x in g[5:]],
+                               [float(x) for x in w[5:]], atol=1e-6)
+    assert _read(pd / "cli.conf_mat.txt", pd) == \
+        _read(jd / "cli.conf_mat.txt", jd)
+
+    jpack = jax_load_descriptions(paths["descr"], "glove.6B", 16,
+                                  glove_path=paths["glove"])
+    pack = load_descriptions(paths["descr"], "glove.6B", 16,
+                             glove_path=paths["glove"])
+    want_pred = jax_serve.Predictor.from_checkpoint(jax_flags(argvs["jax"]),
+                                                    jpack)
+    got_pred = Predictor.from_checkpoint(port_flags(argvs["port"]), pack,
+                                         device="cpu")
+    for batch in load_hdf5(paths["dev"], 8, 0, False, True, pack.map_labels):
+        want, got = (p.predict(batch["avgpool_512"])
+                     for p in (want_pred, got_pred))
+        assert got["n_steps"] == want["n_steps"]
+        np.testing.assert_allclose(got["log_probs"],
+                                   np.asarray(want["log_probs"]), atol=1e-5)
+        for k in ("prediction", "sender_messages", "receiver_messages",
+                  "conversation_length"):
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]),
+                                          err_msg=k)
+
+
+@pytest.mark.parametrize("fmt", ["msgpack", "pt"])
+def test_resume_keeps_the_artifacts_format(synthetic_dataset, tmp_path,
+                                           fmt):
+    """A run resumed from JAX's state at step 3, given as its msgpack
+    file or as a ``.pt`` at the checkpoint path, writes its periodic and
+    best checkpoints in that format (the ``.pt`` named in the log); JAX's
+    strict ``load_checkpoint`` restores the msgpack ones."""
+    paths = synthetic_dataset
+    argv = small_argv(paths, tmp_path, "resume", ["-max_epoch", "1"])
+    flags = port_flags(argv)
+    msgpack_path, pt_path = (str(tmp_path / n) for n in ("a.msgpack",
+                                                         "a.pt"))
+    _checkpoints(paths, argv, msgpack_path, pt_path)
+    os.replace(msgpack_path if fmt == "msgpack" else pt_path,
+               flags.checkpoint)
+    cli.main(argv, device="cpu")
+    log = open(flags.log_file).read()
+    assert "Loaded at step: 3 and best dev acc: 0.25" in log
+    assert ("Checkpoint is a reference .pt file" in log) == (fmt == "pt")
+    assert log.count("Checkpointing.") == 2          # steps 4 and 8
+    for path in (flags.checkpoint, flags.checkpoint + "_best"):
+        assert checkpoint_format(path) == fmt, path
+    assert read_checkpoint(flags.checkpoint)["data"]["step"] == 8
+    if fmt == "msgpack":
+        jf = jax_flags(argv)
+        jmods = JaxModules(JaxConfig.from_flags(jf))
+        template = jax_init_params(jmods, jax.random.PRNGKey(0),
+                                   num_classes=6)
+        data, _, _ = jax_checkpoint.load_checkpoint(
+            flags.checkpoint, template,
+            jax_init_opt_states(jmods.cfg, template))
+        assert data["step"] == 8
+
+
 @pytest.mark.parametrize("argv", [
     ["-no_such_flag", "1"], ["-batch_size"], ["-optim_type", "Foo"],
     ["-batch_size", "x"], ["-nofast_driver=true"], ["stray"],
@@ -161,7 +253,8 @@ def test_python_m_reaches_the_cli(synthetic_dataset, tmp_path):
                          text=True, timeout=120)
     assert out.returncode == 0
     assert "usage: python -m multimodalgame_tpu_torch" in out.stdout
-    assert "has no msgpack writer" in out.stdout
+    assert "writes the JAX package's single-file msgpack checkpoint" in \
+        out.stdout
     out = subprocess.run(
         [sys.executable, "-m", "multimodalgame_tpu_torch"]
         + small_argv(synthetic_dataset, tmp_path, "sub"), cwd=REPO, env=env,

@@ -8,9 +8,9 @@
   for byte.
 * Whole runs: ``train.run(flags, max_steps=8, device="cpu")`` against
   JAX's ``run(flags, max_steps=8)`` on tests/test_driver.py's small
-  flags. The port starts from a ``.pt`` that JAX's
-  ``save_reference_checkpoint`` wrote from JAX's own initial weights at
-  step 0, and replays JAX's uniforms (``fold_in(PRNGKey(random_seed +
+  flags. The port starts from the msgpack file that JAX's
+  ``save_checkpoint`` wrote from JAX's own initial weights at step 0,
+  and replays JAX's uniforms (``fold_in(PRNGKey(random_seed +
   1), step)``, tests/jax_uniforms.py), so the sampled bits are JAX's and
   the two logs agree line for line: the same messages in the same order,
   the "Predictions" and sparkline dumps as text, every other number to
@@ -43,11 +43,11 @@ from multimodalgame_tpu.game.train import (
     make_eval_exchange as jax_make_eval_exchange)
 from multimodalgame_tpu.train import emit_log_window as jax_emit_log_window
 from multimodalgame_tpu.train import run as jax_run
+from multimodalgame_tpu.utils.checkpoint import (
+    save_checkpoint as jax_save_checkpoint)
 from multimodalgame_tpu.utils.logging import FileLogger as JaxFileLogger
 from multimodalgame_tpu.utils.logging import VisdomLogger as JaxVisdomLogger
 from multimodalgame_tpu.utils.logging import read_log_load as jax_read_log_load
-from multimodalgame_tpu.utils.torch_interop import (
-    save_reference_checkpoint as jax_save_reference_checkpoint)
 from multimodalgame_tpu_torch.data.descriptions import load_descriptions
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.eval import eval_dev
@@ -221,17 +221,17 @@ def test_conf_mat_indexes_the_labels_present(tmp_path):
 # ------------------------------------------------------------ whole runs
 
 def _start_from_jax_weights(paths, jf, pf):
-    """Write, at the port's checkpoint path, the step-0 ``.pt`` of the
-    weights JAX's ``run`` initialises for ``jf``; returns JAX's config."""
+    """Write, at the port's checkpoint path, JAX's step-0 msgpack file of
+    the weights JAX's ``run`` initialises for ``jf``; returns JAX's
+    config."""
     jpack = jax_load_descriptions(paths["descr"], "glove.6B", 16,
                                   glove_path=paths["glove"])
     jmods = JaxModules(JaxConfig.from_flags(jf))
     params = jax_init_params(jmods, jax.random.PRNGKey(jf.random_seed),
                              num_classes=jpack.num_classes,
                              max_words=max(jpack.desc_set_lens))
-    jax_save_reference_checkpoint(
-        pf.checkpoint, {"step": 0, "best_dev_acc": 0.0}, params,
-        jax_init_opt_states(jmods.cfg, params), "RMSprop")
+    jax_save_checkpoint(pf.checkpoint, {"step": 0, "best_dev_acc": 0.0},
+                        params, jax_init_opt_states(jmods.cfg, params))
     return jmods.cfg
 
 

@@ -442,7 +442,8 @@ def test_tensor_count_round_trips_through_pt(tmp_path):
         opts, torch.from_numpy(feats), torch.from_numpy(targets), idx[:3],
         torch.from_numpy(desc), 0)
     path = str(tmp_path / "count.pt")
-    save_checkpoint(path, {"step": 3, "best_dev_acc": 0.0}, mods, opts)
+    save_checkpoint(path, {"step": 3, "best_dev_acc": 0.0}, mods, opts,
+                    fmt="pt")
     raw = torch.load(path, weights_only=False)
     assert all(s["step"] == 3 for s in
                raw["optimizers"]["sender"]["state"].values())

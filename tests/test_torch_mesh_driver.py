@@ -6,19 +6,34 @@ excluded, as there), the logged metric history and rank 0's log line for
 line. tests/test_torch_driver.py holds the single-device run against
 JAX's line for line. Also ``-mesh -1`` over a two-device list with a
 ragged final dev batch, and ``-eval_only -mesh 2`` against the
-single-device ``-eval_only``.
+single-device ``-eval_only``. Rank 0's checkpoint is the JAX package's
+msgpack file, as the single device's is: JAX restores it strictly, its
+data equal to the single device's and its weights within the mesh
+tolerance.
 """
 
 import os
 import re
 
+import jax
 import numpy as np
 import pytest
 
+from multimodalgame_tpu.game.agents import AgentModules as JaxModules
+from multimodalgame_tpu.game.agents import init_params as jax_init_params
+from multimodalgame_tpu.game.config import GameConfig as JaxConfig
+from multimodalgame_tpu.game.train import (
+    init_opt_states as jax_init_opt_states)
+from multimodalgame_tpu.utils.checkpoint import (
+    load_checkpoint as jax_load_checkpoint)
 from multimodalgame_tpu_torch.data.descriptions import load_descriptions
 from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.train import run
-from tests.port_runs import port_flags, small_argv
+from multimodalgame_tpu_torch.utils.checkpoint import (checkpoint_format,
+                                                       read_checkpoint)
+from multimodalgame_tpu_torch.utils.torch_interop import (
+    params_to_torch_state)
+from tests.port_runs import jax_flags, port_flags, small_argv
 
 PARAM_RTOL, PARAM_ATOL = 5e-3, 1e-5
 
@@ -92,6 +107,37 @@ def test_mesh_ranks_hold_equal_weights_and_keep_their_logs(runs):
     # One gradient all-reduce a step on each rank.
     assert [r["collectives"]["grad_calls"] for r in r_mesh["ranks"]] == \
         [8, 8]
+
+
+def test_mesh_checkpoint_restores_as_the_single_device_file(runs):
+    """Rank 0's periodic file (step 4) and its _best: msgpack, restored by
+    JAX's strict ``load_checkpoint`` to the weights the port reads, with
+    the single device's data and its weights within the mesh tolerance."""
+    f_one, _ = runs["one"]
+    f_mesh, _ = runs["mesh"]
+    jf = jax_flags(small_argv({"descr": "", "train": "", "dev": "",
+                               "glove": ""}, f_mesh.log_path, "jax"))
+    jmods = JaxModules(JaxConfig.from_flags(jf))
+    template = jax_init_params(jmods, jax.random.PRNGKey(0), num_classes=6)
+    for suffix in ("", "_best"):
+        paths = [f.checkpoint + suffix for f in (f_mesh, f_one)]
+        assert [checkpoint_format(p) for p in paths] == ["msgpack"] * 2
+        got, want = (read_checkpoint(p) for p in paths)
+        assert got["data"] == want["data"]
+        data, params, _ = jax_load_checkpoint(
+            paths[0], template, jax_init_opt_states(jmods.cfg, template))
+        assert data == got["data"]
+        state = params_to_torch_state(jax.tree_util.tree_map(np.asarray,
+                                                             params))
+        for agent, sd in got["models"].items():
+            for k, v in sd.items():
+                np.testing.assert_array_equal(state[agent][k], v.numpy())
+                if k != "y2.bias":
+                    np.testing.assert_allclose(
+                        v.numpy(), want["models"][agent][k].numpy(),
+                        rtol=PARAM_RTOL, atol=PARAM_ATOL, err_msg=k)
+            assert got["optimizers"][agent]["state"].keys() == \
+                want["optimizers"][agent]["state"].keys()
 
 
 def test_eval_only_on_a_mesh_matches_one_device(runs, synthetic_dataset,

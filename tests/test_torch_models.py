@@ -216,7 +216,8 @@ def test_resolve_device_raises_without_gpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-_BANNED = ("jax", "flax", "optax", "sklearn", "multimodalgame_tpu")
+_BANNED = ("jax", "flax", "msgpack", "optax", "sklearn",
+           "multimodalgame_tpu")
 
 
 def _banned(name: str) -> bool:
@@ -226,7 +227,8 @@ def _banned(name: str) -> bool:
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port, walked with ``ast``: no import of jax,
-    flax, optax, sklearn, or the JAX package ``multimodalgame_tpu`` (exact name or
+    flax, msgpack (the port keeps its own codec), optax, sklearn, or the
+    JAX package ``multimodalgame_tpu`` (exact name or
     ``multimodalgame_tpu.*`` — the port's own name shares the prefix)."""
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "multimodalgame_tpu_torch").rglob("*.py"))
@@ -235,7 +237,7 @@ def test_port_imports_nothing_of_jax():
     port = root / "multimodalgame_tpu_torch"
     for module in ("sweep.py", "parallel/population.py", "data/cifar.py",
                    "parallel/tensor.py", "models/resnet.py",
-                   "package_data.py"):
+                   "package_data.py", "utils/msgpack.py"):
         assert port / module in files, module
     seen = set()
     for path in files:

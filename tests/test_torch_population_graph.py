@@ -46,8 +46,9 @@ from multimodalgame_tpu_torch.parallel.population import (
     make_population_train_step, member_params, population_route,
     stack_members)
 from multimodalgame_tpu_torch.sweep import run_sweep
+from multimodalgame_tpu_torch.utils.checkpoint import read_checkpoint
 from multimodalgame_tpu_torch.utils.torch_interop import (
-    params_to_torch_state, read_reference_checkpoint)
+    params_to_torch_state)
 from tests.jax_uniforms import jax_uniforms
 from tests.port_runs import port_flags
 from tests.test_torch_population import (ATOL, DELTA_ATOL, DELTA_RTOL, KW,
@@ -288,7 +289,7 @@ def test_sweep_on_graph_body_matches_eager(synthetic_dataset, tmp_path,
                  .splitlines() if ln.startswith("{")]
         log = [ln.split("] ", 1)[1] for ln in open(flags.log_file)
                if "per-member dev acc" in ln]
-        best = read_reference_checkpoint(flags.checkpoint + "_best")
+        best = read_checkpoint(flags.checkpoint + "_best")
         runs[route] = (summary, lines[:3], log, best["models"])
     (s0, l0, g0, b0), (s1, l1, g1, b1) = runs["eager"], runs["graph"]
     assert l1 == l0 == s0["members"]

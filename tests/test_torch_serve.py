@@ -39,6 +39,7 @@ from multimodalgame_tpu_torch.game.agents import AgentModules, init_params
 from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.ops.cuda_exchange import fused_eval_exchange
 from multimodalgame_tpu_torch.serve import Predictor
+from multimodalgame_tpu_torch.utils.checkpoint import load_agents
 from multimodalgame_tpu_torch.utils.torch_interop import (
     load_reference_checkpoint, params_to_torch_state,
     save_reference_checkpoint)
@@ -188,9 +189,16 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_non_reference_checkpoint_raises_clearly(tmp_path):
+    """A file that is not a torch zip is read as msgpack, by its content
+    and not its ``.pt`` name: a truncated map raises ``ValueError`` naming
+    the path, in serving's loader, and the ``.pt`` reader refuses it."""
     path = tmp_path / "native.pt"
-    path.write_bytes(b"\x85\xa6sender\x80")      # a msgpack map, not a zip
+    path.write_bytes(b"\x85\xa6sender\x80")      # a truncated msgpack map
     cfg = GameConfig(sender_out_dim=8, rec_w_dim=8)
+    with pytest.raises(ValueError, match="not a readable msgpack checkpoint"
+                       ": truncated") as err:
+        load_agents(str(path), cfg)
+    assert str(path) in str(err.value)
     with pytest.raises(ValueError, match="not a reference-layout"):
         load_reference_checkpoint(str(path), cfg)
 

@@ -8,8 +8,8 @@ into the learning rate) and FixedAttention at N = 2. The two packages
 draw different random numbers (PRNG keys against Philox), so the runs
 are held to the same structure: the member lines, the winner and the
 summary's keys, the steps and the learning-rate scales. The winner's
-``_best`` is a single-game ``.pt`` that JAX's
-``load_reference_checkpoint`` reads and that ``-eval_only`` scores at the
+``_best`` is the JAX package's single-game msgpack file, which JAX's
+strict ``load_checkpoint`` restores and ``-eval_only`` scores at the
 winner's final dev accuracy.
 """
 
@@ -26,14 +26,18 @@ from multimodalgame_tpu.game.agents import init_params as jax_init_params
 from multimodalgame_tpu.game.config import GameConfig as JaxConfig
 from multimodalgame_tpu.sweep import parse_lr_scales as jax_parse_lr_scales
 from multimodalgame_tpu.sweep import run_sweep as jax_run_sweep
-from multimodalgame_tpu.utils.torch_interop import (
-    load_reference_checkpoint as jax_load_reference_checkpoint)
+from multimodalgame_tpu.game.train import (
+    init_opt_states as jax_init_opt_states)
+from multimodalgame_tpu.utils.checkpoint import (
+    load_checkpoint as jax_load_checkpoint)
 from multimodalgame_tpu_torch import sweep
 from multimodalgame_tpu_torch.game.agents import AGENT_NAMES
 from multimodalgame_tpu_torch.sweep import parse_lr_scales, run_sweep
 from multimodalgame_tpu_torch.train import run
+from multimodalgame_tpu_torch.utils.checkpoint import (checkpoint_format,
+                                                       read_checkpoint)
 from multimodalgame_tpu_torch.utils.torch_interop import (
-    params_to_torch_state, read_reference_checkpoint)
+    params_to_torch_state)
 from tests.port_runs import jax_flags, port_flags
 
 SUMMARY_KEYS = {"population", "steps", "winner", "winner_best_dev_acc",
@@ -81,19 +85,22 @@ def _same_shape(got, want):
 
 
 def _check_winner_checkpoint(flags, summary, paths, tmp_path):
-    """JAX reads the winner's ``_best``; the port's -eval_only scores it
-    at the winner's final dev accuracy."""
+    """The winner's ``_best`` is msgpack, JAX restores it strictly; the
+    port's -eval_only scores it at the winner's final dev accuracy."""
     path = flags.checkpoint + "_best"
     assert summary["checkpoint"] == path
-    payload = read_reference_checkpoint(path)
+    assert checkpoint_format(path) == "msgpack"
+    payload = read_checkpoint(path)
     assert payload["data"]["step"] == summary["steps"]
     assert payload["data"]["final_dev_acc"] == summary[
         "winner_final_dev_acc"]
     jf = jax_flags(sweep_argv(paths, tmp_path / "jax_read", "read"))
     jmods = JaxModules(JaxConfig.from_flags(jf))
     template = jax_init_params(jmods, jax.random.PRNGKey(0), num_classes=6)
-    data, params = jax_load_reference_checkpoint(path, template)
+    data, params, _ = jax_load_checkpoint(
+        path, template, jax_init_opt_states(jmods.cfg, template))
     assert data["step"] == summary["steps"]
+    assert data["final_dev_acc"] == summary["winner_final_dev_acc"]
     got = params_to_torch_state(jax.tree_util.tree_map(np.asarray, params))
     for agent in AGENT_NAMES:
         for name, v in payload["models"][agent].items():
@@ -161,7 +168,7 @@ def test_population_of_one_trains_the_single_game(synthetic_dataset,
     _same_shape(got, want)
     assert got["members"][0]["lr_scale"] == 0.5
     assert len(calls) == 6
-    payload = read_reference_checkpoint(pf.checkpoint + "_best")
+    payload = read_checkpoint(pf.checkpoint + "_best")
     # RMSprop slots travel with the winner.
     assert payload["optimizers"]["sender"]["state"]
     _check_winner_checkpoint(pf, got, paths, tmp_path)
@@ -179,7 +186,7 @@ def test_attention_sweep(synthetic_dataset, tmp_path, capsys):
     assert got["steps"] == 3 and got["population"] == 2
     assert len(_lines(capsys)) == 3
     assert all(np.isfinite(m["final_dev_acc"]) for m in got["members"])
-    payload = read_reference_checkpoint(pf.checkpoint + "_best")
+    payload = read_checkpoint(pf.checkpoint + "_best")
     assert "attn_W_g.weight" in payload["models"]["sender"]
 
 

@@ -3,12 +3,13 @@
 run, held as JAX's mesh driver is held against its single device
 (tests/test_mesh_driver.py:57-111): the accuracy stream, the weights
 (rtol 5e-3, atol 1e-5; ``receiver.y2.bias`` excluded, as there), the
-logged metric history and rank 0's log line for line. Its ``.pt`` is in
-the single-device layout (every weight and optimizer slot whole), JAX's
-``load_reference_checkpoint`` reads it, a tensor-parallel run resumes
-from it, and ``-eval_only -mesh 4 -mesh_model 2`` reproduces the
-single-device ``-eval_only``. Also JAX's ``resolve_mesh`` errors, and
-the refusals of the sweep and of serving.
+logged metric history and rank 0's log line for line. Its checkpoint
+(the JAX package's msgpack file) is in the single-device layout (every
+weight and optimizer slot whole), JAX's strict ``load_checkpoint``
+restores it, a tensor-parallel run resumes from it, and ``-eval_only
+-mesh 4 -mesh_model 2`` reproduces the single-device ``-eval_only``.
+Also JAX's ``resolve_mesh`` errors, and the refusals of the sweep and of
+serving.
 """
 
 import os
@@ -25,12 +26,14 @@ from multimodalgame_tpu.game.config import GameConfig as JaxConfig
 from multimodalgame_tpu.game.driver import resolve_mesh as jax_resolve_mesh
 from multimodalgame_tpu.game.train import (
     init_opt_states as jax_init_opt_states)
-from multimodalgame_tpu.utils import torch_interop as jax_interop
+from multimodalgame_tpu.utils import checkpoint as jax_checkpoint
 from multimodalgame_tpu_torch.game.agents import AGENT_NAMES
 from multimodalgame_tpu_torch.game.driver import resolve_mesh
 from multimodalgame_tpu_torch.train import run
+from multimodalgame_tpu_torch.utils.checkpoint import (checkpoint_format,
+                                                       read_checkpoint)
 from multimodalgame_tpu_torch.utils.torch_interop import (
-    params_to_torch_state, read_reference_checkpoint)
+    params_to_torch_state)
 from tests.port_runs import jax_flags, port_flags, small_argv
 
 PARAM_RTOL, PARAM_ATOL = 5e-3, 1e-5
@@ -116,12 +119,14 @@ def test_tp_ranks_hold_equal_weights_and_keep_their_logs(runs):
 
 
 def test_tp_checkpoint_is_the_single_device_layout(runs):
-    """The periodic ``.pt`` (step 4) holds whole weights and slots, close
-    to the single-device run's at the same step, and JAX reads it."""
+    """The periodic checkpoint (step 4), msgpack as the single-device
+    run's, holds whole weights and slots, close to the single-device run's
+    at the same step, and JAX restores it strictly."""
     f_one, _ = runs["one"]
     f_tp, _ = runs["tp"]
-    got, want = (read_reference_checkpoint(f.checkpoint)
-                 for f in (f_tp, f_one))
+    assert checkpoint_format(f_tp.checkpoint) == \
+        checkpoint_format(f_one.checkpoint) == "msgpack"
+    got, want = (read_checkpoint(f.checkpoint) for f in (f_tp, f_one))
     assert got["data"] == want["data"]
     for agent in AGENT_NAMES:
         _assert_close({k: v.numpy() for k, v in got["models"][agent].items()},
@@ -140,9 +145,8 @@ def test_tp_checkpoint_is_the_single_device_layout(runs):
                                "glove": ""}, f_tp.log_path, "jax"))
     jmods = JaxModules(JaxConfig.from_flags(jf))
     template = jax_init_params(jmods, jax.random.PRNGKey(0), num_classes=6)
-    data, params, _ = jax_interop.load_reference_checkpoint(
-        f_tp.checkpoint, template, jax_init_opt_states(jmods.cfg, template),
-        "RMSprop")
+    data, params, _ = jax_checkpoint.load_checkpoint(
+        f_tp.checkpoint, template, jax_init_opt_states(jmods.cfg, template))
     assert data == got["data"]
     state = params_to_torch_state(jax.tree_util.tree_map(np.asarray, params))
     for agent in AGENT_NAMES:
@@ -273,7 +277,7 @@ def test_two_processes_train_one_grid(synthetic_dataset, tmp_path):
     assert "Mesh: 2 devices = 1 data x 2 model (cpu, gloo)" in log
     assert _kinds(job.log_file + ".p1") == _kinds(job.log_file) == \
         _kinds(one.log_file)
-    got, want = (read_reference_checkpoint(f.checkpoint) for f in (job, one))
+    got, want = (read_checkpoint(f.checkpoint) for f in (job, one))
     assert got["data"] == want["data"]
     for agent in AGENT_NAMES:
         _assert_close({k: v.numpy() for k, v in got["models"][agent].items()},
