@@ -128,10 +128,28 @@ result line):
              .pt named in its log); ``Predictor.from_checkpoint`` on the
              resumed msgpack file and on a .pt of the same modules at
              batches 1 and 64 (one eval launch a request, answers equal
-             bit for bit); an Orbax-shaped directory refused with a
-             ``ValueError`` naming it, no memory allocated and no kernel
-             launched; then each format's bytes and write and read ms
+             bit for bit); then each format's bytes and write and read ms
              (medians of CKPT_REPS, in turns);
+7b. ckpt_orbax — the JAX package's Orbax checkpoint directories, read
+             and written by the port's own OCDBT, zarr and zstd codecs:
+             ``train.run -ckpt_format orbax`` with the demo's argv for
+             CKPT_EPOCHS epochs (230 steps) on ``Step: graph``, its counts
+             and launches as the cadences give, no staging left behind,
+             both directories reloaded and ``-eval_only`` on _best
+             reproducing its ``best_dev_acc``; resumed for
+             ORBAX_RESUME_EPOCHS epochs from its periodic directory and
+             from a msgpack file of the same state, and the JAX fixture
+             (tests/data/orbax_jax_adam, FIXTURE_ARGV's narrow game)
+             resumed the same two ways: each pair bit-equal (weights and
+             slots); ``Predictor.from_checkpoint`` on a directory against
+             one on a msgpack file of its modules (one eval launch a
+             request, answers equal bit for bit); a directory whose
+             B-tree node is cut short refused with a ``ValueError``
+             naming it, no kernel launched and the directory unchanged;
+             then the Orbax write's ms to return and to commit and its
+             read ms against msgpack's (medians of ORBAX_REPS, in turns)
+             and the pure-Python zstd decoder's MB/s (median of 3) on
+             the fixture's chunks and tests/data/zstd_weights_level1.zst;
 8. driver_attention — ``train.run`` with ``-model_type AdaptiveAttention``
              and the demo's other flags (benchmarks/adaptive_attention_run.py
              :76-96 for the model, the demo's cadences) on in-memory
@@ -282,7 +300,8 @@ result line):
 
 ``python3 chip_smoke.py --mesh`` runs only the build, the serve and driver
 phases and phases 17-21 (no result line); ``--ckpt`` only the build and
-phases 7 and 7a; ``--staged`` only the build,
+phases 7 and 7a; ``--ckpt-orbax`` only the build and phase 7b;
+``--staged`` only the build,
 phase 6a and ``mesh_step``; ``--graph`` only the build, phase 4 and
 phase 6b; ``--mesh-graph`` only the build and phase 6c;
 ``--population`` only the build, phases 13a, 14, 15, 16 and 20;
@@ -340,6 +359,26 @@ MIN_DEV_TOP6 = 0.5
 # driver's _best, so its run crosses a second checkpoint step (every 200);
 # each format's write and read is timed CKPT_REPS times, in turns.
 CKPT_EPOCHS, CKPT_REPS = 5, 7
+# The ckpt_orbax phase: a CKPT_EPOCHS run writing Orbax directories, each
+# resume ORBAX_RESUME_EPOCHS epochs (92 steps, across a checkpoint step),
+# and the Orbax and msgpack writes and reads timed ORBAX_REPS times, in
+# turns.
+ORBAX_RESUME_EPOCHS, ORBAX_REPS = 2, 5
+# The JAX package's Orbax directory committed for the tests
+# (tests/test_torch_orbax.py:write_fixture): an Adam game of these widths
+# with 6 classes at step 3, resumed here on in-memory sets of its shapes.
+FIXTURE_DIR = os.path.join("tests", "data", "orbax_jax_adam")
+FIXTURE_CLASSES, FIXTURE_FEAT, FIXTURE_WV = 6, 24, 16
+FIXTURE_ARGV = ["-experiment_name", "fixture", "-model_type", "Adaptive",
+                "-img_feat_dim", str(FIXTURE_FEAT), "-img_h_dim", "12",
+                "-sender_out_dim", "8", "-rec_w_dim", "8",
+                "-rec_hidden", "12", "-baseline_hid_dim", "12",
+                "-wv_dim", str(FIXTURE_WV), "-max_exchange", "3",
+                "-optim_type", "Adam", "-batch_size", "8",
+                "-batch_size_dev", "8", "-top_k_dev", "2",
+                "-top_k_train", "2", "-log_interval", "4", "-log_dev", "6",
+                "-save_after", "2", "-save_interval", "4",
+                "-exchange_samples", "1"]
 # The demo's training command (tools/demo.sh:21-31) without its file
 # paths: the driver phase hands the sets over in memory.
 DEMO_ARGV = ["-experiment_name", "demo", "-model_type", "Adaptive",
@@ -409,11 +448,11 @@ POPULATION_PARAM_ATOL, POPULATION_LOSS_RTOL = 5e-3, 1e-6
 # (tests/test_mesh_driver.py:80-93).
 MESH_DEVICES = ["cuda:0", "cuda:0"]
 MESH_STEP_STEPS = 46
-# The mesh driver runs the demo's argv for 15 of its 30 epochs (690
-# steps), which keeps the whole script near 700 s on a slow host (931 s
-# there with all 30): its log is the driver phase's first 690 steps,
-# message for message.
-MESH_DRIVER_EPOCHS = 15
+# The mesh driver runs the demo's argv for 10 of its 30 epochs (460
+# steps; 15 until the ckpt_orbax phase came, 30 before that, 931 s of
+# script on a slow host), which keeps the whole script near 700 s: its
+# log is the driver phase's first 460 steps, message for message.
+MESH_DRIVER_EPOCHS = 10
 # JAX's mesh tolerance holds the weights after 8 steps
 # (tests/test_mesh_driver.py:73-93); the two-rank step is held there too,
 # and its use after the 46 steps is reported: RMSprop turns the rounding
@@ -1010,9 +1049,9 @@ def check_counts(phase, got, want, losses):
         raise SystemExit(f"{phase}: a logged loss is not finite")
 
 
-def check_reloads(phase, flags, device):
-    """The checkpoint and its _best, the JAX package's msgpack files,
-    reload with weights and optimizer slots equal to what
+def check_reloads(phase, flags, device, fmt="msgpack"):
+    """The checkpoint and its _best, the JAX package's checkpoints in
+    ``fmt``, reload with weights and optimizer slots equal to what
     ``read_checkpoint`` reads from them; returns _best's data."""
     import torch
     from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES,
@@ -1025,8 +1064,8 @@ def check_reloads(phase, flags, device):
         opt_states_to_torch)
     cfg = GameConfig.from_flags(flags)
     for path in (flags.checkpoint, flags.checkpoint + "_best"):
-        if checkpoint_format(path) != "msgpack":
-            raise SystemExit(f"{phase}: {path} is not a msgpack file")
+        if checkpoint_format(path) != fmt:
+            raise SystemExit(f"{phase}: {path} is not {fmt}")
         payload = read_checkpoint(path)
         mods = AgentModules(cfg).to(device)
         opts = init_opt_states(cfg, mods)
@@ -1046,7 +1085,7 @@ def check_reloads(phase, flags, device):
             if not ok:
                 raise SystemExit(f"{phase}: {path}: {agent} did not reload")
     best = read_checkpoint(flags.checkpoint + "_best")["data"]
-    log({"phase": phase, "checkpoints_reloaded": 2, "format": "msgpack",
+    log({"phase": phase, "checkpoints_reloaded": 2, "format": fmt,
          "best": best,
          "sender_entries": sorted(payload["models"]["sender"])})
     return best
@@ -1126,22 +1165,34 @@ def drive(device, workdir, smi):
             "checkpoint_s": summary["seconds"]["checkpoints"]}
 
 
-def resume_counted(name, source, root, inputs, device, smi, start):
-    """``train.run`` resumed from a copy of ``source`` at ``root/name``
-    for CKPT_EPOCHS epochs of the demo's argv: the cadences' counts from
-    ``start``, ``Step: graph``, finite losses, a last dev top-6 of at
-    least MIN_DEV_TOP6, and the file at the path rewritten in
-    ``source``'s format at the last checkpoint step. Returns its row."""
+ADOPTED = {"pt": "Checkpoint is a reference .pt file",
+           "orbax": "Checkpoint is an orbax directory; using -ckpt_format "
+                    "orbax for this run"}
+
+
+def resume_counted(name, source, root, inputs, device, smi, start,
+                   phase="ckpt_msgpack", argv=DEMO_ARGV, epochs=CKPT_EPOCHS,
+                   min_top6=MIN_DEV_TOP6):
+    """``train.run`` resumed from a copy of ``source`` (a file or an
+    Orbax directory) at ``root/name`` for ``epochs`` epochs of ``argv``:
+    the cadences' counts from ``start``, ``Step: graph``, finite losses,
+    the log naming the format it adopts, a last dev top-6 of at least
+    ``min_top6`` (where given), and the checkpoint at the path rewritten
+    in ``source``'s format at the last checkpoint step. Returns its
+    row."""
     import shutil
     from multimodalgame_tpu_torch.config import flags_from_argv
     from multimodalgame_tpu_torch.utils.checkpoint import (checkpoint_format,
                                                            read_checkpoint)
     path = os.path.join(root, name)
-    shutil.copyfile(source, path)
+    if os.path.isdir(source):
+        shutil.copytree(source, path)
+    else:
+        shutil.copyfile(source, path)
     fmt = checkpoint_format(path)
-    flags = flags_from_argv(DEMO_ARGV + [
+    flags = flags_from_argv(argv + [
         "-log_path", root, "-experiment_name", name, "-checkpoint", path,
-        "-max_epoch", str(CKPT_EPOCHS)])
+        "-max_epoch", str(epochs)])
     want = cadence_counts(flags, inputs[2].size, inputs[3].size, start)
     summary, secs, counts = run_counted(flags, inputs, device)
     got, losses, last_dev, _ = read_log(flags, summary)
@@ -1151,35 +1202,91 @@ def resume_counted(name, source, root, inputs, device, smi, start):
     last_save = max(t for t in range(start, want["steps"])
                     if t >= flags.save_after
                     and t % flags.save_interval == 0)
-    row = {"phase": "ckpt_msgpack", "resumed_from": fmt, **got,
+    row = {"phase": phase, "resumed_from": fmt, **got,
            "expected": want, "step_graph": "Step: graph" in text,
-           "adopted_line": "Checkpoint is a reference .pt file" in text,
+           "adopted_lines": [line for line in ADOPTED.values()
+                             if line in text],
            "written_format": checkpoint_format(path),
            "written_step": read_checkpoint(path)["data"]["step"],
            "last_dev_top6": last_dev, "seconds": secs,
            "checkpoint_s": summary["seconds"]["checkpoints"], "card": smi}
     log(row)
-    check_counts("ckpt_msgpack", got, want, losses)
-    if not row["step_graph"] or row["adopted_line"] != (fmt == "pt"):
-        raise SystemExit(f"ckpt_msgpack: the {fmt} resume's log lacks "
+    check_counts(phase, got, want, losses)
+    adopted = [ADOPTED[fmt]] if fmt in ADOPTED else []
+    if not row["step_graph"] or row["adopted_lines"] != adopted:
+        raise SystemExit(f"{phase}: the {fmt} resume's log lacks "
                          "Step: graph or names the wrong format")
     if row["written_format"] != fmt or row["written_step"] != last_save:
-        raise SystemExit(f"ckpt_msgpack: the {fmt} resume wrote "
+        raise SystemExit(f"{phase}: the {fmt} resume wrote "
                          f"{row['written_format']} at step "
                          f"{row['written_step']}, not {fmt} at {last_save}")
-    if last_dev < MIN_DEV_TOP6:
-        raise SystemExit(f"ckpt_msgpack: the {fmt} resume's dev top-6 "
-                         f"{last_dev} is below {MIN_DEV_TOP6}")
+    if min_top6 is not None and last_dev < min_top6:
+        raise SystemExit(f"{phase}: the {fmt} resume's dev top-6 "
+                         f"{last_dev} is below {min_top6}")
     return dict(row, flags=flags, summary=summary)
 
 
-def ckpt_msgpack(device, workdir, smi, driven):
-    """The JAX package's msgpack checkpoint on the card: the driver
-    resumed from the ``driver`` phase's msgpack ``_best`` and from a
-    ``.pt`` of the same state (each keeps its format), ``Predictor`` on a
-    msgpack file against one on a ``.pt`` of the same modules, an Orbax
-    directory refused before the device is touched, and each format's
-    bytes and write and read ms."""
+def tree_digest(root) -> str:
+    """A digest of every file under ``root``, names and bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for d, _, files in sorted(os.walk(root)):
+        for name in sorted(files):
+            h.update(os.path.relpath(os.path.join(d, name), root).encode())
+            with open(os.path.join(d, name), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def fixture_inputs(device):
+    """In-memory sets of the fixture game's shapes: 6 classes, 8 train
+    and 4 dev examples a class of 24 features, 16-wide descriptions."""
+    from multimodalgame_tpu_torch.data.descriptions import DescriptionPack
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    rng = np.random.RandomState(11)
+    proto = rng.randn(FIXTURE_CLASSES, FIXTURE_FEAT)
+    sets = []
+    for per_class in (8, 4):
+        labels = np.repeat(np.arange(FIXTURE_CLASSES), per_class)
+        feats = np.abs(proto[labels] + 0.3 * rng.randn(len(labels),
+                                                       FIXTURE_FEAT))
+        sets.append(DeviceDataset(feats.astype(np.float32), labels,
+                                  device=device))
+    desc = rng.randn(FIXTURE_CLASSES, FIXTURE_WV).astype(np.float32)
+    pack = DescriptionPack(desc, desc, [1] * FIXTURE_CLASSES,
+                           {i: i for i in range(FIXTURE_CLASSES)},
+                           {i: f"class{i}" for i in range(FIXTURE_CLASSES)})
+    return pack, pack, sets[0], sets[1]
+
+
+def same_state(a, b) -> bool:
+    """Two resumed runs' weights and optimizer slots, bit for bit."""
+    import torch
+    sa, sb = a["modules"].state_dict(), b["modules"].state_dict()
+    if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k])
+                                         for k in sa):
+        return False
+    for agent, slots in a["opt_states"].items():
+        for k, v in slots.items():
+            w = b["opt_states"][agent][k]
+            if isinstance(v, list):
+                if not all(torch.equal(x, y) for x, y in zip(v, w)):
+                    return False
+            elif int(v) != int(w):
+                return False
+    return True
+
+
+def ckpt_orbax(device, workdir, smi):
+    """The JAX package's Orbax checkpoint directories on the card, read
+    and written by the port's own OCDBT, zarr and zstd codecs:
+    ``train.run -ckpt_format orbax`` at the canonical width on the graph
+    route; resumes from its directory and from the JAX fixture, each
+    bit-equal to a resume from the msgpack file of the same state;
+    ``-eval_only`` on its ``_best``; ``Predictor.from_checkpoint`` on a
+    directory; a malformed directory refused; and the write (to return,
+    to commit) and read ms against msgpack."""
+    import shutil
     import torch
     from multimodalgame_tpu_torch.config import flags_from_argv
     from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
@@ -1190,6 +1297,242 @@ def ckpt_msgpack(device, workdir, smi, driven):
         fused_eval_exchange, fused_train_forward)
     from multimodalgame_tpu_torch.serve import Predictor
     from multimodalgame_tpu_torch.train import run
+    from multimodalgame_tpu_torch.utils import ocdbt, zstd
+    from multimodalgame_tpu_torch.utils.checkpoint import (
+        checkpoint_tree, load_agents, load_checkpoint, save_checkpoint,
+        wait_for_checkpoints)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else [v]
+
+    root = os.path.join(workdir, "ckpt_orbax")
+    os.makedirs(root)
+    train = DeviceDataset(*synthetic_set(TRAIN_PER_CLASS, seed=1),
+                          device=device)
+    dev = DeviceDataset(*synthetic_set(DEV_PER_CLASS, seed=2), device=device)
+    pack = description_pack()
+    inputs = (pack, pack, train, dev)
+    launches = {"train": 0, "eval": 0}
+
+    def count(row):
+        launches["train"] += row["train_launches"]
+        launches["eval"] += row["eval_launches"]
+
+    # 1: the canonical game trained with -ckpt_format orbax, counted.
+    flags = flags_from_argv(DEMO_ARGV + [
+        "-log_path", root, "-experiment_name", "orbax", "-ckpt_format",
+        "orbax", "-max_epoch", str(CKPT_EPOCHS)])
+    want = cadence_counts(flags, train.size, dev.size)
+    summary, secs, counts = run_counted(flags, inputs, device)
+    got, losses, last_dev, _ = read_log(flags, summary)
+    got.update(counts)
+    count(got)
+    with open(flags.log_file) as f:
+        step_graph = "Step: graph" in f.read()
+    leftovers = [p for p in os.listdir(root)
+                 if p.endswith((".staging", ".old")) or ".orbax-" in p]
+    log({"phase": "ckpt_orbax", **got, "expected": want,
+         "step_graph": step_graph, "last_dev_top6": last_dev,
+         "seconds": secs, "checkpoint_s": summary["seconds"]["checkpoints"],
+         "leftovers": leftovers, "card": smi})
+    check_counts("ckpt_orbax", got, want, losses)
+    if not step_graph or leftovers:
+        raise SystemExit(f"ckpt_orbax: Step: graph {step_graph}, "
+                         f"leftovers {leftovers}")
+    # 2: both directories reload; -eval_only on _best reproduces it.
+    best = check_reloads("ckpt_orbax", flags, device, fmt="orbax")
+    check_eval_only("ckpt_orbax", flags, inputs, device, best)
+
+    # 3: resumed from its periodic directory and from a msgpack file of
+    # the same state: the same weights and slots, bit for bit.
+    cfg = GameConfig.from_flags(flags)
+    mods = AgentModules(cfg).to(device)
+    opts = init_opt_states(cfg, mods)
+    data = load_checkpoint(flags.checkpoint, mods, opts)
+    as_msgpack = os.path.join(root, "periodic.msgpack")
+    save_checkpoint(as_msgpack, data, mods, opts)
+    rows = {fmt: resume_counted(f"own_{fmt}", src, root, inputs, device,
+                                smi, data["step"], phase="ckpt_orbax",
+                                epochs=ORBAX_RESUME_EPOCHS, min_top6=None)
+            for fmt, src in (("orbax", flags.checkpoint),
+                             ("msgpack", as_msgpack))}
+    own_equal = same_state(rows["orbax"]["summary"],
+                           rows["msgpack"]["summary"])
+    for r in rows.values():
+        count(r)
+
+    # 4: the JAX fixture resumed, and a msgpack file of its state.
+    small = fixture_inputs(device)
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           FIXTURE_DIR)
+    fcfg = GameConfig.from_flags(flags_from_argv(FIXTURE_ARGV))
+    fmods = AgentModules(fcfg).to(device)
+    fopts = init_opt_states(fcfg, fmods)
+    fdata = load_checkpoint(fixture, fmods, fopts)
+    fixture_msgpack = os.path.join(root, "fixture.msgpack")
+    save_checkpoint(fixture_msgpack, fdata, fmods, fopts)
+    frows = {fmt: resume_counted(f"fixture_{fmt}", src, root, small,
+                                 device, smi, fdata["step"],
+                                 phase="ckpt_orbax", argv=FIXTURE_ARGV,
+                                 epochs=ORBAX_RESUME_EPOCHS, min_top6=None)
+             for fmt, src in (("orbax", fixture), ("msgpack",
+                                                   fixture_msgpack))}
+    fixture_equal = same_state(frows["orbax"]["summary"],
+                               frows["msgpack"]["summary"])
+    for r in frows.values():
+        count(r)
+    log({"phase": "ckpt_orbax", "fixture_step": fdata["step"],
+         "own_resumes_bit_equal": own_equal,
+         "fixture_resumes_bit_equal": fixture_equal})
+    if not (own_equal and fixture_equal):
+        raise SystemExit("ckpt_orbax: a resume from an Orbax directory "
+                         "differs from the msgpack resume of its state")
+
+    # 5: Predictor on a directory and on a msgpack file of its modules.
+    served = rows["orbax"]["flags"].checkpoint
+    sdata, smods = load_agents(served, cfg)
+    served_msgpack = os.path.join(root, "served.msgpack")
+    save_checkpoint(served_msgpack, sdata, smods,
+                    init_opt_states(cfg, smods))
+    preds = {}
+    for fmt, path in (("orbax", served), ("msgpack", served_msgpack)):
+        pflags = flags_from_argv(DEMO_ARGV + ["-log_path", root,
+                                              "-checkpoint", path])
+        preds[fmt] = Predictor.from_checkpoint(pflags, pack, device=device)
+    requests = [features(b, seed=400 + b) for b in (1, 64)]
+    fused_eval_exchange.launches = 0
+    outs = {fmt: [p.predict(x) for x in requests]
+            for fmt, p in preds.items()}
+    torch.cuda.synchronize()
+    serve_launches = fused_eval_exchange.launches
+    launches["eval"] += serve_launches
+    keys = ("prediction", "log_probs", "sender_messages",
+            "receiver_messages", "conversation_length")
+    served_equal = all(
+        m["n_steps"] == p["n_steps"]
+        and all(np.array_equal(m[k], p[k]) for k in keys)
+        for m, p in zip(outs["orbax"], outs["msgpack"]))
+    log({"phase": "ckpt_orbax", "served_step": sdata["step"],
+         "requests": [len(x) for x in requests],
+         "eval_kernel_launches": serve_launches,
+         "orbax_and_msgpack_predictors_bit_equal": served_equal})
+    if serve_launches != 2 * len(requests) or not served_equal:
+        raise SystemExit("ckpt_orbax: the two Predictors differ or "
+                         f"launched {serve_launches} times")
+
+    # 6: a malformed directory (its B-tree node cut short) is refused,
+    # naming it, with no kernel launched and the directory unchanged.
+    bad = os.path.join(root, "malformed")
+    shutil.copytree(flags.checkpoint + "_best", bad)
+    node_dir = os.path.join(bad, "d")
+    node = os.path.join(node_dir, os.listdir(node_dir)[0])
+    with open(node, "rb") as f:
+        blob = f.read()
+    with open(node, "wb") as f:
+        f.write(blob[:-5])
+    before = tree_digest(bad)
+    bflags = flags_from_argv(DEMO_ARGV + [
+        "-log_path", os.path.join(root, "malformed_run"), "-checkpoint",
+        bad])
+    fused_train_forward.launches = fused_eval_exchange.launches = 0
+    try:
+        run(bflags, device=device, inputs=inputs)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise SystemExit("ckpt_orbax: a malformed directory was accepted")
+    untouched = (fused_train_forward.launches == 0
+                 and fused_eval_exchange.launches == 0
+                 and tree_digest(bad) == before)
+    log({"phase": "ckpt_orbax", "malformed_refused": refusal,
+         "no_launch_and_directory_unchanged": untouched})
+    if not untouched or bad not in refusal:
+        raise SystemExit("ckpt_orbax: the malformed directory's refusal "
+                         "launched a kernel, changed it or did not name it")
+
+    # 7: write (to return, to commit) and read ms, Orbax and msgpack in
+    # turns; the pure-Python zstd decoder's rate on the fixture's chunks
+    # and on a weight matrix's frame of one compressed block.
+    ms = {"orbax": {"return": [], "commit": [], "read": []},
+          "msgpack": {"write": [], "read": []}}
+    back = AgentModules(cfg).to(device)
+    back_opts = init_opt_states(cfg, back)
+    for rep in range(ORBAX_REPS):
+        for fmt in (("orbax", "msgpack") if rep % 2 == 0
+                    else ("msgpack", "orbax")):
+            path = os.path.join(root, "timed." + fmt)
+            t0 = time.perf_counter()
+            save_checkpoint(path, data, mods, opts, fmt=fmt)
+            t1 = time.perf_counter()
+            wait_for_checkpoints()
+            t2 = time.perf_counter()
+            load_checkpoint(path, back, back_opts)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if fmt == "orbax":
+                ms[fmt]["return"].append((t1 - t0) * 1e3)
+                ms[fmt]["commit"].append((t2 - t0) * 1e3)
+            else:
+                ms[fmt]["write"].append((t1 - t0) * 1e3)
+            ms[fmt]["read"].append((t3 - t2) * 1e3)
+    sizes = {fmt: sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(os.path.join(root, "timed."
+                                                           + fmt))
+                      for f in fs)
+             if fmt == "orbax" else
+             os.path.getsize(os.path.join(root, "timed." + fmt))
+             for fmt in ms}
+    timing = {fmt: dict({f"{k}_ms": statistics.median(v)
+                         for k, v in rows_.items()},
+                        bytes=sizes[fmt],
+                        **{f"{k}_ms_all": v for k, v in rows_.items()})
+              for fmt, rows_ in ms.items()}
+    frames = [v for k, v in ocdbt.read_store(fixture).items()
+              if not k.endswith(b".zarray")]
+    with open(os.path.join(os.path.dirname(fixture),
+                           "zstd_weights_level1.zst"), "rb") as f:
+        frames.append(f.read())
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decoded = sum(len(zstd.decompress(f)) for f in frames)
+        rates.append(decoded / (time.perf_counter() - t0) / 1e6)
+    rate = statistics.median(rates)
+    array_bytes = sum(leaf.nbytes for leaf in leaves(checkpoint_tree(
+        data, mods, opts)))
+    log({"phase": "ckpt_orbax", "timing": timing, "reps": ORBAX_REPS,
+         "zstd_decode": {"frames": len(frames),
+                         "compressed_bytes": sum(map(len, frames)),
+                         "decoded_bytes": decoded,
+                         "decoded_mb_per_s": rate,
+                         "decoded_mb_per_s_all": rates},
+         "canonical_array_bytes": array_bytes,
+         "canonical_decode_s_at_that_rate": array_bytes / 1e6 / rate,
+         "driver_checkpoint_s": summary["seconds"]["checkpoints"],
+         "card": smi})
+    return {"train_launches": launches["train"],
+            "eval_launches": launches["eval"], "timing": timing,
+            "decoded_mb_per_s": rate,
+            "resumes_bit_equal": own_equal and fixture_equal}
+
+
+def ckpt_msgpack(device, workdir, smi, driven):
+    """The JAX package's msgpack checkpoint on the card: the driver
+    resumed from the ``driver`` phase's msgpack ``_best`` and from a
+    ``.pt`` of the same state (each keeps its format), ``Predictor`` on a
+    msgpack file against one on a ``.pt`` of the same modules, and each
+    format's bytes and write and read ms. (The Orbax directory, refused
+    here before it was ported, is ``ckpt_orbax``'s.)"""
+    import torch
+    from multimodalgame_tpu_torch.config import flags_from_argv
+    from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+    from multimodalgame_tpu_torch.game.agents import AgentModules
+    from multimodalgame_tpu_torch.game.config import GameConfig
+    from multimodalgame_tpu_torch.game.train import init_opt_states
+    from multimodalgame_tpu_torch.ops.cuda_exchange import (
+        fused_eval_exchange)
+    from multimodalgame_tpu_torch.serve import Predictor
     from multimodalgame_tpu_torch.utils.checkpoint import (
         checkpoint_format, load_agents, load_checkpoint, save_checkpoint)
     from multimodalgame_tpu_torch.utils.torch_interop import (
@@ -1250,33 +1593,7 @@ def ckpt_msgpack(device, workdir, smi, driven):
         raise SystemExit("ckpt_msgpack: the two Predictors differ or "
                          f"launched {serve_launches} times")
 
-    # 4: an Orbax-shaped directory is refused before the device is used.
-    orbax = os.path.join(root, "orbax_ckpt")
-    os.makedirs(os.path.join(orbax, "models"))
-    with open(os.path.join(orbax, "_CHECKPOINT_METADATA"), "w") as f:
-        f.write("{}")
-    flags = flags_from_argv(DEMO_ARGV + [
-        "-log_path", os.path.join(root, "orbax_run"), "-checkpoint", orbax])
-    torch.cuda.synchronize()
-    memory = torch.cuda.memory_allocated()
-    fused_train_forward.launches = fused_eval_exchange.launches = 0
-    try:
-        run(flags, device=device, inputs=inputs)
-    except ValueError as e:
-        refusal = str(e)
-    else:
-        raise SystemExit("ckpt_msgpack: an Orbax directory was accepted")
-    untouched = (torch.cuda.memory_allocated() == memory
-                 and fused_train_forward.launches == 0
-                 and fused_eval_exchange.launches == 0
-                 and not os.path.exists(flags.log_file))
-    log({"phase": "ckpt_msgpack", "orbax_refused": refusal,
-         "device_untouched": untouched})
-    if not untouched or orbax not in refusal:
-        raise SystemExit("ckpt_msgpack: the Orbax refusal touched the "
-                         "device or did not name the path")
-
-    # 5: bytes and write/read ms of each format, in turns.
+    # 4: bytes and write/read ms of each format, in turns.
     ms = {fmt: {"write": [], "read": []} for fmt in ("msgpack", "pt")}
     back = AgentModules(cfg).to(device)
     back_opts = init_opt_states(cfg, back)
@@ -4160,6 +4477,14 @@ def main() -> int:
                 os.path.abspath(__file__))) as workdir:
             ckpt_msgpack("cuda", workdir, smi, drive("cuda", workdir, smi))
         return 0
+    if sys.argv[1:] == ["--ckpt-orbax"]:
+        # Only the build and the Orbax checkpoint phase; no result line.
+        smi = probe()
+        build()
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as workdir:
+            ckpt_orbax("cuda", workdir, smi)
+        return 0
     if sys.argv[1:] == ["--mesh"]:
         # Only the build, the serving and driver phases the mesh phases
         # are held against, and the mesh phases; no result line.
@@ -4184,6 +4509,7 @@ def main() -> int:
         mesh_graphed = mesh_graph(workdir, smi)
         driven = drive("cuda", workdir, smi)
         ckpt = ckpt_msgpack("cuda", workdir, smi, driven)
+        orbax = ckpt_orbax("cuda", workdir, smi)
         # The attention presets and the variants: neither kernel
         # launches on them.
         attention = drive_attention("cuda", workdir, smi)
@@ -4245,6 +4571,7 @@ def main() -> int:
             "serve": served["launches"], "staged": staged["eval_launches"],
             "driver": driven["eval_launches"],
             "ckpt_msgpack": ckpt["eval_launches"],
+            "ckpt_orbax": orbax["eval_launches"],
             "driver_attention": attention["counts"]["eval_launches"],
             "serve_attention": served_attn["launches"],
             "variants": variants["eval_launches"],
@@ -4277,6 +4604,7 @@ def main() -> int:
             "train": trained["launches"], "staged": staged["train_launches"],
             "driver": driven["train_launches"],
             "ckpt_msgpack": ckpt["train_launches"],
+            "ckpt_orbax": orbax["train_launches"],
             "driver_attention": attention["counts"]["train_launches"],
             "variants": variants["train_launches"],
             "mesh_graph": mesh_graphed["train_launches"],
@@ -4317,7 +4645,9 @@ def main() -> int:
         "mesh_graph_driver_dev_top6": mesh_graphed["dev_top6"],
         "driver_run_steps_per_s": driven["run_steps_per_s"],
         "dev_top6": driven["last_dev_top6"],
-        "checkpoint_formats": ckpt["timing"],
+        "checkpoint_formats": dict(ckpt["timing"],
+                                   orbax=orbax["timing"]["orbax"]),
+        "zstd_decode_mb_per_s": orbax["decoded_mb_per_s"],
         "attention_run_steps_per_s": attention["run_steps_per_s"],
         "attention_step_steps_per_s": attention_row["steps_per_s"],
         "attention_dev_top6": attention["last_dev_top6"],

@@ -226,12 +226,9 @@ _HELP = {
                    "per-batch host loop.",
     "random_seed": "Master PRNG seed for parameter init and sampling "
                    "streams.",
-    "ckpt_format": "Checkpoint format: msgpack (default) writes the JAX "
-                   "package's single-file msgpack checkpoint (atomic "
-                   "rename), which either package resumes. A resume "
-                   "reads a msgpack file or a reference .pt by its "
-                   "content and keeps writing that format. orbax is not "
-                   "ported and raises.",
+    "ckpt_format": "Checkpoint backend: msgpack (one file, atomic "
+                   "rename) or orbax (async checkpoint directory). "
+                   "Loading auto-detects the format from the path.",
     "compute_dtype": "Training conversation precision: bfloat16 runs the "
                      "conversation on bfloat16 copies of the float32 "
                      "parameters (optimizers, losses and evaluation stay "

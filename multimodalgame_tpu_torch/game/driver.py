@@ -79,7 +79,8 @@ from multimodalgame_tpu_torch.game.train import (
 from multimodalgame_tpu_torch.ops.cuda_exchange import train_kernel_supports
 from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
                                                  philox_eval_uniforms)
-from multimodalgame_tpu_torch.utils.checkpoint import save_checkpoint
+from multimodalgame_tpu_torch.utils.checkpoint import (save_checkpoint,
+                                                       wait_for_checkpoints)
 from multimodalgame_tpu_torch.utils.device import resolve_device
 from multimodalgame_tpu_torch.utils.profiling import StepTimer
 
@@ -319,7 +320,8 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     # Wall seconds of the run's parts, taken where they run: the timer's
     # spans (each log window's copy and each dev sweep fall inside one,
     # the periodic checkpoints do not), the dev sweeps and every
-    # checkpoint write.
+    # checkpoint write (an Orbax write's host snapshot and dispatch: it
+    # commits on the background writer, as JAX's does).
     spent = {"step_spans": 0.0, "dev_sweeps": 0.0, "checkpoints": 0.0}
     done = False
 
@@ -568,6 +570,7 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         flogger.Log("Final step timing: {}".format(timer.summary()))
         spent["step_spans"] += timer.seconds
         timer.reset()
+    wait_for_checkpoints()   # commit an Orbax save still in flight
     return dict(step=step, best_dev_acc=best_dev_acc, modules=modules,
                 opt_states=opt_states, batch_accuracy=batch_accuracy,
                 metrics=logger.history, seconds=spent)

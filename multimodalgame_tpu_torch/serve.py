@@ -96,9 +96,9 @@ class Predictor:
     def from_checkpoint(cls, flags: Flags, desc_pack: DescriptionPack,
                         device: Devices = None,
                         use_kernel: bool = True) -> "Predictor":
-        """Load ``flags.checkpoint``: the JAX package's msgpack file or a
-        reference ``.pt``, told apart by content, as JAX's serving reads
-        both (serve.py:104-118). ``-mesh_model`` raises ``ValueError``, as
+        """Load ``flags.checkpoint``: the JAX package's msgpack file or
+        Orbax directory, or a reference ``.pt``, told apart by content, as
+        JAX's serving reads them (serve.py:104-118). ``-mesh_model`` raises ``ValueError``, as
         JAX's serving does (serve.py:166-169)."""
         refuse_mesh_model(flags)
         cfg = GameConfig.from_flags(flags)

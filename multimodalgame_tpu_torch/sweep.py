@@ -14,8 +14,8 @@ It prints one JSON line per member (index, learning-rate scale, final and
 best dev top-k) and a summary line, and saves the winner's final weights
 and optimizer slots as a single-game checkpoint at ``<checkpoint>_best``
 in the run's ``-ckpt_format`` (JAX sweep.py:310-312: the JAX package's
-msgpack file), which ``-eval_only``, ``serve.py`` and the JAX package
-read.
+msgpack file or Orbax directory, committed before the sweep returns),
+which ``-eval_only``, ``serve.py`` and the JAX package read.
 
 A population of one trains through the single-game indexed trainer with
 the member's learning-rate scale folded into the learning rate; there
@@ -78,8 +78,8 @@ from multimodalgame_tpu_torch.parallel.population import (
     init_population, init_population_opt_states, make_population_eval,
     make_population_train_step, member_block, member_modules,
     member_opt_states)
-from multimodalgame_tpu_torch.train import check_supported
-from multimodalgame_tpu_torch.utils.checkpoint import save_checkpoint
+from multimodalgame_tpu_torch.utils.checkpoint import (save_checkpoint,
+                                                       wait_for_checkpoints)
 from multimodalgame_tpu_torch.utils.logging import FileLogger
 
 
@@ -100,7 +100,6 @@ def run_sweep(flags: Flags, max_steps: Optional[int] = None,
     desc_dev, train_ds, dev_ds)``) replaces the file reads with sets held
     in memory, as ``train.run``'s does. ``device`` is a device, or a list
     of devices to split the members over (see the module's notes)."""
-    check_supported(flags)
     if flags.images == "cifar":
         raise NotImplementedError(
             "-images cifar on the sweep is not ported yet (ROADMAP "
@@ -348,7 +347,8 @@ def _sweep(flags: Flags, max_steps: Optional[int],
                         dict(step=step, best_dev_acc=float(best[winner]),
                              final_dev_acc=float(accs[winner])),
                         win_mods, win_opts, fmt=flags.ckpt_format)
-    if mesh is not None:
+    wait_for_checkpoints()   # the winner's Orbax save commits before any
+    if mesh is not None:     # rank returns (JAX sweep.py:328)
         mesh.barrier()
 
     summary = {

@@ -13,15 +13,16 @@ context) included, and so do ``-desc_attn``, ``-sender_mix mou``,
 ``-flipout_dev``, ``-compute_dtype bfloat16`` (the conversation in
 bfloat16, parameters, optimizers and losses in float32) and ``-images
 cifar`` (the CIFAR-10 test split's pixels as features; PIL reads and
-resizes them, or the caller stages them through ``inputs``). The one flag
-value the port does not cover, ``-ckpt_format orbax``, raises
-``NotImplementedError``.
+resizes them, or the caller stages them through ``inputs``).
 
-Checkpoints (``utils/checkpoint.py``) are the JAX package's msgpack
-files. A resume reads the file at ``-checkpoint`` whatever its format and
-adopts it, as JAX's driver does (train.py:304-316): a reference ``.pt``
-left by an earlier port run keeps being written as a ``.pt``, and an
-Orbax directory there raises before the device is touched.
+Checkpoints (``utils/checkpoint.py``) are the JAX package's msgpack files
+or, with ``-ckpt_format orbax``, its Orbax directories, written on a
+background thread and committed before ``run`` returns. A resume first
+repairs a crash-interrupted Orbax swap at ``-checkpoint`` and its
+``_best``, then reads what is at ``-checkpoint`` whatever its format and
+adopts that format, as JAX's driver does (train.py:282-316): a directory
+is written as Orbax, a msgpack file as msgpack, and a reference ``.pt``
+left by an earlier port run keeps being written as a ``.pt``.
 
 ``-mesh N`` trains (or, with ``-eval_only``, evaluates) data-parallel,
 one process a device (``parallel/distributed.py``), and ``-mesh N
@@ -57,10 +58,9 @@ from multimodalgame_tpu_torch.game.driver import (SAMPLER_LINE, STEP_LINE,
                                                   mesh_banner, resolve_mesh)
 from multimodalgame_tpu_torch.game.train import (init_opt_states,
                                                  make_eval_exchange)
-from multimodalgame_tpu_torch.utils.checkpoint import (ORBAX_NOT_PORTED,
-                                                       checkpoint_format,
-                                                       load_checkpoint,
-                                                       save_checkpoint)
+from multimodalgame_tpu_torch.utils.checkpoint import (
+    checkpoint_format, load_checkpoint, recover_orbax, save_checkpoint,
+    wait_for_checkpoints)
 from multimodalgame_tpu_torch.utils.device import resolve_device
 from multimodalgame_tpu_torch.utils.logging import FileLogger, VisdomLogger
 from multimodalgame_tpu_torch.utils.profiling import StepTimer
@@ -207,12 +207,6 @@ def emit_log_window(flags: Flags, flogger, logger, epoch: int, step: int,
     logger.log(key="Training Accuracy", val=avg_batch_acc, step=step)
 
 
-def check_supported(flags: Flags) -> None:
-    """Raise ``NotImplementedError`` for flags the port does not cover."""
-    if flags.ckpt_format == "orbax":
-        raise NotImplementedError(ORBAX_NOT_PORTED)
-
-
 def job_devices(flags: Flags, device=None) -> Optional[list]:
     """This host's rank devices for ``-mesh`` and ``-num_processes``, or
     ``None`` for a single-device run. Raises ``ValueError`` for a
@@ -269,9 +263,6 @@ def run(flags: Flags, max_steps: Optional[int] = None,
     calls, the gradient all-reduces apart; under ``-mesh_model`` the data
     axis's, and the model axis's under ``model``) and, on a card, its
     ``peak_memory_bytes``."""
-    check_supported(flags)
-    if os.path.exists(flags.checkpoint):
-        checkpoint_format(flags.checkpoint)   # an Orbax directory raises
     if inputs is not None and (flags.binary_only or not flags.fast_driver):
         raise ValueError("in-memory inputs serve the staged paths only; "
                          "-binary_only and -nofast_driver read the files")
@@ -380,13 +371,29 @@ def _run(flags: Flags, max_steps: Optional[int], device: torch.device,
     epoch = 0
     step = 0
     best_dev_acc = 0.0
+    # Finish a crash-interrupted Orbax swap before the resume decision:
+    # the mid-swap window leaves nothing at the path (JAX
+    # train.py:282-288). One rank repairs; the others wait for it.
+    if mesh is None or mesh.writer:
+        recover_orbax(flags.checkpoint)
+        recover_orbax(flags.checkpoint + "_best")
+    if mesh is not None:
+        mesh.barrier()
+        if mesh.model is not None:
+            mesh.model.barrier()
     if os.path.exists(flags.checkpoint):
         # The artifact at the path decides the format this run writes
         # (JAX train.py:304-316).
-        if checkpoint_format(flags.checkpoint) == "pt":
+        found = checkpoint_format(flags.checkpoint)
+        if found == "pt":
             flags.ckpt_format = "pt"
             flogger.Log("Checkpoint is a reference .pt file; writing .pt "
                         "checkpoints for this run")
+        elif found != flags.ckpt_format:
+            flags.ckpt_format = found
+            flogger.Log("Checkpoint is {}; using -ckpt_format {} for this "
+                        "run".format("an orbax directory" if found ==
+                                     "orbax" else "a msgpack file", found))
         flogger.Log("Loading from: " + flags.checkpoint)
         data = load_checkpoint(flags.checkpoint, modules, opt_states)
         step = int(data["step"])
@@ -632,6 +639,7 @@ def _run_per_batch(flags, modules, opt_states, desc_train, desc_dev,
 
     flogger.Log("Finished training.")
     flush_accuracy()
+    wait_for_checkpoints()   # commit an Orbax save still in flight
     return dict(step=step, best_dev_acc=best_dev_acc, modules=modules,
                 opt_states=opt_states, batch_accuracy=batch_accuracy,
                 metrics=logger.history)

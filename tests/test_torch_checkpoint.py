@@ -12,10 +12,12 @@ the JAX package's ``utils/checkpoint.py`` (msgpack) and
   its ``.pt``), resumed by the port's ``load_checkpoint``: the same
   weights and slots bit for bit from either, and the port's next three
   steps (JAX's uniforms, float64) continue JAX's trajectory to ~1e-9.
-* An Orbax directory, a truncated file, and a file of another config (a
-  shape, a missing or an extra key) raise ``ValueError`` naming the path;
-  ``-ckpt_format orbax`` raises ``NotImplementedError``; a failed write
-  leaves the previous file whole, in either format.
+* A malformed Orbax directory, a truncated file, and a file of another
+  config (a shape, a missing or an extra key) raise ``ValueError`` naming
+  the path; ``-ckpt_format orbax`` writes a directory the port reads back,
+  and a file where a directory is asked for, or the reverse, raises JAX's
+  error; a failed write leaves the previous file whole, in either format.
+  (The Orbax format against JAX's: tests/test_torch_orbax.py.)
 * The attention presets' entries and their slots round-trip both ways in
   both formats.
 """
@@ -35,13 +37,11 @@ from multimodalgame_tpu.game.train import (
     make_multistep_train_step_indexed as jax_multistep)
 from multimodalgame_tpu.utils import checkpoint as jax_checkpoint
 from multimodalgame_tpu.utils import torch_interop as jax_interop
-from multimodalgame_tpu_torch.config import make_flags, parse_args
 from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES, AgentModules,
                                                   init_params)
 from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.game.train import (
     init_opt_states, make_multistep_train_step_indexed)
-from multimodalgame_tpu_torch.train import check_supported
 from multimodalgame_tpu_torch.utils import checkpoint as port_checkpoint
 from multimodalgame_tpu_torch.utils import torch_interop
 from multimodalgame_tpu_torch.utils.checkpoint import (load_checkpoint,
@@ -289,10 +289,11 @@ def test_port_resumes_jax_msgpack_on_jax_trajectory(tmp_path, optim):
 
 
 def test_jax_native_formats_raise_clearly(tmp_path):
-    """JAX's msgpack file loads; an Orbax directory, a truncated msgpack
-    file and a file of another config raise ``ValueError`` naming the
-    path, before any weight changes; ``-ckpt_format orbax`` raises
-    ``NotImplementedError``."""
+    """JAX's msgpack file loads; a malformed Orbax directory, a truncated
+    msgpack file and a file of another config raise ``ValueError`` naming
+    the path, before any weight changes; ``-ckpt_format orbax`` writes a
+    directory that loads, and neither format is written over the
+    other."""
     from flax import serialization
     kw = {**BASE}
     jmods = JaxModules(JaxConfig(**kw))
@@ -322,7 +323,7 @@ def test_jax_native_formats_raise_clearly(tmp_path):
     with open(truncated, "wb") as f:
         f.write(blob[:len(blob) // 2])
     cases = {
-        str(orbax_dir): "directory, an Orbax checkpoint",
+        str(orbax_dir): "_METADATA lacks tree_metadata",
         truncated: "not a readable msgpack checkpoint: truncated",
         variant("missing.msgpack",
                 lambda t: t["models"]["sender"].pop("code_bias")):
@@ -346,10 +347,17 @@ def test_jax_native_formats_raise_clearly(tmp_path):
         load_checkpoint(path, AgentModules(other),
                         init_opt_states(other, AgentModules(other)))
     assert all(torch.equal(p, q) for p, q in zip(mods.parameters(), before))
-    flags = make_flags()
-    parse_args(flags, ["-ckpt_format", "orbax"])
-    with pytest.raises(NotImplementedError, match="orbax"):
-        check_supported(flags)
+    orbax_path = str(tmp_path / "port_orbax")
+    save_checkpoint(orbax_path, {"step": 2, "best_dev_acc": 0.0}, mods, opts,
+                    fmt="orbax")
+    assert load_checkpoint(orbax_path, mods, opts)["step"] == 2
+    assert port_checkpoint.checkpoint_format(orbax_path) == "orbax"
+    for target, fmt, match in ((path, "orbax", "is a msgpack checkpoint file"),
+                               (orbax_path, "msgpack",
+                                "is an orbax checkpoint directory")):
+        with pytest.raises(ValueError, match=match):
+            save_checkpoint(target, {"step": 3, "best_dev_acc": 0.0}, mods,
+                            opts, fmt=fmt)
 
 
 def test_failed_write_keeps_the_previous_file(tmp_path, monkeypatch):

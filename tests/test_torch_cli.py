@@ -47,10 +47,12 @@ from tests.port_runs import jax_flags, port_flags, small_argv
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _checkpoints(paths, argv, jax_path, port_path, stop_bias=1.5):
+def _checkpoints(paths, argv, jax_path, port_path, stop_bias=1.5,
+                 orbax_path=None):
     """One set of JAX weights, as JAX's msgpack file and as a reference
-    ``.pt``, both at step 3 with best dev accuracy 0.25. The stop bias
-    keeps conversations going past turn 0."""
+    ``.pt`` (and, given ``orbax_path``, as JAX's Orbax directory), all at
+    step 3 with best dev accuracy 0.25. The stop bias keeps conversations
+    going past turn 0."""
     jf = jax_flags(argv)
     pack = jax_load_descriptions(paths["descr"], "glove.6B", 16,
                                  glove_path=paths["glove"])
@@ -65,6 +67,10 @@ def _checkpoints(paths, argv, jax_path, port_path, stop_bias=1.5):
     jax_interop.save_reference_checkpoint(
         port_path, data, jax.tree_util.tree_map(np.asarray, params),
         jax.tree_util.tree_map(np.asarray, opts), jf.optim_type)
+    if orbax_path is not None:
+        jax_checkpoint.save_checkpoint(orbax_path, data, params, opts,
+                                       fmt="orbax")
+        jax_checkpoint.wait_for_checkpoints()
 
 
 def _both(paths, tmp_path, mode_argv):
@@ -185,30 +191,95 @@ def test_eval_only_and_predictor_read_jax_msgpack(synthetic_dataset,
                                           err_msg=k)
 
 
-@pytest.mark.parametrize("fmt", ["msgpack", "pt"])
+def test_eval_only_binary_only_and_predictor_read_jax_orbax(
+        synthetic_dataset, tmp_path):
+    """JAX's Orbax directory of ``_checkpoints``, read by the port: its
+    ``-eval_only`` CSV and conf-mat are JAX's on the same directory,
+    ``-binary_only`` writes what it writes from JAX's msgpack file of the
+    same state, and ``Predictor.from_checkpoint`` answers as JAX's."""
+    paths = synthetic_dataset
+    ckpt, mp = str(tmp_path / "ckpt.orbax"), str(tmp_path / "ckpt.msgpack")
+    dirs = {k: tmp_path / k for k in ("jax", "port", "bin")}
+    argvs = {k: small_argv(paths, d, "cli", ["-checkpoint", ckpt,
+                                             "-eval_only"])
+             for k, d in dirs.items()}
+    for d in dirs.values():
+        os.makedirs(d)
+    _checkpoints(paths, argvs["jax"], mp, str(tmp_path / "unused.pt"),
+                 orbax_path=ckpt)
+    assert checkpoint_format(ckpt) == "orbax"
+    jax_cli.main(argvs["jax"])
+    cli.main(argvs["port"], device="cpu")
+    jd, pd = dirs["jax"], dirs["port"]
+    want = _read(jd / "cli.eval.csv", jd).splitlines()
+    got = _read(pd / "cli.eval.csv", pd).splitlines()
+    assert got[0] == want[0]
+    g, w = got[1].split(","), want[1].split(",")
+    assert g[:5] == w[:5] == [ckpt, paths["dev"], "2", "3", "0.25"]
+    np.testing.assert_allclose([float(x) for x in g[5:]],
+                               [float(x) for x in w[5:]], atol=1e-6)
+    assert _read(pd / "cli.conf_mat.txt", pd) == \
+        _read(jd / "cli.conf_mat.txt", jd)
+
+    outs = {}
+    for name, path in (("orbax", ckpt), ("msgpack", mp)):
+        out = str(dirs["bin"] / f"{name}.hdf5")
+        cli.main(small_argv(paths, dirs["bin"], name, [
+            "-checkpoint", path, "-binary_only", "-batch_size_dev", "4",
+            "-binary_output", out]), device="cpu")
+        outs[name] = out
+    with h5py.File(outs["orbax"], "r") as a, \
+            h5py.File(outs["msgpack"], "r") as b:
+        assert set(a) == set(b) == {"Communication", "Predictions"}
+        for name in a:
+            assert a[name][()].tobytes() == b[name][()].tobytes(), name
+
+    jpack = jax_load_descriptions(paths["descr"], "glove.6B", 16,
+                                  glove_path=paths["glove"])
+    pack = load_descriptions(paths["descr"], "glove.6B", 16,
+                             glove_path=paths["glove"])
+    want_pred = jax_serve.Predictor.from_checkpoint(jax_flags(argvs["jax"]),
+                                                    jpack)
+    got_pred = Predictor.from_checkpoint(port_flags(argvs["port"]), pack,
+                                         device="cpu")
+    for batch in load_hdf5(paths["dev"], 8, 0, False, True, pack.map_labels):
+        want, got = (p.predict(batch["avgpool_512"])
+                     for p in (want_pred, got_pred))
+        np.testing.assert_allclose(got["log_probs"],
+                                   np.asarray(want["log_probs"]), atol=1e-5)
+        for k in ("prediction", "sender_messages", "conversation_length"):
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]),
+                                          err_msg=k)
+
+
+@pytest.mark.parametrize("fmt", ["msgpack", "pt", "orbax"])
 def test_resume_keeps_the_artifacts_format(synthetic_dataset, tmp_path,
                                            fmt):
     """A run resumed from JAX's state at step 3, given as its msgpack
-    file or as a ``.pt`` at the checkpoint path, writes its periodic and
-    best checkpoints in that format (the ``.pt`` named in the log); JAX's
-    strict ``load_checkpoint`` restores the msgpack ones."""
+    file, as a ``.pt`` or as its Orbax directory at the checkpoint path,
+    writes its periodic and best checkpoints in that format (the ``.pt``
+    and the directory named in the log, JAX's line for the directory);
+    JAX's strict ``load_checkpoint`` restores the msgpack and Orbax
+    ones."""
     paths = synthetic_dataset
     argv = small_argv(paths, tmp_path, "resume", ["-max_epoch", "1"])
     flags = port_flags(argv)
-    msgpack_path, pt_path = (str(tmp_path / n) for n in ("a.msgpack",
-                                                         "a.pt"))
-    _checkpoints(paths, argv, msgpack_path, pt_path)
-    os.replace(msgpack_path if fmt == "msgpack" else pt_path,
-               flags.checkpoint)
+    found = {f: str(tmp_path / f"a.{f}") for f in ("msgpack", "pt",
+                                                     "orbax")}
+    _checkpoints(paths, argv, found["msgpack"], found["pt"],
+                 orbax_path=found["orbax"])
+    os.replace(found[fmt], flags.checkpoint)
     cli.main(argv, device="cpu")
     log = open(flags.log_file).read()
     assert "Loaded at step: 3 and best dev acc: 0.25" in log
     assert ("Checkpoint is a reference .pt file" in log) == (fmt == "pt")
+    assert ("Checkpoint is an orbax directory; using -ckpt_format orbax "
+            "for this run" in log) == (fmt == "orbax")
     assert log.count("Checkpointing.") == 2          # steps 4 and 8
     for path in (flags.checkpoint, flags.checkpoint + "_best"):
         assert checkpoint_format(path) == fmt, path
     assert read_checkpoint(flags.checkpoint)["data"]["step"] == 8
-    if fmt == "msgpack":
+    if fmt != "pt":
         jf = jax_flags(argv)
         jmods = JaxModules(JaxConfig.from_flags(jf))
         template = jax_init_params(jmods, jax.random.PRNGKey(0),
@@ -253,8 +324,8 @@ def test_python_m_reaches_the_cli(synthetic_dataset, tmp_path):
                          text=True, timeout=120)
     assert out.returncode == 0
     assert "usage: python -m multimodalgame_tpu_torch" in out.stdout
-    assert "writes the JAX package's single-file msgpack checkpoint" in \
-        out.stdout
+    assert "msgpack (one file, atomic rename) or orbax (async checkpoint " \
+        "directory)" in " ".join(out.stdout.split())
     out = subprocess.run(
         [sys.executable, "-m", "multimodalgame_tpu_torch"]
         + small_argv(synthetic_dataset, tmp_path, "sub"), cwd=REPO, env=env,
@@ -270,20 +341,17 @@ def test_python_m_reaches_the_cli(synthetic_dataset, tmp_path):
     ["-flipout_dev", "-flipout_sen", "0.1", "-flipout_rec", "0.1"]])
 def test_check_supported_takes_attention_mou_and_flipout_dev(extra,
                                                              tmp_path):
+    """Every flag the JAX package takes is ported: the attention presets,
+    ``mou``, ``-flipout_dev``, bfloat16, CIFAR, a mesh, tensor
+    parallelism and ``-ckpt_format orbax`` all make a config, and the
+    flags keep their values."""
     from multimodalgame_tpu_torch.config import flags_from_argv
-    from multimodalgame_tpu_torch.train import check_supported
-    flags = flags_from_argv(["-experiment_name", "ok", "-log_path",
-                             str(tmp_path)] + extra)
-    check_supported(flags)
-    # bfloat16, CIFAR, a data-parallel mesh and tensor parallelism are
-    # ported too; Orbax is not.
-    for ported in (["-compute_dtype", "bfloat16"], ["-images", "cifar"],
-                   ["-mesh", "2"], ["-mesh", "2", "-mesh_model", "2"]):
-        check_supported(flags_from_argv(["-experiment_name", "ok",
-                                         "-log_path", str(tmp_path)]
-                                        + extra + ported))
-    for refused, match in ((["-ckpt_format", "orbax"], "orbax"),):
-        bad = flags_from_argv(["-experiment_name", "no", "-log_path",
-                               str(tmp_path)] + extra + refused)
-        with pytest.raises(NotImplementedError, match=match):
-            check_supported(bad)
+    from multimodalgame_tpu_torch.game.config import GameConfig
+    for ported in ([], ["-compute_dtype", "bfloat16"], ["-images", "cifar"],
+                   ["-mesh", "2"], ["-mesh", "2", "-mesh_model", "2"],
+                   ["-ckpt_format", "orbax"]):
+        flags = flags_from_argv(["-experiment_name", "ok", "-log_path",
+                                 str(tmp_path)] + extra + ported)
+        GameConfig.from_flags(flags)
+        for name, value in zip(ported[::2], ported[1::2]):
+            assert str(getattr(flags, name[1:])) == value, name

@@ -374,18 +374,18 @@ def test_per_batch_loop_matches_the_driver(synthetic_dataset, tmp_path):
 
 
 def test_unported_flags_raise(synthetic_dataset, tmp_path):
-    """Orbax still raises before a run starts; a data-parallel mesh and
-    tensor parallelism pass ``check_supported``, and ``-mesh_model``
-    without a mesh fails with JAX's ``resolve_mesh`` error."""
-    from multimodalgame_tpu_torch.train import check_supported
-    for extra, match in ((["-ckpt_format", "orbax"], "orbax"),):
-        flags = port_flags(small_argv(synthetic_dataset, tmp_path, "x",
-                                      extra))
-        with pytest.raises(NotImplementedError, match=match):
-            run(flags, device="cpu")
-    for ported in (["-mesh", "2"], ["-mesh", "2", "-mesh_model", "2"]):
-        check_supported(port_flags(small_argv(synthetic_dataset, tmp_path,
-                                              "x", ported)))
+    """``-ckpt_format orbax`` runs and writes both checkpoints as Orbax
+    directories; ``-mesh_model`` without a mesh fails with JAX's
+    ``resolve_mesh`` error."""
+    from multimodalgame_tpu_torch.utils.checkpoint import (checkpoint_format,
+                                                           read_checkpoint)
+    flags = port_flags(small_argv(synthetic_dataset, tmp_path, "x",
+                                  ["-ckpt_format", "orbax"]))
+    run(flags, max_steps=8, device="cpu")
+    for path in (flags.checkpoint, flags.checkpoint + "_best"):
+        assert checkpoint_format(path) == "orbax", path
+        assert not os.path.exists(path + ".staging")
+    assert read_checkpoint(flags.checkpoint)["data"]["step"] == 4
     flags = port_flags(small_argv(synthetic_dataset, tmp_path, "x",
                                   ["-mesh_model", "2"]))
     with pytest.raises(ValueError, match="-mesh_model requires -mesh"):

@@ -216,7 +216,8 @@ def test_resolve_device_raises_without_gpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-_BANNED = ("jax", "flax", "msgpack", "optax", "sklearn",
+_BANNED = ("jax", "flax", "msgpack", "optax", "sklearn", "orbax",
+           "tensorstore", "zstandard", "numcodecs", "zarr",
            "multimodalgame_tpu")
 
 
@@ -229,7 +230,9 @@ def test_port_imports_nothing_of_jax():
     """Every module of the port, walked with ``ast``: no import of jax,
     flax, msgpack (the port keeps its own codec), optax, sklearn, or the
     JAX package ``multimodalgame_tpu`` (exact name or
-    ``multimodalgame_tpu.*`` — the port's own name shares the prefix)."""
+    ``multimodalgame_tpu.*`` — the port's own name shares the prefix), nor
+    of orbax, tensorstore, zstandard, numcodecs or zarr (the port keeps
+    its own Orbax, OCDBT and zstd codecs)."""
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "multimodalgame_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
@@ -237,7 +240,8 @@ def test_port_imports_nothing_of_jax():
     port = root / "multimodalgame_tpu_torch"
     for module in ("sweep.py", "parallel/population.py", "data/cifar.py",
                    "parallel/tensor.py", "models/resnet.py",
-                   "package_data.py", "utils/msgpack.py"):
+                   "package_data.py", "utils/msgpack.py", "utils/zstd.py",
+                   "utils/ocdbt.py", "utils/orbax.py"):
         assert port / module in files, module
     seen = set()
     for path in files:

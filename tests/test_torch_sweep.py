@@ -14,6 +14,7 @@ winner's final dev accuracy.
 """
 
 import json
+import os
 import subprocess
 import sys
 
@@ -199,20 +200,25 @@ def test_set_smaller_than_a_batch(synthetic_dataset, tmp_path):
 
 def test_sweep_refuses_a_mesh(synthetic_dataset, tmp_path):
     """The sweep refuses tensor parallelism (a ``ValueError``: it splits
-    members only; JAX's sweep ignores the flag) and Orbax; ``-mesh``
-    passes ``check_supported`` (the sweep splits its members over its
-    devices without it, tests/test_torch_mesh_sweep.py)."""
-    from multimodalgame_tpu_torch.train import check_supported
-    for extra, error, match in (
-            (["-mesh_model", "2"], ValueError, "splits its members"),
-            (["-ckpt_format", "orbax"], NotImplementedError, "orbax")):
-        pf = port_flags(sweep_argv(synthetic_dataset, tmp_path, "mesh",
-                                   ["-population", "2"] + extra))
-        with pytest.raises(error, match=match):
-            run_sweep(pf, device="cpu")
-    check_supported(port_flags(sweep_argv(synthetic_dataset, tmp_path,
-                                          "mesh", ["-population", "2",
-                                                   "-mesh", "2"])))
+    members only; JAX's sweep ignores the flag); under ``-ckpt_format
+    orbax`` it writes the winner's ``_best`` as an Orbax directory,
+    committed when it returns."""
+    from multimodalgame_tpu_torch.utils.checkpoint import (checkpoint_format,
+                                                           read_checkpoint)
+    pf = port_flags(sweep_argv(synthetic_dataset, tmp_path, "mesh",
+                               ["-population", "2", "-mesh_model", "2"]))
+    with pytest.raises(ValueError, match="splits its members"):
+        run_sweep(pf, device="cpu")
+    pf = port_flags(sweep_argv(synthetic_dataset, tmp_path, "orbax",
+                               ["-population", "2", "-ckpt_format",
+                                "orbax"]))
+    got = run_sweep(pf, max_steps=4, eval_every=2, device="cpu")
+    best = pf.checkpoint + "_best"
+    assert checkpoint_format(best) == "orbax"
+    assert not os.path.exists(best + ".staging")
+    data = read_checkpoint(best)["data"]
+    assert data["step"] == got["steps"]
+    assert data["best_dev_acc"] == got["winner_best_dev_acc"]
 
 
 def test_sweep_refuses_cifar(synthetic_dataset, tmp_path):
