@@ -1,0 +1,10 @@
+"""The share of the traced training window in which no operation ran
+on the card: one less the union of the device's operations over the
+window."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train":
+        return None
+    tr = ctx["trace"]
+    return 100.0 * (1.0 - tr.busy_s() / tr.window_s)
