@@ -62,7 +62,6 @@ mesh: N devices (...)`` that JAX prints too.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -82,7 +81,7 @@ from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
 from multimodalgame_tpu_torch.utils.checkpoint import (save_checkpoint,
                                                        wait_for_checkpoints)
 from multimodalgame_tpu_torch.utils.device import resolve_device
-from multimodalgame_tpu_torch.utils.profiling import StepTimer
+from multimodalgame_tpu_torch.utils.profiling import StepTimer, span
 
 # Chunk sizes are drawn from this fixed set, so the number of distinct
 # chunk lengths is bounded by its length, not by the flag values.
@@ -234,8 +233,19 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
              tp=None) -> dict:
     """Train with the chunked schedule on the modules' device; returns
     the summary dict of the per-batch loop in ``train.py`` plus
-    ``seconds``, the wall seconds of the run's step spans, dev sweeps and
-    checkpoint writes.
+    ``seconds``, the wall seconds of the run's step spans
+    (``step_spans``, the ``StepTimer``'s), dev sweeps (``dev_sweeps``,
+    the dev-sweep spans below) and checkpoint writes (``checkpoints``,
+    the checkpoint spans). A span that copies to the host waits for the
+    steps queued before it, so its seconds hold that wait too.
+
+    Each part of the loop runs inside a ``utils/profiling.py:span``: the
+    steps' launches or replays (``mmg.driver.steps``), a log step's eval
+    dump and packing (``mmg.driver.log_dump``), a log window's copy and
+    print (``mmg.driver.log_window``), the dev sweeps
+    (``mmg.driver.dev_sweep``), the checkpoints
+    (``mmg.driver.checkpoint``) and the epochs' shuffle plans
+    (``mmg.driver.plan``).
 
     ``train_ds``/``dev_ds`` replace the sets read from ``-train_file`` /
     ``-dev_file``, and ``uniforms`` (``step -> {s, z, w[, fz, fw]}``)
@@ -317,11 +327,11 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     pending = []          # queued log windows, in step order
     timer = StepTimer()
     state = {"steps_timed": 0}
-    # Wall seconds of the run's parts, taken where they run: the timer's
-    # spans (each log window's copy and each dev sweep fall inside one,
-    # the periodic checkpoints do not), the dev sweeps and every
-    # checkpoint write (an Orbax write's host snapshot and dispatch: it
-    # commits on the background writer, as JAX's does).
+    # Wall seconds of the run's parts: the timer's spans (each log
+    # window's copy and each dev sweep fall inside one, the periodic
+    # checkpoints do not), and the dev-sweep and checkpoint spans (an
+    # Orbax write's host snapshot and dispatch: it commits on the
+    # background writer, as JAX's does).
     spent = {"step_spans": 0.0, "dev_sweeps": 0.0, "checkpoints": 0.0}
     done = False
 
@@ -355,12 +365,14 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         """Copy and print one queued log window."""
         from multimodalgame_tpu_torch.train import emit_log_window
         payload, t, i_b, ep, tgt, acc_end = ev
-        host = packer.unpack(flush_acc(payload))
-        restart_timer()
-        host["target"] = tgt
-        window = batch_accuracy[max(0, acc_end - flags.log_interval):acc_end]
-        emit_log_window(flags, flogger, logger, ep, t, i_b,
-                        float(np.asarray(window).mean()), host)
+        with span("driver.log_window"):
+            host = packer.unpack(flush_acc(payload))
+            restart_timer()
+            host["target"] = tgt
+            window = batch_accuracy[max(0, acc_end - flags.log_interval):
+                                    acc_end]
+            emit_log_window(flags, flogger, logger, ep, t, i_b,
+                            float(np.asarray(window).mean()), host)
 
     def flush_events():
         """Print the queued log windows in step order; called before any
@@ -370,11 +382,10 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
 
     def run_dev(t, i_batch, epoch):
         nonlocal best_dev_acc
-        t0 = time.perf_counter()
-        dev_acc, extra = run_device_dev_eval(flags, modules, eval_exchange,
-                                             desc_dev, dev_ds, epoch, step=t,
-                                             mesh=mesh)
-        spent["dev_sweeps"] += time.perf_counter() - t0
+        with span("driver.dev_sweep", spent, "dev_sweeps"):
+            dev_acc, extra = run_device_dev_eval(
+                flags, modules, eval_exchange, desc_dev, dev_ds, epoch,
+                step=t, mesh=mesh)
         restart_timer()   # the sweep's copy to the host was the sync
         logger.log(key="Development Accuracy", val=dev_acc, step=t)
         logger.log(key="Conversation Length (avg)",
@@ -400,12 +411,11 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
             best_dev_acc = dev_acc
             flogger.Log("Checkpointing with best Development "
                         "Accuracy: {}".format(best_dev_acc))
-            t0 = time.perf_counter()
-            save_checkpoint(flags.checkpoint + "_best",
-                            dict(step=t, best_dev_acc=best_dev_acc),
-                            modules, opt_states, mesh, tp,
-                            fmt=flags.ckpt_format)
-            spent["checkpoints"] += time.perf_counter() - t0
+            with span("driver.checkpoint", spent, "checkpoints"):
+                save_checkpoint(flags.checkpoint + "_best",
+                                dict(step=t, best_dev_acc=best_dev_acc),
+                                modules, opt_states, mesh, tp,
+                                fmt=flags.ckpt_format)
 
     def run_save(t):
         flush_acc()
@@ -415,12 +425,11 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
         else:
             timer.cancel()
         flogger.Log("Checkpointing.")
-        t0 = time.perf_counter()
-        save_checkpoint(flags.checkpoint,
-                        dict(step=t, best_dev_acc=best_dev_acc),
-                        modules, opt_states, mesh, tp,
-                        fmt=flags.ckpt_format)
-        spent["checkpoints"] += time.perf_counter() - t0
+        with span("driver.checkpoint", spent, "checkpoints"):
+            save_checkpoint(flags.checkpoint,
+                            dict(step=t, best_dev_acc=best_dev_acc),
+                            modules, opt_states, mesh, tp,
+                            fmt=flags.ckpt_format)
         timer.start()
 
     # --- Cross-epoch batch stream ----------------------------------------
@@ -439,17 +448,20 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     def refill(need):
         nonlocal plan_buf, tag_epoch, tag_batch, next_epoch
         while plan_buf.shape[0] < need and next_epoch < flags.max_epoch:
-            plan = train_ds.epoch_indices(next_epoch, flags.shuffle_train,
-                                          flags.batch_size)
-            if plan.shape[0] == 0:
-                next_epoch = flags.max_epoch  # dataset < one batch
-                break
-            plan_buf = np.concatenate([plan_buf, plan], axis=0)
-            tag_epoch = np.concatenate(
-                [tag_epoch, np.full(plan.shape[0], next_epoch, np.int64)])
-            tag_batch = np.concatenate(
-                [tag_batch, np.arange(plan.shape[0], dtype=np.int64)])
-            next_epoch += 1
+            with span("driver.plan"):
+                plan = train_ds.epoch_indices(next_epoch,
+                                              flags.shuffle_train,
+                                              flags.batch_size)
+                if plan.shape[0] == 0:
+                    next_epoch = flags.max_epoch  # dataset < one batch
+                    break
+                plan_buf = np.concatenate([plan_buf, plan], axis=0)
+                tag_epoch = np.concatenate(
+                    [tag_epoch, np.full(plan.shape[0], next_epoch,
+                                        np.int64)])
+                tag_batch = np.concatenate(
+                    [tag_batch, np.arange(plan.shape[0], dtype=np.int64)])
+                next_epoch += 1
 
     def consume(k):
         nonlocal plan_buf, tag_epoch, tag_batch
@@ -492,24 +504,28 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
             enter_epochs(ev_epoch)
             # The previous window prints before this one is queued.
             flush_events()
-            row = torch.as_tensor(row_np, device=device)
-            m = full_step(opt_states, train_ds.feats, train_ds.targets, row,
-                          desc, t, feats_context=train_ds.context, **descs)
-            ex_eval = None
-            if flags.exchange_samples > 0:
-                # The eval conversation on the same batch, for the
-                # inferred-conversation dump (model.py:1463-1465).
-                with torch.no_grad():
-                    data, ctx = gather_batch(train_ds.feats, row,
-                                             train_ds.context, transform,
-                                             context_fn)
-                    ex_eval = eval_exchange(
-                        data, desc, data_context=ctx,
-                        uniforms=philox_eval_uniforms(
-                            cfg, len(row_np), seed, t, EVAL_DUMP_SLOT,
-                            device), **descs)
+            with span("driver.steps"):
+                row = torch.as_tensor(row_np, device=device)
+                m = full_step(opt_states, train_ds.feats, train_ds.targets,
+                              row, desc, t, feats_context=train_ds.context,
+                              **descs)
+            with span("driver.log_dump"):
+                ex_eval = None
+                if flags.exchange_samples > 0:
+                    # The eval conversation on the same batch, for the
+                    # inferred-conversation dump (model.py:1463-1465).
+                    with torch.no_grad():
+                        data, ctx = gather_batch(train_ds.feats, row,
+                                                 train_ds.context, transform,
+                                                 context_fn)
+                        ex_eval = eval_exchange(
+                            data, desc, data_context=ctx,
+                            uniforms=philox_eval_uniforms(
+                                cfg, len(row_np), seed, t, EVAL_DUMP_SLOT,
+                                device), **descs)
+                payload = packer.pack(m, ex_eval)
             pending_acc.append(m.accuracy)
-            pending.append((packer.pack(m, ex_eval), t, ev_batch, ev_epoch,
+            pending.append((payload, t, ev_batch, ev_epoch,
                             train_ds.targets_host[row_np],
                             queued_acc_count()))
             state["steps_timed"] += 1
@@ -541,12 +557,14 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
             ev_epoch, ev_batch = int(eps[-1]), int(ibs[-1])
             enter_epochs(ev_epoch)
             off = 0
-            for size in plan_pieces(k):
-                sm = chunk_step(opt_states, train_ds.feats, train_ds.targets,
-                                rows[off:off + size], desc, t + off,
-                                feats_context=train_ds.context, **descs)
-                pending_acc.append(sm.accuracy)
-                off += size
+            with span("driver.steps"):
+                for size in plan_pieces(k):
+                    sm = chunk_step(opt_states, train_ds.feats,
+                                    train_ds.targets, rows[off:off + size],
+                                    desc, t + off,
+                                    feats_context=train_ds.context, **descs)
+                    pending_acc.append(sm.accuracy)
+                    off += size
             state["steps_timed"] += k
             did = k
 

@@ -46,6 +46,7 @@ from multimodalgame_tpu_torch.game.exchange import (ExchangeOutputs,
 from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 from multimodalgame_tpu_torch.parallel.mesh import axis_rows, gather_record
 from multimodalgame_tpu_torch.utils.device_pack import PackSpec
+from multimodalgame_tpu_torch.utils.profiling import span
 
 # ``(batch index, batch size) -> {fz, fw}``: a dev batch's eval uniforms.
 EvalUniforms = Callable[[int, int], Dict[str, torch.Tensor]]
@@ -161,14 +162,17 @@ def run_device_dev_eval(flags, modules, eval_exchange: Callable, desc_pack,
     of ``-eval_only``: builds the descriptions and the ``-bit_flip`` mask
     on the dev set's device, runs the sweep (``-flipout_dev`` draws keyed
     by ``(random_seed + 1, step)``; on ``mesh`` each rank its rows) and
-    writes the confusion-matrix CSV (to this rank's ``-conf_mat`` path).
-    Returns ``(dev_acc, extra)``."""
+    writes the confusion-matrix CSV (to this rank's ``-conf_mat`` path),
+    the two in the spans ``mmg.dev.conversations`` and
+    ``mmg.dev.confusion_matrix``. Returns ``(dev_acc, extra)``."""
     dev = dev_ds.feats.device
-    acc, extra, trues, preds = eval_dev_device(
-        modules, eval_exchange, dev_ds, epoch, flags.shuffle_dev,
-        flags.batch_size_dev, flags.top_k_dev,
-        corrupt_mask=corrupt_mask_for(flags, modules.cfg, dev),
-        seed=flags.random_seed + 1, step=step, uniforms=uniforms, mesh=mesh,
-        **description_inputs(desc_pack, modules.cfg, dev))
-    write_confusion_matrix(flags.conf_mat, trues, preds)
+    with span("dev.conversations"):
+        acc, extra, trues, preds = eval_dev_device(
+            modules, eval_exchange, dev_ds, epoch, flags.shuffle_dev,
+            flags.batch_size_dev, flags.top_k_dev,
+            corrupt_mask=corrupt_mask_for(flags, modules.cfg, dev),
+            seed=flags.random_seed + 1, step=step, uniforms=uniforms,
+            mesh=mesh, **description_inputs(desc_pack, modules.cfg, dev))
+    with span("dev.confusion_matrix"):
+        write_confusion_matrix(flags.conf_mat, trues, preds)
     return acc, extra

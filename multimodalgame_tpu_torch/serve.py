@@ -48,6 +48,7 @@ from multimodalgame_tpu_torch.game.train import (answer_scores,
 from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 from multimodalgame_tpu_torch.utils.checkpoint import load_agents
 from multimodalgame_tpu_torch.utils.device import resolve_device
+from multimodalgame_tpu_torch.utils.profiling import span
 
 Device = Optional[Union[str, torch.device]]
 Devices = Union[Device, Sequence[Union[str, torch.device]]]
@@ -116,35 +117,46 @@ class Predictor:
         Returns a dict with ``prediction`` (B,), ``log_probs`` (B, D),
         ``conversation_length`` (B,), ``sender_messages`` /
         ``receiver_messages`` (n, B, W), and ``n_steps``.
+
+        The call is the span ``mmg.predict`` (``utils/profiling.py:span``);
+        inside it, each block's inputs to its device
+        (``mmg.predict.input``) and its conversation (``mmg.predict.replay``,
+        on a card one graph replay), then the copies of the answer to the
+        host (``mmg.predict.copy_back``, which waits for the conversation).
         """
-        features = np.asarray(features, np.float32)
-        batch = features.shape[0]
-        nd = len(self.devices)
-        per = batch // nd if nd > 1 and batch % nd == 0 else batch
-        blocks = [self._block(features, data_context, lo, lo + per, dev)
-                  for lo, dev in zip(range(0, batch, per), self.devices)]
-        if len(blocks) == 1:
-            ex, dist = blocks[0]
-        else:
-            ex = blocks[0][0]._replace(**{k: torch.cat(
-                [getattr(b, k).to(self.device) for b, _ in blocks], dim=1)
-                for k in _ANSWER})
-            ex = ex._replace(n_steps=turns_run(ex.stop_masks,
-                                               self.cfg.fixed_exchange))
-            # Fixed exchanges score the LAST turn, like training and eval
-            # (the stop unit gets no training signal in fixed mode).
-            dist = answer_scores(self.cfg, ex)
-        dist = dist.cpu().numpy()
-        n = int(ex.n_steps)
-        return {
-            "prediction": dist.argmax(axis=1),
-            "log_probs": dist,
-            "conversation_length": ex.stop_feats[:n].sum(dim=(0, 2))
-            .cpu().numpy(),
-            "sender_messages": ex.sen_feats[:n].cpu().numpy(),
-            "receiver_messages": ex.rec_feats[:n].cpu().numpy(),
-            "n_steps": n,
-        }
+        with span("predict"):
+            features = np.asarray(features, np.float32)
+            batch = features.shape[0]
+            nd = len(self.devices)
+            per = batch // nd if nd > 1 and batch % nd == 0 else batch
+            blocks = [self._block(features, data_context, lo, lo + per,
+                                  dev)
+                      for lo, dev in zip(range(0, batch, per),
+                                         self.devices)]
+            if len(blocks) == 1:
+                ex, dist = blocks[0]
+            else:
+                ex = blocks[0][0]._replace(**{k: torch.cat(
+                    [getattr(b, k).to(self.device) for b, _ in blocks],
+                    dim=1) for k in _ANSWER})
+                ex = ex._replace(n_steps=turns_run(ex.stop_masks,
+                                                   self.cfg.fixed_exchange))
+                # Fixed exchanges score the LAST turn, like training and
+                # eval (the stop unit gets no training signal in fixed
+                # mode).
+                dist = answer_scores(self.cfg, ex)
+            with span("predict.copy_back"):
+                dist = dist.cpu().numpy()
+                n = int(ex.n_steps)
+                return {
+                    "prediction": dist.argmax(axis=1),
+                    "log_probs": dist,
+                    "conversation_length": ex.stop_feats[:n].sum(dim=(0, 2))
+                    .cpu().numpy(),
+                    "sender_messages": ex.sen_feats[:n].cpu().numpy(),
+                    "receiver_messages": ex.rec_feats[:n].cpu().numpy(),
+                    "n_steps": n,
+                }
 
     def _block(self, features: np.ndarray,
                data_context: Optional[np.ndarray], lo: int, hi: int,
@@ -153,15 +165,17 @@ class Predictor:
         with those rows' ``-flipout_dev`` draws, and its answer (on a
         card, with the kernel, both from one captured graph)."""
         mods, descs, run = self._replicas[dev]
-        data = torch.as_tensor(features[lo:hi], device=dev).contiguous()
-        ctx = (None if data_context is None else torch.as_tensor(
-            np.asarray(data_context, np.float32)[lo:hi], device=dev))
-        return run(data, descs["desc"].contiguous(), data_context=ctx,
-                   desc_set_padded=descs["desc_set_padded"],
-                   desc_set_mask=descs["desc_set_mask"],
-                   uniforms=philox_eval_uniforms(self.cfg, hi - lo, 0, 0, 0,
-                                                 dev, row_base=lo),
-                   answer=True)
+        with span("predict.input"):
+            data = torch.as_tensor(features[lo:hi], device=dev).contiguous()
+            ctx = (None if data_context is None else torch.as_tensor(
+                np.asarray(data_context, np.float32)[lo:hi], device=dev))
+            uniforms = philox_eval_uniforms(self.cfg, hi - lo, 0, 0, 0, dev,
+                                            row_base=lo)
+        with span("predict.replay"):
+            return run(data, descs["desc"].contiguous(), data_context=ctx,
+                       desc_set_padded=descs["desc_set_padded"],
+                       desc_set_mask=descs["desc_set_mask"],
+                       uniforms=uniforms, answer=True)
 
 
 def refuse_mesh_model(flags: Flags) -> None:

@@ -60,6 +60,7 @@ from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.utils import msgpack
 from multimodalgame_tpu_torch.utils.orbax import (TMP_INFIX, read_orbax,
                                                   write_orbax)
+from multimodalgame_tpu_torch.utils.profiling import span
 from multimodalgame_tpu_torch.utils.torch_interop import (
     host_leaf, load_opt_states, load_torch_state, models_tree,
     optimizers_tree, read_reference_checkpoint, save_reference_checkpoint,
@@ -200,7 +201,13 @@ def save_checkpoint(filename: str, data: Dict[str, Any],
     the write, so none reads a half-written checkpoint. Under tensor
     parallelism (``tp``, ``modules`` its whole agents) the checkpoint is
     the single-device layout: every rank gathers the sharded optimizer
-    slots over the model axis first."""
+    slots over the model axis first.
+
+    The writer's work runs in two spans (``utils/profiling.py:span``):
+    ``mmg.checkpoint.snapshot``, the leaves' copies to the host, and
+    ``mmg.checkpoint.write``, the encoding and the file's write and
+    rename, or the Orbax hand-off and, on a mesh, its wait (a ``.pt``
+    file is written in the second alone)."""
     if fmt not in FORMATS:
         raise ValueError(f"unknown checkpoint format: {fmt!r}")
     if tp is not None:
@@ -213,10 +220,13 @@ def save_checkpoint(filename: str, data: Dict[str, Any],
                     f"{filename} is a msgpack checkpoint file but "
                     "-ckpt_format orbax was requested; pass -ckpt_format "
                     "msgpack (the resumed run's format) or remove the file")
-            _WRITER.save(filename, checkpoint_tree(data, modules, opt_states,
-                                                   snapshot_leaf))
-            if mesh is not None:
-                wait_for_checkpoints()
+            with span("checkpoint.snapshot"):
+                tree = checkpoint_tree(data, modules, opt_states,
+                                       snapshot_leaf)
+            with span("checkpoint.write"):
+                _WRITER.save(filename, tree)
+                if mesh is not None:
+                    wait_for_checkpoints()
         else:
             if os.path.isdir(filename):
                 raise ValueError(
@@ -224,15 +234,19 @@ def save_checkpoint(filename: str, data: Dict[str, Any],
                     f"{fmt} format was requested; pass -ckpt_format orbax "
                     "(the resumed run's format) or remove the directory")
             if fmt == "pt":
-                save_reference_checkpoint(filename, data, modules,
-                                          opt_states, modules.cfg.optim_type)
+                with span("checkpoint.write"):
+                    save_reference_checkpoint(filename, data, modules,
+                                              opt_states,
+                                              modules.cfg.optim_type)
             else:
-                blob = msgpack.packb(checkpoint_tree(data, modules,
-                                                     opt_states))
-                tmp = filename + ".tmp"
-                with open(tmp, "wb") as f:
-                    f.write(blob)
-                os.replace(tmp, filename)
+                with span("checkpoint.snapshot"):
+                    tree = checkpoint_tree(data, modules, opt_states)
+                with span("checkpoint.write"):
+                    blob = msgpack.packb(tree)
+                    tmp = filename + ".tmp"
+                    with open(tmp, "wb") as f:
+                        f.write(blob)
+                    os.replace(tmp, filename)
     if mesh is not None:
         # Data axis, then model axis: each model peer of a rank waits for
         # a rank that waited for the writer.
