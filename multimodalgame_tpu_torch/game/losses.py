@@ -5,7 +5,11 @@ Parity target: ``multimodalgame_tpu/game/losses.py`` (reference
 model.py:571-577 and 879-988). Every function takes dense stacked
 ``(T, B, ...)`` tensors with ``(T, B, 1)`` masks instead of the
 reference's ragged lists; turns after a virtual early break have all-zero
-masks and add exactly zero to both numerator and denominator.
+masks and add exactly zero to both numerator and denominator. A
+multi-turn loss computes all its turns in one pass over the stack, every
+reduction over the batch (and width) axes alone, as the JAX package's
+``vmap`` over the turns does: the number of operators it runs does not
+grow with the turns.
 
 Rewards, baseline scores and sampled features are detached inside the
 functions, as the reference re-wraps them (model.py:908-913): gradients
@@ -37,7 +41,7 @@ the trainer sums them over the ranks before they are logged.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -87,32 +91,27 @@ def get_rec_outp(y: torch.Tensor, y_masks: Optional[torch.Tensor],
     return outp, negent
 
 
-def _masked_unbiased_std(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """Unbiased (N-1) std over the rows where ``m == 1``; 0 when fewer
-    than two rows are selected."""
-    n = m.sum()
-    mean = (x * m).sum() / torch.clamp(n, min=1.0)
-    var = (m * (x - mean) ** 2).sum() / torch.clamp(n - 1.0, min=1.0)
-    return torch.where(n > 1, torch.sqrt(var), torch.zeros_like(var))
-
-
-def global_turn_stats(weights: Sequence[torch.Tensor],
-                      masks: Optional[Sequence[torch.Tensor]], reduce
-                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Each turn's global ``(n, std)`` over the ranks: the row count
-    (``masks[t].sum()``, or the global batch unmasked) and the unbiased
-    std of ``weights[t]`` over those rows, exact, in two collectives for
-    every turn: the counts and sums, then the squared deviations about
-    the global means. ``weights[t]`` and ``masks[t]`` are ``(B,)``."""
-    w = torch.stack([x.detach() for x in weights])                  # (T, B)
-    m = (torch.ones_like(w) if masks is None
-         else torch.stack([x.detach() for x in masks]))
-    n, s1 = reduce.sum(torch.stack([m.sum(-1), (w * m).sum(-1)])).unbind(0)
+def turn_stats(weights: torch.Tensor, masks: Optional[torch.Tensor],
+               reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each turn's ``(n, std)``: the row count (``masks.sum(-1)``, or the
+    batch unmasked) and the unbiased (N-1) std of ``weights`` over those
+    rows, 0 where fewer than two rows are selected. ``weights`` and
+    ``masks`` are ``(..., B)``; the results ``(...)``. On the mesh
+    (``reduce``) both are global over the ranks, exact, in two
+    collectives for all turns: the counts and sums, then the squared
+    deviations about the global means."""
+    w = weights.detach()
+    m = torch.ones_like(w) if masks is None else masks.detach()
+    n, s1 = m.sum(-1), (w * m).sum(-1)
+    if reduce is not None:
+        n, s1 = reduce.sum(torch.stack([n, s1])).unbind(0)
     mean = s1 / torch.clamp(n, min=1.0)
-    s2 = reduce.sum((m * (w - mean[:, None]) ** 2).sum(-1))
+    s2 = (m * (w - mean[..., None]) ** 2).sum(-1)
+    if reduce is not None:
+        s2 = reduce.sum(s2)
     std = torch.where(n > 1, torch.sqrt(s2 / torch.clamp(n - 1.0, min=1.0)),
                       torch.zeros_like(s2))
-    return list(zip(n.unbind(0), std.unbind(0)))
+    return n, std
 
 
 def calculate_loss_binary(binary_features: torch.Tensor,
@@ -125,49 +124,50 @@ def calculate_loss_binary(binary_features: torch.Tensor,
                           stat: Optional[Tuple[torch.Tensor,
                                                torch.Tensor]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One turn's REINFORCE loss and two-sided negentropy
-    (model.py:907-927; the masked form folds in the row selection of
-    ``multistep_loss_binary``'s mapped_fn, model.py:932-945).
+    """The REINFORCE loss and two-sided negentropy of one turn, or of
+    every turn of a stack at once (model.py:907-927; the masked form folds
+    in the row selection of ``multistep_loss_binary``'s mapped_fn,
+    model.py:932-945).
 
-    Shapes: features and probs ``(B, W)``, logs and scores ``(B, 1)``,
-    mask ``(B, 1)``. Returns ``(loss, negentropy)`` scalars. On the mesh
-    (``reduce``), ``stat`` is the turn's global ``(n, std)``
-    (:func:`global_turn_stats`, taken here when not given) and the
-    results are this rank's shares.
+    Shapes: features and probs ``(..., B, W)``, logs ``(B, 1)``, scores
+    and mask ``(..., B, 1)``; the leading axes (the turns, or none) are
+    kept, every reduction is over the batch and the width, as the JAX
+    package's ``vmap`` over the turns computes them. Returns ``(loss,
+    negentropy)`` of shape ``(...)``. ``stat`` is the turns' ``(n, std)``
+    (:func:`turn_stats`, taken here when not given and needed); on the
+    mesh (``reduce``) they are global and the results are this rank's
+    shares.
     """
     feats = binary_features.detach()
     p = binary_probs
-    log_p_z = (feats * torch.log(p + EPS)
-               + (1.0 - feats) * torch.log(1.0 - p + EPS)).sum(-1)   # (B,)
-    weight = (logs - baseline_scores).detach()[:, 0]                  # (B,)
-    batch = binary_features.shape[0]
-    per_row_negent = ((torch.log(p + EPS) * p).sum(-1)
-                      + (torch.log((1.0 - p) + EPS) * (1.0 - p)).sum(-1))
-
-    m = None if mask is None else mask[:, 0]
+    q = 1.0 - p
+    log_p, log_q = torch.log(p + EPS), torch.log(q + EPS)
+    log_p_z = (feats * log_p + (1.0 - feats) * log_q).sum(-1)     # (..., B)
+    per_row_negent = (log_p * p + log_q * q).sum(-1)               # (..., B)
+    weight = (logs - baseline_scores).detach()[..., 0]             # (..., B)
+    batch = binary_features.shape[-2]
+    m = None if mask is None else mask[..., 0]
     if reduce is not None:
         batch *= reduce.size
-        if stat is None:
-            stat = global_turn_stats([weight], None if m is None else [m],
-                                     reduce)[0]
+    if stat is None and (m is not None or reduce is not None):
+        stat = turn_stats(weight, m, reduce)
 
     if mask is None:
         if batch > 1:  # the reference's ``logs.size(0) > 1`` (model.py:914)
-            std = weight.std() if stat is None else stat[1]
-            weight = weight / torch.clamp(std, min=1.0)
-        loss = _batch_mean(-weight * log_p_z, reduce)
-        negentropy = _batch_mean(per_row_negent, reduce)
+            std = weight.std(-1) if stat is None else stat[1]
+            weight = weight / torch.clamp(std, min=1.0)[..., None]
+        loss = _batch_mean(-weight * log_p_z, reduce, dim=-1)
+        negentropy = _batch_mean(per_row_negent, reduce, dim=-1)
         if entropy_penalty is not None:
             loss = loss + entropy_penalty * negentropy
         return loss, negentropy
 
-    n = m.sum() if stat is None else stat[0]
+    n, std = stat
     denom = torch.clamp(n, min=1.0)
     if batch > 1:
-        std = _masked_unbiased_std(weight, m) if stat is None else stat[1]
-        weight = weight / torch.clamp(std, min=1.0)
-    loss = (m * (-weight * log_p_z)).sum() / denom
-    negentropy = (m * per_row_negent).sum() / denom
+        weight = weight / torch.clamp(std, min=1.0)[..., None]
+    loss = (m * (-weight * log_p_z)).sum(-1) / denom
+    negentropy = (m * per_row_negent).sum(-1) / denom
     if entropy_penalty is not None:
         loss = loss + entropy_penalty * negentropy
     # Zero-mask turns contribute exactly zero (the reference's mapped_fn
@@ -189,65 +189,58 @@ def multistep_loss_binary(binary_features: torch.Tensor,
     (model.py:930-968): ``sum_t loss_t n_t / sum_t n_t``, or the plain
     mean over turns when ``masks`` is ``None`` (fixed exchange).
 
-    Args are stacked ``(T', B, ...)``. Returns ``(loss, negentropies
+    Args are stacked ``(T', B, ...)`` and every turn is computed in one
+    call of :func:`calculate_loss_binary`. Returns ``(loss, negentropies
     (T',))``; on the mesh (``reduce``) this rank's shares, with the
     turns' global statistics taken in two collectives.
     """
-    turns = binary_features.shape[0]
-    stats = [None] * turns
-    if reduce is not None:
-        stats = global_turn_stats(
-            [(logs - baseline_scores[t]).detach()[:, 0]
-             for t in range(turns)],
-            None if masks is None else [masks[t][:, 0]
-                                        for t in range(turns)], reduce)
-    per_turn = [calculate_loss_binary(
-        binary_features[t], binary_probs[t], logs, baseline_scores[t],
-        entropy_penalty, None if masks is None else masks[t], reduce,
-        stats[t]) for t in range(turns)]
-    losses = torch.stack([lo for lo, _ in per_turn])
-    negents = torch.stack([ne for _, ne in per_turn])
+    stat = None
+    if masks is not None or reduce is not None:
+        stat = turn_stats((logs - baseline_scores)[..., 0],
+                          None if masks is None else masks[..., 0], reduce)
+    losses, negents = calculate_loss_binary(
+        binary_features, binary_probs, logs, baseline_scores,
+        entropy_penalty, masks, reduce, stat)
     if masks is None:
-        return losses.sum() / turns, negents
-    mask_sums = (masks.sum(dim=(1, 2)) if reduce is None
-                 else torch.stack([n for n, _ in stats]))
-    return ((losses * mask_sums).sum()
-            / torch.clamp(mask_sums.sum(), min=1.0)), negents
+        return losses.sum() / binary_features.shape[0], negents
+    n = stat[0]
+    return (losses * n).sum() / torch.clamp(n.sum(), min=1.0), negents
 
 
 def calculate_loss_bas(baseline_scores: torch.Tensor, logs: torch.Tensor,
                        mask: Optional[torch.Tensor] = None, reduce=None,
                        n: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MSE of baseline scores against the detached rewards
-    (model.py:971-973). On the mesh (``reduce``) this rank's share, over
-    the global mask count ``n`` (taken here when not given)."""
-    sq = (baseline_scores - logs.detach()) ** 2                       # (B, 1)
+    (model.py:971-973), of one turn or of every turn of a stack: scores
+    and mask ``(..., B, 1)``, logs ``(B, 1)``, the result ``(...)``. On
+    the mesh (``reduce``) this rank's share, over the global mask counts
+    ``n`` (taken here when not given)."""
+    sq = (baseline_scores - logs.detach()) ** 2                   # (..., B, 1)
     if mask is None:
-        return _batch_mean(sq, reduce)
+        return _batch_mean(sq[..., 0], reduce, dim=-1)
     if n is None:
-        n = mask.sum() if reduce is None else reduce.sum(mask.sum())
-    loss = (sq * mask).sum() / torch.clamp(n, min=1.0)
+        n = mask.sum((-2, -1))
+        if reduce is not None:
+            n = reduce.sum(n)
+    loss = (sq * mask).sum((-2, -1)) / torch.clamp(n, min=1.0)
     return torch.where(n > 0, loss, torch.zeros_like(loss))
 
 
 def multistep_loss_bas(baseline_scores: torch.Tensor, logs: torch.Tensor,
                        masks: Optional[torch.Tensor],
                        reduce=None) -> torch.Tensor:
-    """Mask-weighted multi-turn baseline loss (model.py:976-988); on the
-    mesh (``reduce``) this rank's share, the turns' global mask counts
-    taken in one collective."""
-    turns = baseline_scores.shape[0]
-    counts = [None] * turns
-    if reduce is not None and masks is not None:
-        counts = reduce.sum(masks.detach().sum(dim=(1, 2))).unbind(0)
-    losses = torch.stack([calculate_loss_bas(
-        baseline_scores[t], logs, None if masks is None else masks[t],
-        reduce, counts[t]) for t in range(turns)])
+    """Mask-weighted multi-turn baseline loss (model.py:976-988), every
+    turn in one call of :func:`calculate_loss_bas`; on the mesh
+    (``reduce``) this rank's share, the turns' global mask counts taken
+    in one collective."""
     if masks is None:
-        return losses.sum() / turns
-    mask_sums = (masks.sum(dim=(1, 2)) if reduce is None
-                 else torch.stack(counts))
-    return (losses * mask_sums).sum() / torch.clamp(mask_sums.sum(), min=1.0)
+        losses = calculate_loss_bas(baseline_scores, logs, None, reduce)
+        return losses.sum() / baseline_scores.shape[0]
+    n = masks.detach().sum((1, 2))
+    if reduce is not None:
+        n = reduce.sum(n)
+    losses = calculate_loss_bas(baseline_scores, logs, masks, reduce, n)
+    return (losses * n).sum() / torch.clamp(n.sum(), min=1.0)
 
 
 def nll_loss(log_probs: torch.Tensor, target: torch.Tensor,

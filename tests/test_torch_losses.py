@@ -20,6 +20,8 @@ from multimodalgame_tpu.game.config import GameConfig as JaxConfig
 from multimodalgame_tpu_torch.game import losses as tl
 from multimodalgame_tpu_torch.game.agents import AgentModules, init_params
 from multimodalgame_tpu_torch.game.config import GameConfig
+from multimodalgame_tpu_torch.game.exchange import ExchangeOutputs
+from multimodalgame_tpu_torch.game.train import losses_from_exchange
 from multimodalgame_tpu_torch.models.baseline import Baseline
 from multimodalgame_tpu_torch.utils.torch_interop import (
     load_torch_state, params_to_torch_state)
@@ -159,6 +161,142 @@ def test_multistep_loss_binary_matches_jax(masked):
     _close(p.grad, grad)
 
 
+# The batched form: every turn of a ``(T', B, ...)`` stack in one call,
+# held against the JAX package's ``vmap`` over the turns. Masks are
+# cumulative over turns as the conversation makes them; ``zero`` turns
+# select no row and ``one`` turns exactly one (std 0, clamped to 1).
+TURN_CASES = {
+    "turns_1": dict(turns=1),
+    "turns_9": dict(turns=9),
+    "turns_10": dict(turns=10),
+    "turns_10_unmasked": dict(turns=10, masked=False),
+    "turns_1_unmasked": dict(turns=1, masked=False),
+    "zero_mask_turn": dict(turns=10, zero=(4,)),
+    "one_row_turn": dict(turns=10, one=(3,)),
+    "zero_and_one_row_turns": dict(turns=9, zero=(7, 8), one=(2, 5)),
+    "batch_1": dict(turns=10, batch=1),
+    "batch_1_unmasked": dict(turns=9, batch=1, masked=False),
+    "no_entropy": dict(turns=10, penalty=None, one=(6,)),
+    "no_entropy_unmasked": dict(turns=9, penalty=None, masked=False),
+}
+
+
+def _turn_case(name, seed):
+    """A case's inputs: bits, probabilities, rewards, scores and masks
+    (``None`` unmasked), and the entropy penalty."""
+    case = {"batch": B, "penalty": 0.08, "masked": True, "zero": (),
+            "one": (), **TURN_CASES[name]}
+    turns, batch = case["turns"], case["batch"]
+    feats, probs, logs, scores = _inputs(seed, batch, turns)
+    masks = None
+    if case["masked"]:
+        masks = _turn_masks(seed + 1, turns, batch)
+        rng = np.random.RandomState(seed + 2)
+        for t in case["zero"]:
+            masks[t] = 0.0
+        for t in case["one"]:
+            masks[t] = 0.0
+            masks[t, rng.randint(batch)] = 1.0
+        for t in case["zero"] + case["one"]:
+            assert masks[t].sum() == (t in case["one"])
+    return feats, probs, logs, scores, masks, case["penalty"]
+
+
+def _jnp(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _torch(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("name", list(TURN_CASES))
+def test_calculate_loss_binary_over_turns_matches_jax_vmap(name):
+    """One call on the stack: each turn's loss and negentropy, and the
+    gradient of their sum, as JAX's ``vmap`` of the one-turn function."""
+    feats, probs, logs, scores, masks, penalty = _turn_case(name, 20)
+
+    def jax_fn(p):
+        def one(f, pt, s, m):
+            return jl.calculate_loss_binary(f, pt, jnp.asarray(logs), s,
+                                            penalty, m)
+        losses, ents = jax.vmap(one, in_axes=(0, 0, 0, 0 if masks is
+                                              not None else None))(
+            jnp.asarray(feats), p, jnp.asarray(scores), _jnp(masks))
+        return losses.sum() + 0.5 * ents.sum(), (losses, ents)
+
+    (_, (want_losses, want_ents)), grad = jax.value_and_grad(
+        jax_fn, has_aux=True)(jnp.asarray(probs))
+    p = torch.from_numpy(probs).requires_grad_()
+    losses, ents = tl.calculate_loss_binary(
+        torch.from_numpy(feats), p, torch.from_numpy(logs),
+        torch.from_numpy(scores), penalty, _torch(masks))
+    (losses.sum() + 0.5 * ents.sum()).backward()
+    assert losses.shape == ents.shape == (feats.shape[0],)
+    _close(losses, want_losses)
+    _close(ents, want_ents)
+    _close(p.grad, grad)
+    if masks is not None:
+        empty = masks.sum(axis=(1, 2)) == 0
+        assert (losses.detach().numpy()[empty] == 0.0).all()
+        assert (ents.detach().numpy()[empty] == 0.0).all()
+
+
+@pytest.mark.parametrize("name", list(TURN_CASES))
+def test_multistep_loss_binary_cases_match_jax(name):
+    feats, probs, logs, scores, masks, penalty = _turn_case(name, 30)
+
+    def jax_fn(p):
+        return jl.multistep_loss_binary(
+            jnp.asarray(feats), p, jnp.asarray(logs), jnp.asarray(scores),
+            _jnp(masks), penalty)
+
+    (want_loss, want_ent), grad = jax.value_and_grad(
+        jax_fn, has_aux=True)(jnp.asarray(probs))
+    p = torch.from_numpy(probs).requires_grad_()
+    loss, ent = tl.multistep_loss_binary(
+        torch.from_numpy(feats), p, torch.from_numpy(logs),
+        torch.from_numpy(scores), _torch(masks), penalty)
+    loss.backward()
+    _close(loss, want_loss)
+    _close(ent, want_ent)
+    _close(p.grad, grad)
+
+
+@pytest.mark.parametrize("name", list(TURN_CASES))
+def test_calculate_loss_bas_over_turns_matches_jax_vmap(name):
+    _, _, logs, scores, masks, _ = _turn_case(name, 40)
+
+    def jax_fn(s):
+        def one(st, m):
+            return jl.calculate_loss_bas(st, jnp.asarray(logs), m)
+        losses = jax.vmap(one, in_axes=(0, 0 if masks is not None
+                                        else None))(s, _jnp(masks))
+        return (losses * jnp.arange(1, len(losses) + 1)).sum(), losses
+
+    (_, want), grad = jax.value_and_grad(jax_fn, has_aux=True)(
+        jnp.asarray(scores))
+    s = torch.from_numpy(scores).requires_grad_()
+    got = tl.calculate_loss_bas(s, torch.from_numpy(logs), _torch(masks))
+    (got * torch.arange(1, len(got) + 1)).sum().backward()
+    assert got.shape == (scores.shape[0],)
+    _close(got, want)
+    _close(s.grad, grad)
+
+
+@pytest.mark.parametrize("name", list(TURN_CASES))
+def test_multistep_loss_bas_cases_match_jax(name):
+    _, _, logs, scores, masks, _ = _turn_case(name, 50)
+    fn = lambda s: jl.multistep_loss_bas(  # noqa: E731
+        s, jnp.asarray(logs), _jnp(masks))
+    want, grad = jax.value_and_grad(fn)(jnp.asarray(scores))
+    s = torch.from_numpy(scores).requires_grad_()
+    got = tl.multistep_loss_bas(s, torch.from_numpy(logs), _torch(masks))
+    got.backward()
+    _close(got, want)
+    _close(s.grad, grad)
+
+
 @pytest.mark.parametrize("rows", [None, 0, 1, 2])
 def test_calculate_loss_bas_matches_jax(rows):
     _, _, logs, scores = _inputs(8)
@@ -191,6 +329,68 @@ def test_multistep_loss_bas_matches_jax(masked):
     got.backward()
     _close(got, want)
     _close(s.grad, grad)
+
+
+def _record(turns, batch=64, width=32, classes=30, seed=0):
+    """A differentiable conversation record of the ``adaptive`` widths:
+    cumulative stop masks, sampled bits, and leaf probabilities, class
+    scores and baseline scores."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g)
+
+    def leaf(x):
+        return x.requires_grad_()
+
+    alive = (u(turns, batch, 1) < 0.8).float().cummin(0).values
+    stop = torch.cat([torch.ones(1, batch, 1), alive[:-1],
+                      torch.zeros(1, batch, 1)])
+    return ExchangeOutputs(
+        stop_masks=stop, stop_feats=(u(turns, batch, 1) < 0.5).float(),
+        stop_probs=leaf(u(turns, batch, 1) * 0.9 + 0.05),
+        sen_feats=(u(turns, batch, width) < 0.5).float(),
+        sen_probs=leaf(u(turns, batch, width) * 0.9 + 0.05),
+        rec_feats=(u(turns, batch, width) < 0.5).float(),
+        rec_probs=leaf(u(turns, batch, width) * 0.9 + 0.05),
+        y=leaf(torch.randn(turns, batch, classes, generator=g)),
+        bs=leaf(torch.randn(turns, batch, 1, generator=g)),
+        br=leaf(torch.randn(turns, batch, 1, generator=g)),
+        n_steps=torch.tensor(turns), attn_scores=None)
+
+
+def _leaf_ops(fn):
+    """The operators ``fn()`` runs that call no other, under the
+    profiler on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(1 for e in prof.events() if not e.cpu_children)
+
+
+@pytest.mark.parametrize("phase", ["forward", "backward"])
+def test_loss_layer_operators_do_not_grow_with_turns(phase):
+    """Every multi-turn loss is one pass over the stacked turns, so the
+    loss layer runs as many operators at ``max_exchange`` 2 as at 10, in
+    its forward and in its backward."""
+    counts = []
+    for turns in (2, 10):
+        cfg = GameConfig(max_exchange=turns, fixed_exchange=False,
+                         sender_out_dim=32, rec_w_dim=32, entropy_s=0.08,
+                         entropy_sen=0.01, entropy_rec=0.01)
+        ex = _record(turns)
+        target = torch.arange(64) % 30
+        out = {}
+
+        def forward():
+            out["total"] = losses_from_exchange(cfg, ex, target, 6, 64)[0]
+        forward_ops = _leaf_ops(forward)
+        backward_ops = _leaf_ops(lambda: out["total"].backward())
+        counts.append(forward_ops if phase == "forward" else backward_ops)
+        assert all(t.grad is not None for t in (ex.stop_probs, ex.sen_probs,
+                                                ex.rec_probs, ex.y, ex.bs,
+                                                ex.br))
+    assert counts[0] == counts[1], counts
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 20])

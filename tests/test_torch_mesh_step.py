@@ -137,8 +137,10 @@ def port_case(mesh, case, make_step=None):
             else make_sharded_train_step(mods, TOP_K, BATCH, mesh, fast,
                                          uniforms=lambda s: u))
     opts = init_opt_states(mods.cfg, mods)
+    before = mesh.calls
     m = step(opts, data, target, desc, 0)
-    return dict(losses={k: float(getattr(m, k)) for k in LOSSES},
+    return dict(calls=mesh.calls - before,
+                losses={k: float(getattr(m, k)) for k in LOSSES},
                 accuracy=float(m.accuracy),
                 ex={k: getattr(m.exchange, k).numpy()
                     for k in BITS + ("n_steps",)},
@@ -200,6 +202,21 @@ def check_matches_jax(name, results):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_sharded_step_matches_jax(name, port_results):
     check_matches_jax(name, port_results[name])
+
+
+# The collectives of one step that returns the full metrics: two for the
+# statistics of each multi-turn REINFORCE loss (stop, receiver and sender
+# bits; a fixed exchange has no stop loss), one for the mask counts of each
+# masked baseline loss, the gradient sum, and the gathers of the whole
+# batch's predictions and conversation record.
+STEP_CALLS = {name: 2 * 3 + 2 + 1 + 2 for name in CASES}
+STEP_CALLS["fixed"] = 2 * 2 + 1 + 2
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sharded_step_collectives(name, port_results):
+    for got in port_results[name]:
+        assert got["calls"] == STEP_CALLS[name], got["calls"]
 
 
 def test_split_stops_case_has_halves_that_differ():
