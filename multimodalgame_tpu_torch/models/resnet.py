@@ -20,6 +20,14 @@ involved.
 TF32 off for its convolutions and products (PyTorch lets cuDNN
 convolutions run in TF32 by default, which moves features ~1e-3
 relative away from the CPU's) and restores the caller's settings after.
+A captured graph keeps the precision it was captured with, so the
+served tower (:class:`PixelTower`) sets it once, while its body is
+captured, and its replays touch no flag.
+
+**Serving.** :class:`PixelTower` puts the network in front of a game
+(``serve.py:Predictor(tower=...)``): uint8 pixels in, ToTensor +
+Normalize(.5, .5) on the device, the forward to the tap the game reads,
+one captured CUDA graph a batch size on a card.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from multimodalgame_tpu_torch.utils.cuda_graph import Captured
 
 # torchvision resnet34's stages: (blocks, channels, first stride).
 STAGES = [(3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2)]
@@ -190,6 +200,55 @@ def _basic_block(x, blk, stride):
     return torch.relu(pre), pre
 
 
+def _layers(params: Dict, x: torch.Tensor):
+    """The layer table's ``(name, value)`` pairs in the order the forward
+    computes them; a consumer that stops early computes nothing past."""
+    x = _conv(x.float(), params["conv1"], 2)
+    yield "conv1", x
+    x = _bn_apply(x, params["bn1"])
+    yield "bn1", x
+    x = torch.relu(x)
+    yield "relu", x
+    # 3x3 max pool, stride 2, padding 1 (torchvision's maxpool).
+    x = F.max_pool2d(x, 3, 2, 1)
+    yield "maxpool", x
+    for i, (blocks, _, stride) in enumerate(STAGES, start=1):
+        layer = params[f"layer{i}"]
+        for b in range(blocks):
+            x, pre = _basic_block(x, layer[b], stride if b == 0 else 1)
+            if i == 4:
+                if b == blocks - 1:
+                    yield "layer4_2", pre
+                yield f"layer4_{b}_relu", x
+        yield f"layer{i}", x
+    x = x.mean(dim=(2, 3), keepdim=True)   # adaptive average pool
+    yield "avgpool", x
+    x = x.reshape(x.shape[0], -1)
+    yield "avgpool_512", x
+    yield "fc", x @ params["fc"]["weight"].t() + params["fc"]["bias"]
+
+
+def _check_request(request: Sequence[str]) -> set:
+    want = set(request)
+    unknown = want - set(LAYER_NAMES)
+    if unknown:
+        raise KeyError(f"unknown feature names requested: "
+                       f"{sorted(unknown)}")
+    return want
+
+
+def _collect(params: Dict, x: torch.Tensor, want: set
+             ) -> Dict[str, torch.Tensor]:
+    """The requested taps, the forward stopped at the deepest of them."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in _layers(params, x):
+        if name in want:
+            out[name] = value
+            if len(out) == len(want):
+                break
+    return out
+
+
 @torch.no_grad()
 def resnet34_features(params: Dict, x: torch.Tensor,
                       request: Sequence[str] = ("layer4_2", "avgpool_512",
@@ -202,40 +261,79 @@ def resnet34_features(params: Dict, x: torch.Tensor,
     227)`` after Scale(227) + CenterCrop(227) + Normalize(.5, .5),
     utils/package_data.py:171-178). ``request``: names of the layer table
     (:data:`LAYER_NAMES`); an unknown one raises ``KeyError``. Returns
-    ``{name: tensor}``, spatial features NCHW, computed in float32."""
-    want = set(request)
-    unknown = want - set(LAYER_NAMES)
-    if unknown:
-        raise KeyError(f"unknown feature names requested: "
-                       f"{sorted(unknown)}")
-    out: Dict[str, torch.Tensor] = {}
-
-    def grab(name, val):
-        if name in want:
-            out[name] = val
-
+    ``{name: tensor}``, spatial features NCHW, computed in float32; the
+    forward stops at the deepest name requested."""
+    want = _check_request(request)
     with float32_precision():
-        x = _conv(x.float(), params["conv1"], 2)
-        grab("conv1", x)
-        x = _bn_apply(x, params["bn1"])
-        grab("bn1", x)
-        x = torch.relu(x)
-        grab("relu", x)
-        # 3x3 max pool, stride 2, padding 1 (torchvision's maxpool).
-        x = F.max_pool2d(x, 3, 2, 1)
-        grab("maxpool", x)
-        for i, (blocks, _, stride) in enumerate(STAGES, start=1):
-            layer = params[f"layer{i}"]
-            for b in range(blocks):
-                x, pre = _basic_block(x, layer[b], stride if b == 0 else 1)
-                if i == 4:
-                    grab(f"layer4_{b}_relu", x)
-                    if b == blocks - 1:
-                        grab("layer4_2", pre)
-            grab(f"layer{i}", x)
-        x = x.mean(dim=(2, 3), keepdim=True)   # adaptive average pool
-        grab("avgpool", x)
-        x = x.reshape(x.shape[0], -1)
-        grab("avgpool_512", x)
-        grab("fc", x @ params["fc"]["weight"].t() + params["fc"]["bias"])
-    return out
+        return _collect(params, x, want)
+
+
+def normalize_pixels(pixels: torch.Tensor) -> torch.Tensor:
+    """uint8 pixels ``(B, 3, H, W)`` as the reference's ToTensor +
+    Normalize(.5, .5) leave them (utils/package_data.py:171-178):
+    ``(x / 255 - 0.5) / 0.5``, float32."""
+    return pixels.float().div_(255).sub_(0.5).div_(0.5)
+
+
+class PixelTower:
+    """ResNet-34 in front of a game: uint8 pixels ``(B, 3, S, S)`` (crops
+    already scaled and centre-cropped) normalised on the device and run
+    to one tap of the layer table, nothing past it. The network is fully
+    convolutional up to its pooling, so the crop size is the request's.
+
+    Each request shape ``(B, S, S)`` has a static uint8 input buffer and a
+    body that normalises it and runs the forward (:class:`Captured`): on a
+    card (``graph`` None; True or False to choose) it runs eagerly once,
+    then as one captured CUDA graph, TF32 turned off once, while the body
+    is captured; elsewhere the same body runs on every call. A replay's
+    outputs are the graph's static tensors, overwritten by the next
+    replay of that shape. The class counts the process's forward runs and
+    images (advanced at each replay through ``Captured``'s ``counters``)
+    and the runs that were graph replays."""
+
+    runs = 0
+    images = 0
+    replays = 0
+
+    def __init__(self, params: Dict, tap: str,
+                 device: Union[str, torch.device],
+                 graph: Optional[bool] = None):
+        self.device = torch.device(device)
+        self.params = params_to(params, self.device)
+        self.tap = tap
+        self.want = _check_request((tap,))
+        self.capture = (self.device.type == "cuda") if graph is None \
+            else bool(graph)
+        self._runs: Dict[tuple, tuple] = {}
+
+    def stage(self, pixels: np.ndarray) -> tuple:
+        """Copy a batch of uint8 pixels ``(B, 3, S, S)`` into its shape's
+        input buffer on the device; returns the key :meth:`__call__`
+        takes."""
+        key = (pixels.shape[0],) + tuple(pixels.shape[2:])
+        if key not in self._runs:
+            with torch.inference_mode(False):
+                buf = torch.empty(pixels.shape, dtype=torch.uint8,
+                                  device=self.device)
+            run = Captured(lambda: self._body(buf), self.device, warmup=1,
+                           capture=self.capture,
+                           counters=((PixelTower, "runs"),
+                                     (PixelTower, "images")))
+            self._runs[key] = (buf, run)
+        self._runs[key][0].copy_(torch.from_numpy(
+            np.ascontiguousarray(pixels)))
+        return key
+
+    @torch.no_grad()
+    def _body(self, buf: torch.Tensor) -> torch.Tensor:
+        PixelTower.runs += 1
+        PixelTower.images += buf.shape[0]
+        with float32_precision():
+            return _collect(self.params, normalize_pixels(buf),
+                            self.want)[self.tap]
+
+    def __call__(self, key: tuple) -> torch.Tensor:
+        """The tap of the batch last staged under ``key``."""
+        out, replayed = self._runs[key][1]()
+        PixelTower.replays += int(replayed)
+        return out

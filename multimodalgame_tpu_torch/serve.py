@@ -22,6 +22,17 @@ where the answer is computed as for one device. ``-mesh N`` (``-1``: every
 card) serves on the first N visible cards, and raises when there are
 fewer.
 
+From pixels (``Predictor(..., tower=params)``): ResNet-34
+(``models/resnet.py:PixelTower``, the reference's ``FeatureModel``,
+utils/package_data.py:81-131) in front of the game. A request is then
+uint8 crops ``(B, 3, S, S)``, already scaled and centre-cropped (227 x
+227, utils/package_data.py:171-178); on the device they are normalised
+and run to the tap the game's ``img_feat`` names, one captured CUDA graph
+a request shape on a card, whose output the eval conversation reads on the
+device. The tower is replicated on each device like the modules.
+Attention with ``attn_extra_context`` (an ``fc`` context beside the
+maps) is served from features only.
+
 CLI: ``python -m multimodalgame_tpu_torch.serve -checkpoint <path>
 -log_load <train json> -dev_file <hdf5>`` prints JSONL predictions, the
 same lines as the JAX package's serve.
@@ -45,6 +56,7 @@ from multimodalgame_tpu_torch.game.exchange import (description_inputs,
                                                     turns_run)
 from multimodalgame_tpu_torch.game.train import (answer_scores,
                                                  make_eval_exchange)
+from multimodalgame_tpu_torch.models.resnet import PixelTower
 from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 from multimodalgame_tpu_torch.utils.checkpoint import load_agents
 from multimodalgame_tpu_torch.utils.device import resolve_device
@@ -66,11 +78,23 @@ class Predictor:
     on a card each request shape then runs as one captured CUDA graph
     (``game/train.py:make_eval_exchange``); ``graph=False`` launches it
     eagerly.
+
+    ``tower``: ResNet-34's parameters
+    (``models/resnet.py:params_from_torch_state`` of a torchvision
+    state dict, or ``load_pretrained(path)``); :meth:`predict` then takes
+    uint8 pixels ``(B, 3, S, S)`` and runs the tower first, as one more
+    captured graph a request shape on a card (``graph=False``: eagerly).
     """
 
     def __init__(self, cfg: GameConfig, modules: AgentModules,
                  desc_pack: DescriptionPack, device: Devices = None,
-                 use_kernel: bool = True, graph: Optional[bool] = None):
+                 use_kernel: bool = True, graph: Optional[bool] = None,
+                 tower: Optional[Dict] = None):
+        if tower is not None and cfg.visual_attn and \
+                cfg.attn_extra_context:
+            raise ValueError("a tower serves the img_feat tap alone: "
+                             "attention with attn_extra_context is served "
+                             "from features and their fc context")
         self.devices = [resolve_device(d) for d in (
             device if isinstance(device, (list, tuple)) else [device])]
         self.device = self.devices[0]
@@ -92,27 +116,35 @@ class Predictor:
         self.modules, self._descs, self._exchange = \
             self._replicas[self.device]
         self._desc = self._descs["desc"].contiguous()
+        # The tower, one a distinct device; none serves features.
+        self._towers = {} if tower is None else {
+            dev: PixelTower(tower, cfg.img_feat, dev, graph=graph)
+            for dev in self._replicas}
 
     @classmethod
     def from_checkpoint(cls, flags: Flags, desc_pack: DescriptionPack,
                         device: Devices = None,
-                        use_kernel: bool = True) -> "Predictor":
+                        use_kernel: bool = True,
+                        tower: Optional[Dict] = None) -> "Predictor":
         """Load ``flags.checkpoint``: the JAX package's msgpack file or
         Orbax directory, or a reference ``.pt``, told apart by content, as
         JAX's serving reads them (serve.py:104-118). ``-mesh_model`` raises ``ValueError``, as
-        JAX's serving does (serve.py:166-169)."""
+        JAX's serving does (serve.py:166-169). ``tower`` as for the
+        constructor."""
         refuse_mesh_model(flags)
         cfg = GameConfig.from_flags(flags)
         _, modules = load_agents(flags.checkpoint, cfg)
         return cls(cfg, modules, desc_pack, device=device,
-                   use_kernel=use_kernel)
+                   use_kernel=use_kernel, tower=tower)
 
     @torch.inference_mode()
     def predict(self, features: np.ndarray,
                 data_context: Optional[np.ndarray] = None) -> Dict:
         """Run conversations for a feature batch ``(B, feat)`` (``(B,
         feat, H, W)`` maps under visual attention, with their context
-        ``(B, attn_context_dim)`` under ``attn_extra_context``).
+        ``(B, attn_context_dim)`` under ``attn_extra_context``); with a
+        tower, for uint8 pixels ``(B, 3, S, S)``. Input
+        of another kind raises ``ValueError``.
 
         Returns a dict with ``prediction`` (B,), ``log_probs`` (B, D),
         ``conversation_length`` (B,), ``sender_messages`` /
@@ -120,12 +152,21 @@ class Predictor:
 
         The call is the span ``mmg.predict`` (``utils/profiling.py:span``);
         inside it, each block's inputs to its device
-        (``mmg.predict.input``) and its conversation (``mmg.predict.replay``,
-        on a card one graph replay), then the copies of the answer to the
-        host (``mmg.predict.copy_back``, which waits for the conversation).
+        (``mmg.predict.input``; pixels go into the tower's input buffer),
+        with a tower its forward (``mmg.predict.tower``, on a card one
+        graph replay), and its conversation (``mmg.predict.replay``, on a
+        card one graph replay), then the copies of the answer to the host
+        (``mmg.predict.copy_back``, which waits for the conversation).
         """
         with span("predict"):
-            features = np.asarray(features, np.float32)
+            if self._towers:
+                features = self._pixels(features)
+            elif getattr(features, "dtype", None) == np.uint8:
+                raise ValueError("uint8 pixels need a Predictor built with "
+                                 "tower=<ResNet-34 parameters>; this one "
+                                 "serves float features (B, feat)")
+            else:
+                features = np.asarray(features, np.float32)
             batch = features.shape[0]
             nd = len(self.devices)
             per = batch // nd if nd > 1 and batch % nd == 0 else batch
@@ -165,17 +206,38 @@ class Predictor:
         with those rows' ``-flipout_dev`` draws, and its answer (on a
         card, with the kernel, both from one captured graph)."""
         mods, descs, run = self._replicas[dev]
+        tower = self._towers.get(dev)
         with span("predict.input"):
-            data = torch.as_tensor(features[lo:hi], device=dev).contiguous()
-            ctx = (None if data_context is None else torch.as_tensor(
-                np.asarray(data_context, np.float32)[lo:hi], device=dev))
+            if tower is None:
+                data = torch.as_tensor(features[lo:hi],
+                                       device=dev).contiguous()
+                ctx = (None if data_context is None else torch.as_tensor(
+                    np.asarray(data_context, np.float32)[lo:hi], device=dev))
+            else:
+                key, ctx = tower.stage(features[lo:hi]), None
             uniforms = philox_eval_uniforms(self.cfg, hi - lo, 0, 0, 0, dev,
                                             row_base=lo)
+        if tower is not None:
+            with span("predict.tower"):
+                data = tower(key)
         with span("predict.replay"):
             return run(data, descs["desc"].contiguous(), data_context=ctx,
                        desc_set_padded=descs["desc_set_padded"],
                        desc_set_mask=descs["desc_set_mask"],
                        uniforms=uniforms, answer=True)
+
+    def _pixels(self, images) -> np.ndarray:
+        """``images`` as the tower's input, or ``ValueError`` naming what
+        it takes."""
+        x = np.asarray(images)
+        if x.dtype != np.uint8 or x.ndim != 4 or not x.shape[0] \
+                or x.shape[1] != 3 or not x.shape[2] \
+                or x.shape[2] != x.shape[3]:
+            raise ValueError(
+                "a Predictor with a tower serves uint8 pixels (B, 3, S, S), "
+                "square crops scaled and centre-cropped (227 x 227 as the "
+                f"reference makes them); got {x.dtype} {tuple(x.shape)}")
+        return x
 
 
 def refuse_mesh_model(flags: Flags) -> None:

@@ -41,6 +41,11 @@ cannot be captured.
 On the CPU (``capture`` False) every call runs the body as it is, on the
 same static buffers: the tests' way to hold the body that a graph
 captures against the eager step.
+
+Besides the game's steps and eval conversations, the served image tower
+(``models/resnet.py:PixelTower``) runs as one graph a batch size: its
+body counts its runs and images through ``counters``, and the global
+precision flags it sets while it is captured stay in the graph.
 """
 
 from __future__ import annotations
