@@ -99,6 +99,19 @@ def turns_run(stop_masks: torch.Tensor, fixed_exchange: bool
     return (1 + alive.sum()).to(torch.int32)
 
 
+def needed_uniforms(cfg, train: bool,
+                    uniforms: Optional[Dict[str, torch.Tensor]]
+                    ) -> Tuple[str, ...]:
+    """The keys of the uniform sets a conversation of ``cfg`` consumes
+    (``ops/sampling.py:uniform_widths``); ``ValueError`` when ``uniforms``
+    lacks one of them."""
+    need = tuple(uniform_widths(cfg, train))
+    missing = [k for k in need if uniforms is None or k not in uniforms]
+    if missing:
+        raise ValueError(f"this conversation needs the uniforms {missing}")
+    return need
+
+
 def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
              corrupt_mask: Optional[torch.Tensor] = None, *,
              train: bool = False,
@@ -131,10 +144,7 @@ def exchange(modules: AgentModules, data: torch.Tensor, desc: torch.Tensor,
             attention.
     """
     cfg = modules.cfg
-    need = tuple(uniform_widths(cfg, train))
-    missing = [k for k in need if uniforms is None or k not in uniforms]
-    if missing:
-        raise ValueError(f"this conversation needs the uniforms {missing}")
+    need = needed_uniforms(cfg, train, uniforms)
     sender, receiver = modules.sender, modules.receiver
     batch = data.shape[0]
     T = cfg.max_exchange

@@ -3,13 +3,14 @@
 The port of ``multimodalgame_tpu/game/fast_eval.py``. The host evaluator
 (``eval.py``) reads each batch's conversation record back to the host;
 here each dev batch is one eval conversation (``make_eval_exchange``: on a
-GPU one eval-kernel launch, inside one replay of the batch shape's
-captured CUDA graph) and its statistics (top-k hits by rank
-counting, predictions, conversation lengths, inter-step Hamming means)
-are computed on the device and stay there until one copy at the end of
-the sweep. The numbers are those of ``eval.py``: the statistics use the
-same ``n_steps`` semantics through step masks, and the ragged final
-batch is its own, smaller batch, so padding never enters a statistic.
+GPU one replay of the batch shape's captured CUDA graph, of the eval
+kernel or of the plain conversation the kernel refuses) and its
+statistics (top-k hits by rank counting, predictions, conversation
+lengths, inter-step Hamming means) are computed on the device and stay
+there until one copy at the end of the sweep. The numbers are those of
+``eval.py``: the statistics use the same ``n_steps`` semantics through
+step masks, and the ragged final batch is its own, smaller batch, so
+padding never enters a statistic.
 The accuracy denominator is ``num_batches * batch_size``, tail included
 (model.py:667).
 

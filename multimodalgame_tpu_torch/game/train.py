@@ -71,7 +71,8 @@ from multimodalgame_tpu_torch.game.agents import AGENT_NAMES, AgentModules
 from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.game.exchange import (ExchangeOutputs,
                                                     exchange,
-                                                    finalize_stop_masks)
+                                                    finalize_stop_masks,
+                                                    needed_uniforms)
 from multimodalgame_tpu_torch.game.losses import (get_rec_outp, loglikelihood,
                                                   multistep_loss_bas,
                                                   multistep_loss_binary,
@@ -1232,6 +1233,59 @@ class _EvalGraph:
         return ex, parts[-1].view(self.shapes[-1])
 
 
+class _PlainEvalGraph:
+    """The plain eval conversation (:func:`exchange`) for one call shape:
+    a static buffer for each tensor the call gives (the data, maps under
+    visual attention; the descriptions; the corrupt mask; the ``fc``
+    context; the word sets; the eval uniforms ``fz``/``fw`` that
+    ``flipout_dev`` consumes) and a body that runs the conversation on
+    the parameters where they lie and computes the answer
+    (:func:`answer_scores`). It runs eagerly once, then as a captured
+    CUDA graph (:class:`Captured`); its float outputs, ``attn_scores``
+    included, come back as one copied buffer, cut into the record's
+    fields."""
+
+    def __init__(self, modules: AgentModules,
+                 inputs: Dict[str, Optional[torch.Tensor]],
+                 uniforms: Dict[str, torch.Tensor]):
+        dev = inputs["data"].device
+        self.cfg, self.modules = modules.cfg, modules
+        with torch.inference_mode(False):
+            self.inputs = {k: None if v is None else torch.empty_like(v)
+                           for k, v in inputs.items()}
+            self.u = {k: torch.empty_like(v) for k, v in uniforms.items()}
+        # (name, shape) of each packed output, in order; the body sets it.
+        self.fields: List[Tuple[str, torch.Size]] = []
+        self.run = Captured(self._body, dev, warmup=1,
+                            capture=dev.type == "cuda")
+
+    @torch.no_grad()
+    def _body(self):
+        ex = exchange(self.modules, **self.inputs, uniforms=self.u)
+        out = {k: v for k, v in ex._asdict().items()
+               if k != "n_steps" and v is not None}
+        out["answer"] = answer_scores(self.cfg, ex)
+        self.fields = [(k, v.shape) for k, v in out.items()]
+        return torch.cat([v.reshape(-1) for v in out.values()]), ex.n_steps
+
+    def __call__(self, inputs, uniforms
+                 ) -> Tuple[ExchangeOutputs, torch.Tensor]:
+        for k, v in inputs.items():
+            if v is not None:
+                self.inputs[k].copy_(v)
+        for k, v in uniforms.items():
+            self.u[k].copy_(v)
+        (flat, n_steps), replayed = self.run()
+        if replayed:
+            flat, n_steps = flat.clone(), n_steps.clone()
+        parts = torch.split(flat, [s.numel() for _, s in self.fields])
+        out = {k: p.view(s) for (k, s), p in zip(self.fields, parts)}
+        dist = out.pop("answer")
+        ex = ExchangeOutputs(**{f: out.get(f) for f in ExchangeOutputs._fields
+                                if f != "n_steps"}, n_steps=n_steps)
+        return ex, dist
+
+
 def make_eval_exchange(modules: AgentModules, use_kernel: bool = True,
                        graph: Optional[bool] = None
                        ) -> Callable[..., ExchangeOutputs]:
@@ -1250,18 +1304,32 @@ def make_eval_exchange(modules: AgentModules, use_kernel: bool = True,
     CUDA graph of the weight pack, the kernel, the stop masks and the
     answer (:class:`_EvalGraph`), as the JAX package runs one compiled
     program per call (game/train.py:545-580); the record comes back
-    copied out of the graph. Other configs (attention, ``mou``,
-    ``flipout_dev`` with flipout) and sizes take the plain
+    copied out of the graph. Off the graph, the kernel-layout weights are
+    rebuilt only when a parameter is replaced or changed in place, or the
+    modules' ``generation`` advances (a graph-replayed trainer's updates
+    bump no version).
+
+    The calls the kernel refuses (attention, ``mou``, ``flipout_dev``
+    with flipout, sizes that no launch plan fits) run the plain
     :func:`exchange`, with the attention inputs and, under
     ``flipout_dev``, the ``fz``/``fw`` uniforms
-    (``ops/philox.py:philox_eval_uniforms``). Off the graph, the
-    kernel-layout weights are rebuilt only when a parameter is replaced
-    or changed in place, or the modules' ``generation`` advances (a
-    graph-replayed trainer's updates bump no version).
+    (``ops/philox.py:philox_eval_uniforms``; other keys of the dict are
+    not read). On CUDA tensors (``graph`` as above) each call shape (the
+    shapes of the data, the descriptions, the mask, the context, the word
+    sets and the uniforms) runs as one captured CUDA graph of the
+    conversation and its answer (:class:`_PlainEvalGraph`), which reads
+    the parameters where they lie; the CPU, or ``graph=False``, runs it
+    eagerly. On either route a graph is built again when a parameter is
+    replaced (its ``data_ptr`` changes).
+
+    ``run.routes`` counts the calls by route: ``kernel_graph``,
+    ``plain_graph`` and ``eager`` (either conversation off the graph).
     """
     cfg = modules.cfg
     packed = {"key": None, "params": None}
     graphs: Dict[tuple, Tuple[tuple, _EvalGraph]] = {}
+    plain_graphs: Dict[tuple, Tuple[tuple, _PlainEvalGraph]] = {}
+    routes = {"kernel_graph": 0, "plain_graph": 0, "eager": 0}
 
     def run(data: torch.Tensor, desc: torch.Tensor,
             corrupt_mask: Optional[torch.Tensor] = None, *,
@@ -1270,22 +1338,44 @@ def make_eval_exchange(modules: AgentModules, use_kernel: bool = True,
             desc_set_mask: Optional[torch.Tensor] = None,
             uniforms: Optional[Dict[str, torch.Tensor]] = None,
             answer: bool = False):
+        on_graph = (data.device.type == "cuda") if graph is None else graph
         if not (use_kernel and eval_kernel_supports(cfg, data.shape[0],
                                                     desc.shape[0])):
-            ex = exchange(modules, data, desc, corrupt_mask=corrupt_mask,
-                          uniforms=uniforms, data_context=data_context,
-                          desc_set_padded=desc_set_padded,
-                          desc_set_mask=desc_set_mask)
-            return (ex, answer_scores(cfg, ex)) if answer else ex
-        if (data.device.type == "cuda") if graph is None else graph:
+            if not on_graph:
+                routes["eager"] += 1
+                ex = exchange(modules, data, desc, corrupt_mask=corrupt_mask,
+                              uniforms=uniforms, data_context=data_context,
+                              desc_set_padded=desc_set_padded,
+                              desc_set_mask=desc_set_mask)
+                return (ex, answer_scores(cfg, ex)) if answer else ex
+            inputs = {"data": data, "desc": desc,
+                      "corrupt_mask": corrupt_mask,
+                      "data_context": data_context,
+                      "desc_set_padded": desc_set_padded,
+                      "desc_set_mask": desc_set_mask}
+            u = {k: uniforms[k] for k in needed_uniforms(cfg, False,
+                                                         uniforms)}
+            shape = tuple((k, None if v is None else (v.shape, v.dtype))
+                          for k, v in {**inputs, **u}.items())
+            ptrs = tuple(p.data_ptr() for p in modules.parameters())
+            known = plain_graphs.get(shape)
+            if known is None or known[0] != ptrs:
+                known = plain_graphs[shape] = (ptrs, _PlainEvalGraph(
+                    modules, inputs, u))
+            routes["plain_graph"] += 1
+            ex, dist = known[1](inputs, u)
+            return (ex, dist) if answer else ex
+        if on_graph:
             shape = (data.shape[0], desc.shape[0], corrupt_mask is not None)
             ptrs = tuple(p.data_ptr() for p in modules.parameters())
             known = graphs.get(shape)
             if known is None or known[0] != ptrs:
                 known = graphs[shape] = (ptrs, _EvalGraph(
                     modules, data.shape[0], desc, corrupt_mask is not None))
+            routes["kernel_graph"] += 1
             ex, dist = known[1](data, desc, corrupt_mask)
             return (ex, dist) if answer else ex
+        routes["eager"] += 1
         key = (modules.generation,) + tuple(
             (p.data_ptr(), p._version) for p in modules.parameters())
         if packed["key"] != key:
@@ -1294,4 +1384,5 @@ def make_eval_exchange(modules: AgentModules, use_kernel: bool = True,
                               corrupt_mask)
         return (ex, answer_scores(cfg, ex)) if answer else ex
 
+    run.routes = routes
     return run

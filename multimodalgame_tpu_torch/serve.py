@@ -75,7 +75,8 @@ class Predictor:
     ``device="cpu"`` for the plain PyTorch path on the CPU, or a list of
     devices (one may repeat) to split each request's rows over them.
     ``use_kernel`` routes supported configs through the fused CUDA kernel;
-    on a card each request shape then runs as one captured CUDA graph
+    the others take the plain conversation. On a card each request shape
+    runs as one captured CUDA graph of either
     (``game/train.py:make_eval_exchange``); ``graph=False`` launches it
     eagerly.
 

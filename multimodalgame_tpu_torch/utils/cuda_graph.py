@@ -42,7 +42,13 @@ On the CPU (``capture`` False) every call runs the body as it is, on the
 same static buffers: the tests' way to hold the body that a graph
 captures against the eager step.
 
-Besides the game's steps and eval conversations, the served image tower
+The graphs of the port: each trainer's step or chunk
+(``game/train.py:_StepGraph``) and a population's
+(``parallel/population.py``); the eval conversation of each call shape,
+on the kernel route (``game/train.py:_EvalGraph``) and on the plain
+route that attention, ``mou`` and ``flipout_dev`` take
+(``_PlainEvalGraph``), and a population's dev batch
+(``_PopulationEvalGraph``). Besides these, the served image tower
 (``models/resnet.py:PixelTower``) runs as one graph a batch size: its
 body counts its runs and images through ``counters``, and the global
 precision flags it sets while it is captured stay in the graph.

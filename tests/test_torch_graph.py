@@ -25,7 +25,11 @@ A CUDA graph needs a card, so here each piece runs uncaptured:
   mesh);
 * the eval conversation's packed weights follow a change that bumped no
   version once the modules' ``generation`` advances, and its graph body
-  equals the eager conversation;
+  equals the eager conversation; the plain route's graph body (visual
+  attention with the ``fc`` context, description attention, ``mou``,
+  ``flipout_dev``) equals the eager :func:`exchange` bit for bit, is
+  built again when a parameter is replaced, and a dev sweep on it equals
+  the eager sweep;
 * a ``.pt`` of the tensor count, read back by JAX's
   ``load_reference_checkpoint`` and by the port, in place.
 """
@@ -48,9 +52,14 @@ from multimodalgame_tpu.game.train import (
 from multimodalgame_tpu.utils import torch_interop as jax_interop
 from multimodalgame_tpu_torch.game.agents import (AGENT_NAMES, AgentModules,
                                                   init_params)
+from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
+from multimodalgame_tpu_torch.game import train as game_train
 from multimodalgame_tpu_torch.game.config import GameConfig
+from multimodalgame_tpu_torch.game.exchange import exchange
+from multimodalgame_tpu_torch.game.fast_eval import eval_dev_device
 from multimodalgame_tpu_torch.game.train import (
-    _flat_view, flat_order, init_opt_states, make_eval_exchange,
+    _flat_view, answer_scores, flat_order, init_opt_states,
+    make_eval_exchange,
     make_multistep_train_step, make_multistep_train_step_indexed,
     make_train_step, make_train_step_indexed, optimizer_update, step_route)
 from multimodalgame_tpu_torch.ops import cuda_exchange
@@ -425,6 +434,148 @@ def test_eval_graph_body_equals_eager(fixed):
             a, b = getattr(want, f), getattr(got, f)
             assert (a is None and b is None) or torch.equal(a, b), f
         assert torch.equal(dist, answer_scores(cfg, want))
+
+
+# The calls the eval kernel refuses, at the tests' widths: the
+# AdaptiveAttention preset's switches (maps and the fc context),
+# description attention, mou, and flipout in eval.
+PLAIN = {"visual_attn_context": dict(visual_attn=True,
+                                     attn_extra_context=True, attn_dim=8,
+                                     attn_context_dim=20),
+         "desc_attn": dict(desc_attn=True, desc_attn_dim=6),
+         "mou": dict(sender_mix="mou"),
+         "flipout_dev": dict(flipout_dev=True, flipout_sen=0.1,
+                             flipout_rec=0.2)}
+MAP = 3
+
+
+def _plain_case(variant, seed=1):
+    cfg = GameConfig(**BASE, fixed_exchange=False, **PLAIN[variant])
+    mods = init_params(AgentModules(cfg), seed=seed)
+    with torch.no_grad():
+        # Keeps conversations going past turn 0.
+        mods.receiver.s.bias.fill_(1.5)
+    return cfg, mods
+
+
+def _plain_inputs(cfg, batch, seed=4):
+    """The call's keyword tensors: maps and their context under visual
+    attention, the word sets under description attention, and under
+    ``flipout_dev`` the eval uniforms with a key the conversation does
+    not read."""
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    words = np.arange(3)[None] < rng.randint(1, 4, NUM_CLASSES)[:, None]
+    u = philox_eval_uniforms(cfg, batch, 7, 3, 1)
+    return dict(
+        data=(t(batch, cfg.img_feat_dim, MAP, MAP) if cfg.visual_attn
+              else t(batch, cfg.img_feat_dim)),
+        desc=t(NUM_CLASSES, cfg.wv_dim),
+        data_context=(t(batch, cfg.attn_context_dim)
+                      if cfg.attn_extra_context else None),
+        desc_set_padded=(t(NUM_CLASSES, 3, cfg.wv_dim)
+                         * torch.from_numpy(words[..., None].astype(
+                             np.float32)) if cfg.desc_attn else None),
+        desc_set_mask=(torch.from_numpy(words.astype(np.float32))
+                       if cfg.desc_attn else None),
+        uniforms=(None if u is None else
+                  {**u, "s": torch.rand(cfg.max_exchange, batch, 1)}))
+
+
+@pytest.mark.parametrize("batch", [100, 37], ids=["batch100", "ragged"])
+@pytest.mark.parametrize("variant", list(PLAIN))
+def test_plain_eval_graph_body_equals_eager(variant, batch):
+    """The body a plain-route eval graph captures (uncaptured here; with
+    a corrupt mask and without, each shape twice) against the eager
+    :func:`exchange` bit for bit, ``attn_scores`` included, and the answer
+    against ``answer_scores``; the calls counted by route."""
+    cfg, mods = _plain_case(variant)
+    kw = _plain_inputs(cfg, batch)
+    data, desc = kw.pop("data"), kw.pop("desc")
+    mask = torch.zeros(cfg.rec_w_dim)
+    mask[:3] = 1
+    eager = make_eval_exchange(mods, graph=False)
+    body = make_eval_exchange(mods, graph=True)
+    for corrupt in (None, mask, None, mask):
+        with torch.no_grad():
+            want = exchange(mods, data, desc, corrupt, **kw)
+        got, dist = body(data, desc, corrupt, answer=True, **kw)
+        off = eager(data, desc, corrupt, **kw)
+        for f in want._fields:
+            a, b, c = getattr(want, f), getattr(got, f), getattr(off, f)
+            assert (a is None and b is None and c is None) or (
+                torch.equal(a, b) and torch.equal(a, c)), f
+        assert torch.equal(dist, answer_scores(cfg, want))
+    assert (want.attn_scores is not None) == cfg.visual_attn
+    assert int(want.n_steps) > 1
+    assert body.routes == {"kernel_graph": 0, "plain_graph": 4, "eager": 0}
+    assert eager.routes == {"kernel_graph": 0, "plain_graph": 0, "eager": 4}
+
+
+def test_plain_eval_graph_follows_the_parameters(monkeypatch):
+    """A plain-route graph reads the parameters where they lie: an
+    in-place change is seen by the same graph, a replaced parameter (a
+    new ``data_ptr``) builds the graph again. Uniforms missing under
+    ``flipout_dev`` are refused as the eager conversation refuses them."""
+    built = []
+
+    class Counted(game_train._PlainEvalGraph):
+        def __init__(self, *args):
+            built.append(1)
+            super().__init__(*args)
+
+    monkeypatch.setattr(game_train, "_PlainEvalGraph", Counted)
+    cfg, mods = _plain_case("visual_attn_context")
+    kw = _plain_inputs(cfg, 9)
+    run = make_eval_exchange(mods, graph=True)
+    before = run(**kw)
+    assert len(built) == 1
+    orig = mods.sender.binary_layer.weight.detach().clone()
+    with torch.no_grad():
+        mods.sender.binary_layer.weight.add_(0.5)
+    moved = run(**kw)
+    assert len(built) == 1 and not torch.equal(moved.sen_probs,
+                                               before.sen_probs)
+    mods.sender.binary_layer.weight = torch.nn.Parameter(orig)
+    again = run(**kw)
+    assert len(built) == 2
+    for a, b in zip(again, before):
+        assert a is None or torch.equal(a, b)
+    assert run.routes["plain_graph"] == 3
+    cfg, mods = _plain_case("flipout_dev")
+    kw = _plain_inputs(cfg, 9)
+    with pytest.raises(ValueError, match="needs the uniforms"):
+        make_eval_exchange(mods, graph=True)(**{**kw, "uniforms": None})
+
+
+def test_attention_dev_sweep_on_the_graph_body_equals_eager():
+    """``eval_dev_device`` on the AdaptiveAttention preset's switches
+    (maps, the fc context), batches of 100 and a ragged tail of 37: the
+    graph route's body gives the eager sweep's accuracy, statistics, true
+    labels and predictions, one graph call a batch."""
+    cfg, mods = _plain_case("visual_attn_context")
+    rng = np.random.RandomState(6)
+    n = 237
+    ds = DeviceDataset(
+        rng.randn(n, cfg.img_feat_dim, MAP, MAP).astype(np.float32),
+        rng.randint(0, NUM_CLASSES, n),
+        context=rng.randn(n, cfg.attn_context_dim).astype(np.float32),
+        device="cpu")
+    desc = torch.from_numpy(rng.randn(NUM_CLASSES, cfg.wv_dim).astype(
+        np.float32))
+    got = {}
+    for graph in (False, True):
+        run = make_eval_exchange(mods, graph=graph)
+        got[graph] = eval_dev_device(mods, run, ds, 0, False, 100, TOP_K,
+                                     desc)
+        assert run.routes["plain_graph" if graph else "eager"] == 3
+    assert got[True][0] == got[False][0]
+    assert got[True][1] == got[False][1]
+    np.testing.assert_array_equal(got[True][2], got[False][2])
+    np.testing.assert_array_equal(got[True][3], got[False][3])
+    assert got[False][1]["conversation_lengths_mean"] > 1
 
 
 # -------------------------------------------------------------- checkpoint

@@ -409,6 +409,40 @@ def test_population_graph_replays_equal_eager_steps(cuda):
                                            desc), want)
 
 
+def test_plain_eval_graph_replays_equal_eager(cuda):
+    """The AdaptiveAttention preset's dev batch (100 maps of 512 x 8 x 8,
+    the fc context of 1,000, 30 classes, 10 turns) on the plain route's
+    graph: an eager warm-up, then the capture and three replays, each
+    record and answer bit for bit the eager conversation's, one replay a
+    call after the warm-up."""
+    from multimodalgame_tpu_torch.game.train import (answer_scores,
+                                                     make_eval_exchange)
+    from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+    cfg = GameConfig(**CANON, visual_attn=True, attn_extra_context=True,
+                     attn_dim=256, attn_context_dim=1000)
+    mods = _agents(cfg, 4, 2.5)
+    rng = np.random.RandomState(4)
+    data = torch.from_numpy(
+        rng.randn(100, 512, 8, 8).astype(np.float32)).cuda()
+    ctx = torch.from_numpy(rng.randn(100, 1000).astype(np.float32)).cuda()
+    desc = torch.from_numpy(rng.randn(30, 100).astype(np.float32)).cuda()
+    eager = make_eval_exchange(mods, graph=False)
+    graph = make_eval_exchange(mods)
+    with torch.no_grad():
+        want = eager(data, desc, data_context=ctx)
+        dist = answer_scores(cfg, want)
+        graph(data, desc, data_context=ctx)
+        replays = Captured.replays
+        for n in (1, 2, 3):
+            got, got_dist = graph(data, desc, data_context=ctx, answer=True)
+            assert Captured.replays == replays + n
+            for f in want._fields:
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+            assert torch.equal(got_dist, dist)
+    assert int(want.n_steps) > 1
+    assert graph.routes == {"kernel_graph": 0, "plain_graph": 4, "eager": 0}
+
+
 def test_capture_outlives_graphs_collected_as_garbage(cuda):
     """Graphs dropped as cyclic garbage (a Captured and its body's owner
     refer to each other) are not freed in the middle of another graph's
