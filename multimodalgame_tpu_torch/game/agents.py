@@ -54,10 +54,6 @@ class AgentModules(nn.Module):
         self.baseline_rec = Baseline(
             hid_dim=cfg.baseline_hid_dim, x_dim=0,
             binary_dim=cfg.rec_w_dim, inp_dim=cfg.rec_hidden)
-        # Advanced by a trainer whose captured steps change the parameters
-        # without bumping their versions (game/train.py's graph route);
-        # caches of packed weights key on it beside the versions.
-        self.generation = 0
 
     def forward(self, fn, *args, **kwargs):
         """``fn(self, *args, **kwargs)``: a function of the four agents

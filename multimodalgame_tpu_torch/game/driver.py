@@ -7,8 +7,9 @@ The port of ``multimodalgame_tpu/game/driver.py:run_fast``:
   (``data/device_dataset.py``); batches are gathered there by a
   host-made ``(K, B)`` index plan;
 * steps between host-visible boundaries (the log, dev and checkpoint
-  cadences, reference model.py:1341-1584) run as chunks of
-  ``make_multistep_train_step_indexed``, split by the piece planner into
+  cadences, reference model.py:1341-1584) run as chunks of the indexed
+  trainer (``make_indexed_train_steps``: one trainer for the chunks and
+  the log-boundary steps), split by the piece planner into
   512-step pieces and one remainder, which bounds the distinct chunk
   lengths a run uses; the randomness of step ``s`` is keyed by the
   global step (Philox ``(seed, s)`` or the caller's ``uniforms(s)``), so
@@ -34,8 +35,9 @@ of the kernel another (``game/train.py:step_route``, the port of the JAX
 package's one compiled program per K updates and per sharded step; the
 log names the route as ``Step: graph``), a ``-mesh`` or ``-mesh_model``
 rank's too when its ranks are on distinct cards (NCCL, whose
-collectives run inside the graph); the CPU and ranks that share a card
-(gloo) step eagerly (``Step: eager``). The configs it
+collectives run inside the graph); on the CPU and for ranks that share a
+card (gloo) the same step body runs uncaptured (``Step: eager``). The
+configs it
 rejects (attention, ``mou``, ``-flipout_dev`` with flipout) and the sizes
 that no launch plan fits (the big game's 1,000 classes) run both on the
 plain conversation; a ``-compute_dtype bfloat16`` game samples on the plain
@@ -72,9 +74,9 @@ from multimodalgame_tpu_torch.data.device_dataset import DeviceDataset
 from multimodalgame_tpu_torch.game.exchange import description_inputs
 from multimodalgame_tpu_torch.game.fast_eval import run_device_dev_eval
 from multimodalgame_tpu_torch.game.logpack import LogPacker
-from multimodalgame_tpu_torch.game.train import (
-    gather_batch, make_multistep_train_step_indexed, make_train_step_indexed,
-    step_route)
+from multimodalgame_tpu_torch.game.train import (gather_batch,
+                                                  make_indexed_train_steps,
+                                                  step_route)
 from multimodalgame_tpu_torch.ops.cuda_exchange import train_kernel_supports
 from multimodalgame_tpu_torch.ops.philox import (EVAL_DUMP_SLOT,
                                                  philox_eval_uniforms)
@@ -137,9 +139,9 @@ def make_piece_planner(cap: int = _EXACT_CAP):
 SAMPLER_LINE = "Phase A sampler: {}"
 # The driver's line naming how the steps run (``game/train.py:
 # step_route``): "graph", each update one replay of a captured CUDA graph
-# (a CUDA device, alone or a rank of an NCCL mesh or grid), or "eager"
-# (the CPU, ranks that share a card over gloo). The JAX package prints no
-# such line either.
+# (a CUDA device, alone or a rank of an NCCL mesh or grid), or "eager",
+# the same step body uncaptured (the CPU, ranks that share a card over
+# gloo). The JAX package prints no such line either.
 STEP_LINE = "Step: {}"
 
 
@@ -300,13 +302,10 @@ def run_fast(flags, modules, opt_states, desc_train, desc_dev, flogger,
     flogger.Log(SAMPLER_LINE.format(sampler))
     flogger.Log(STEP_LINE.format(step_route(device, mesh, tp)))
     fast = "kernel" if sampler == "kernel" else "auto"
-    trainer_kw = dict(fast=fast, seed=seed, uniforms=uniforms, device=device,
-                      transform=transform, context_fn=context_fn, mesh=mesh,
-                      tp=tp)
-    full_step = make_train_step_indexed(modules, flags.top_k_train,
-                                        flags.batch_size, **trainer_kw)
-    chunk_step = make_multistep_train_step_indexed(
-        modules, flags.top_k_train, flags.batch_size, **trainer_kw)
+    full_step, chunk_step = make_indexed_train_steps(
+        modules, flags.top_k_train, flags.batch_size, fast=fast, seed=seed,
+        uniforms=uniforms, device=device, transform=transform,
+        context_fn=context_fn, mesh=mesh, tp=tp)
     packer = LogPacker(cfg, flags.batch_size, flags.exchange_samples)
 
     L = flags.log_interval

@@ -300,7 +300,7 @@ def apply_flat_updates(cfg: GameConfig, update_names,
             state["count"].copy_(new["count"])
         pbuf.add_(-lr * updates[0])
         # The parameters were changed through the buffer: bump their
-        # version counters, which caches of packed weights key on.
+        # version counters, as an in-place update of each would.
         for p in params[name]:
             increment_version(p)
 
@@ -509,12 +509,15 @@ class _Trainer:
     buffer each (:func:`flat_buffers`), laid out at the first step, after
     the move to the device.
 
-    ``graph`` (default: :func:`step_route`) runs the steps on the graph
-    route (:class:`_StepGraph`): one captured CUDA graph a step signature,
-    replayed once per update, a mesh's NCCL collectives inside it.
-    ``graph=True`` on the CPU runs the body that a graph captures,
-    uncaptured, on the same static buffers, with or without a mesh;
-    on a card it needs the route to be "graph" (a gloo mesh raises)."""
+    Every update runs one body (:class:`_StepGraph`), which reads its
+    batch from static buffers and its randomness from a device counter.
+    ``graph`` (default: :func:`step_route`) decides whether the body is
+    captured: on the "graph" route each step signature is one captured
+    CUDA graph, replayed once per update, a mesh's NCCL collectives inside
+    it; on the CPU, on a card for a gloo mesh, and with ``graph=False``
+    the body runs as it is on every update. ``graph=True`` on a card needs
+    the route to be "graph" (a gloo mesh raises); on the CPU it captures
+    nothing."""
 
     def __init__(self, modules: AgentModules, top_k: int, batch_denom: int,
                  fast: Union[bool, str], seed: int,
@@ -543,7 +546,6 @@ class _Trainer:
             raise ValueError("a step over gloo collectives (ranks that "
                              "share a card) runs eagerly: gloo's "
                              "collectives cannot be captured")
-        self.graph = route == "graph" if graph is None else bool(graph)
         self.tp = tp
         self.modules = modules if tp is None else tp.shard
         self.cfg = cfg
@@ -556,6 +558,8 @@ class _Trainer:
         self.reduce = (None if tp is not None and mesh.size == 1
                        else mesh)
         self.device = resolve_device(where)
+        self.capture = ((route == "graph" if graph is None else bool(graph))
+                        and self.device.type == "cuda")
         modules.to(self.device)
         self.dtype = next(modules.parameters()).dtype
         self.update_names = AGENT_NAMES if cfg.use_binary else ("receiver",)
@@ -592,30 +596,14 @@ class _Trainer:
                              f"over {self.mesh.size} ranks")
         return slice(*self.mesh.rows(batch))
 
-    def randomness(self, step: int, rows: slice) -> Dict[str, Any]:
-        """The uniforms of global step ``step`` for the batch rows
-        ``rows``, or ``(seed, step, row_base)`` for the kernel to draw
-        them itself."""
-        if self.uniforms is not None:
-            u = self.uniforms(step)
-            if self.mesh is not None:
-                u = {k: v[:, rows] for k, v in u.items()}
-            return {"uniforms": {k: v.to(self.device) for k, v in u.items()}}
-        if self.sampler == "kernel":
-            return {"seed": self.seed, "step": int(step),
-                    "row_base": rows.start}
-        return {"uniforms": philox_uniforms(
-            self.cfg, rows.stop - rows.start, self.seed, int(step),
-            self.device, row_base=rows.start)}
-
     def key_randomness(self, key: torch.Tensor, batch: int,
                        uniforms: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Dict[str, Any]:
-        """:meth:`randomness` of the graph route, keyed by ``key``, the
-        int64 device tensor ``[seed, step, row_base]``: the key itself for
-        the kernel, else its Philox uniforms drawn on the device, bit for
-        bit the numbers of the same key in integers; ``uniforms``, the
-        caller's source's numbers of this step, where it has one."""
+        """The randomness of a step keyed by ``key``, the int64 device
+        tensor ``[seed, step, row_base]``: the key itself for the kernel,
+        which draws its uniforms, else the key's Philox uniforms of the
+        ``batch`` rows from ``row_base``, drawn on the device; ``uniforms``,
+        the caller's source's numbers of this step, where it has one."""
         if uniforms is not None:
             return {"uniforms": uniforms}
         if self.sampler == "kernel":
@@ -624,27 +612,21 @@ class _Trainer:
                                             self.device, row_base=key[2])}
 
     def step(self, opt_states, data: torch.Tensor, target: torch.Tensor,
-             desc: torch.Tensor, step: Optional[int],
-             rows: Optional[slice] = None, full: bool = False,
-             rand: Optional[Dict[str, Any]] = None,
+             desc: torch.Tensor, rand: Dict[str, Any], full: bool = False,
              **inputs) -> TrainMetrics:
-        """One update on ``data``, the batch rows ``rows`` (all of them by
-        default); ``inputs`` are the attention inputs. On the mesh the
-        gradients and the logged scalars are summed over the ranks and,
-        with ``full``, the rows' predictions and record gathered.
-        ``rand`` replaces the randomness of global step ``step`` (the
-        graph route's, :meth:`key_randomness`)."""
+        """One update on ``data`` (this rank's rows on a mesh) with the
+        randomness ``rand`` (:meth:`key_randomness`); ``inputs`` are the
+        attention inputs. On the mesh the gradients and the logged scalars
+        are summed over the ranks and, with ``full``, the rows'
+        predictions and record gathered."""
         from multimodalgame_tpu_torch.game.fast_train import (
             compute_losses_fast)
-        rows = slice(0, data.shape[0]) if rows is None else rows
         if self.sampler == "kernel" and not train_kernel_supports(
                 self.cfg, data.shape[0], desc.shape[0]):
             raise ValueError(
                 f"fast='kernel': no launch plan of the train kernel fits "
                 f"{data.shape[0]} rows and {desc.shape[0]} classes at this "
                 f"width; train it with fast='auto' (the plain sampler)")
-        if rand is None:
-            rand = self.randomness(step, rows)
         self.modules.zero_grad(set_to_none=True)
         if self.fast:
             total, metrics = compute_losses_fast(
@@ -684,20 +666,20 @@ class _Trainer:
     def run_graph(self, opt_states, kind: str, steps: int, step0: int,
                   stacks: Dict[str, Any], fixed: Dict[str, Any],
                   make_batch: Callable, full: bool):
-        """``steps`` updates on the graph route, step ``i`` on row ``i``
-        of each of ``stacks`` (the index plan ``idx``, a host array, or
-        tensors staged per step) with the randomness of global step
+        """``steps`` updates through the step body, step ``i`` on row
+        ``i`` of each of ``stacks`` (the index plan ``idx``, a host array,
+        or tensors staged per step) with the randomness of global step
         ``step0 + i``; ``fixed`` are the inputs every step reads where
         they lie (the staged set, the descriptions), ``make_batch(rows,
         fixed) -> (data, target, desc, inputs)`` builds a step's batch
         from its rows. Returns the last step's :class:`TrainMetrics` with
         ``full``, else the steps' :class:`ScanMetrics`, copied out of the
-        graph's buffers. On a mesh the stacks (axis 1 the batch) and a
+        body's buffers. On a mesh the stacks (axis 1 the batch) and a
         uniform source's numbers are cut to this rank's rows first, and
-        the counter's ``row_base`` is the rank's first row. The modules'
-        ``generation`` is advanced (under tensor parallelism the whole
-        agents' too, which the step's sync writes), as the replays bump
-        no parameter's version."""
+        the counter's ``row_base`` is the rank's first row. A step
+        signature's body is built once, and built again for a longer
+        chunk or, where it is captured, when the carry or a ``fixed``
+        input moves: a graph reads them at the addresses it captured."""
         rows = self.rows(next(iter(stacks.values())).shape[1])
         stacks = {k: v[:, rows] for k, v in stacks.items()}
         if self.uniforms is not None:
@@ -713,20 +695,18 @@ class _Trainer:
         ptr_key = self.lay_out(opt_states) + tuple(
             None if v is None else v.data_ptr() for v in fixed.values())
         known = self._graphs.get(shape_key)
-        if known is None or known[0] != ptr_key \
-                or steps > known[1].capacity:
+        if known is None or steps > known[1].capacity or (
+                self.capture and known[0] != ptr_key):
             capacity = max(steps, INDEX_CAPACITY if kind == "indexed"
                            else steps)
-            known = (ptr_key, _StepGraph(self, opt_states, stacks, fixed,
-                                         make_batch, full, capacity))
+            known = (ptr_key, _StepGraph(self, stacks, make_batch, full,
+                                         capacity))
             self._graphs[shape_key] = known
         sg = known[1]
+        sg.opt_states, sg.fixed = opt_states, fixed
         sg.load(steps, int(step0), rows.start, stacks)
         for _ in range(steps):
             out = sg.step()
-        self.modules.generation += 1
-        if self.tp is not None:
-            self.tp.full.generation += 1
         return out if full else ScanMetrics(*sg.out[:, :steps].clone())
 
     def update(self, opt_states, metrics: TrainMetrics,
@@ -774,29 +754,30 @@ class _Trainer:
 
 
 class _StepGraph:
-    """One step signature's training step on the graph route.
+    """One step signature's training step, the body every update runs.
 
     Static buffers hold the step's inputs for a chunk of up to
     ``capacity`` steps (on a mesh, this rank's rows of them): the int64
     counter ``[seed, step, row_base, i]`` (the Philox key the step reads,
     ``row_base`` the rank's first row, and the chunk row it trains on)
-    with,
-    behind it, the index plan when it comes from the host, so that a
-    chunk's plan and key reach the card in one copy; the other stacks
+    with, behind it, the index plan when it comes from the host, so that
+    a chunk's plan and key reach the device in one copy; the other stacks
     (staged batches, a uniform source's numbers) in buffers of their own,
     and the scalars of each step (:class:`ScanMetrics`) in ``out``, a row
     a step. The body (:meth:`_body`) gathers row ``i`` of the stacks, runs
     the trainer's step (zero_grad, phase A, phase B, backward and the
-    flat update, on a mesh with its collectives) and advances the
-    counter; :class:`Captured` runs it eagerly for the first GRAPH_WARMUP
-    steps, then captures it and replays it once per update, the mesh's
-    collective counts advanced at each replay."""
+    flat update, on a mesh with its collectives) on the carry
+    ``opt_states`` and the inputs ``fixed`` that the caller sets before
+    each chunk, and advances the counter. Where the trainer captures,
+    :class:`Captured` runs it eagerly for the first GRAPH_WARMUP steps,
+    then captures it and replays it once per update, the mesh's
+    collective counts advanced at each replay; elsewhere it runs the body
+    on every update."""
 
-    def __init__(self, tr: _Trainer, opt_states, stacks: Dict[str, Any],
-                 fixed: Dict[str, Any], make_batch: Callable, full: bool,
-                 capacity: int):
+    def __init__(self, tr: _Trainer, stacks: Dict[str, Any],
+                 make_batch: Callable, full: bool, capacity: int):
         dev = tr.device
-        self.tr, self.opt_states, self.fixed = tr, opt_states, fixed
+        self.tr, self.opt_states, self.fixed = tr, None, None
         self.make_batch, self.full, self.capacity = make_batch, full, capacity
         self.host = [k for k, v in stacks.items()
                      if not isinstance(v, torch.Tensor)]
@@ -820,8 +801,7 @@ class _StepGraph:
             (len(ScanMetrics._fields), capacity), dtype=tr.dtype,
             device=dev))
         self.run = Captured(self._body, dev, GRAPH_WARMUP,
-                            capture=dev.type == "cuda",
-                            counters=tr.counters())
+                            capture=tr.capture, counters=tr.counters())
 
     def load(self, steps: int, step0: int, row_base: int,
              stacks: Dict[str, Any]) -> None:
@@ -854,10 +834,9 @@ class _StepGraph:
         data, target, desc, inputs = self.make_batch(rows, self.fixed)
         batch = data.shape[0]
         u = {k[2:]: v for k, v in rows.items() if k.startswith("u:")}
-        m = tr.step(self.opt_states, data, target, desc, None,
-                    rows=slice(0, batch), full=self.full,
-                    rand=tr.key_randomness(self.ctr[:3], batch, u or None),
-                    **inputs)
+        m = tr.step(self.opt_states, data, target, desc,
+                    tr.key_randomness(self.ctr[:3], batch, u or None),
+                    full=self.full, **inputs)
         if not self.full:
             self.out.index_copy_(1, pos, torch.stack(_scan_row(m))[:, None])
         self.ctr.add_(self.inc)
@@ -893,6 +872,26 @@ def _staged_batch(rows, fixed):
         desc_set_mask=fixed["desc_set_mask"])
 
 
+def _run_staged(tr: _Trainer, opt_states, data: torch.Tensor,
+                target: torch.Tensor, desc, step0: int,
+                data_context: Optional[torch.Tensor], desc_set_padded,
+                desc_set_mask, full: bool):
+    """The staged steps of ``data`` and ``target`` (and ``data_context``),
+    stacked a row a step, through :meth:`_Trainer.run_graph`; the
+    descriptions are read where they lie, as tensors on the trainer's
+    device."""
+    def opt(x):
+        return None if x is None else tr.tensor(x)
+    stacks = {"data": data, "target": target}
+    if data_context is not None:
+        stacks["ctx"] = data_context
+    return tr.run_graph(
+        opt_states, "staged", data.shape[0], step0, stacks,
+        dict(desc=tr.tensor(desc), desc_set_padded=opt(desc_set_padded),
+             desc_set_mask=opt(desc_set_mask)),
+        _staged_batch, full)
+
+
 def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
                     fast: Union[bool, str] = "auto", *, seed: int = 0,
                     uniforms: Optional[UniformSource] = None,
@@ -915,13 +914,13 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
     (``parallel/tensor.py``, ``mesh`` its data axis) it trains the rank's
     shards; ``opt_states`` are then ``init_tp_opt_states``'.
 
-    ``graph`` (default :func:`step_route`: a CUDA device whose collectives,
-    if any, are NCCL's) runs each step as a replay of a captured CUDA
-    graph, bit for bit the eager step, a mesh's collectives and the full
-    metrics' gathers inside it; the batch (this rank's rows of it) is
-    copied into the graph's buffers and the metrics out of them. The
-    descriptions are read where they lie: give the same device tensors
-    every step.
+    The step is the trainer's one body (:class:`_StepGraph`): the batch
+    (this rank's rows of it) is copied into its buffers and the metrics
+    out of them. ``graph`` (default :func:`step_route`: a CUDA device
+    whose collectives, if any, are NCCL's) captures it, so that each step
+    is a replay of one CUDA graph, a mesh's collectives and the full
+    metrics' gathers inside it; a captured step reads the descriptions
+    where they lie: give the same device tensors every step.
     """
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
                   mesh, tp, graph)
@@ -929,28 +928,11 @@ def make_train_step(modules: AgentModules, top_k: int, batch_denom: int,
     def step(opt_states, data, target, desc, step: int,
              desc_set_padded=None, desc_set_mask=None, data_context=None
              ) -> TrainMetrics:
-        rows = tr.rows(len(data))
-
-        def opt(x):
-            return None if x is None else tr.tensor(x)
-        if tr.graph:
-            stacks = {"data": tr.tensor(data)[None],
-                      "target": tr.tensor(target, torch.long)[None]}
-            if data_context is not None:
-                stacks["ctx"] = tr.tensor(data_context)[None]
-            return tr.run_graph(
-                opt_states, "staged", 1, step, stacks,
-                dict(desc=tr.tensor(desc),
-                     desc_set_padded=opt(desc_set_padded),
-                     desc_set_mask=opt(desc_set_mask)),
-                _staged_batch, full=True)
-        return tr.step(opt_states, tr.tensor(data[rows]),
-                       tr.tensor(target[rows], torch.long),
-                       tr.tensor(desc), step, rows=rows, full=True,
-                       data_context=opt(None if data_context is None
-                                        else data_context[rows]),
-                       desc_set_padded=opt(desc_set_padded),
-                       desc_set_mask=opt(desc_set_mask))
+        return _run_staged(
+            tr, opt_states, tr.tensor(data)[None],
+            tr.tensor(target, torch.long)[None], desc, step,
+            None if data_context is None else tr.tensor(data_context)[None],
+            desc_set_padded, desc_set_mask, full=True)
 
     return step
 
@@ -965,6 +947,51 @@ def gather_batch(feats, idx, feats_context=None, transform=None,
     if feats_context is not None:
         return data, feats_context[idx]
     return data, None if context_fn is None else context_fn(data)
+
+
+def make_indexed_train_steps(modules: AgentModules, top_k: int,
+                             batch_denom: int,
+                             fast: Union[bool, str] = "auto", *,
+                             seed: int = 0,
+                             uniforms: Optional[UniformSource] = None,
+                             device: Optional[Union[str,
+                                                    torch.device]] = None,
+                             transform: Optional[Callable] = None,
+                             context_fn: Optional[Callable] = None,
+                             mesh=None, tp=None,
+                             graph: Optional[bool] = None):
+    """``(step, chunk)``: :func:`make_train_step_indexed`'s step and
+    :func:`make_multistep_train_step_indexed`'s chunk over one trainer,
+    so that they share the flat carry's layout and one table of step
+    bodies (one for the full step, one for the chunk), as the driver
+    (``game/driver.py:run_fast``) takes both from one call."""
+    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
+                  mesh, tp, graph)
+    make_batch = _indexed_batch(transform, context_fn)
+
+    def run(opt_states, feats, targets, plan, desc, step0, feats_context,
+            desc_set_padded, desc_set_mask, full):
+        return tr.run_graph(
+            opt_states, "indexed", plan.shape[0], step0, {"idx": plan},
+            dict(feats=feats, targets=targets, feats_context=feats_context,
+                 desc=desc, desc_set_padded=desc_set_padded,
+                 desc_set_mask=desc_set_mask),
+            make_batch, full)
+
+    def step(opt_states, feats, targets, idx, desc, step0: int,
+             feats_context=None, desc_set_padded=None, desc_set_mask=None
+             ) -> TrainMetrics:
+        return run(opt_states, feats, targets, _plan(idx)[None], desc, step0,
+                   feats_context, desc_set_padded, desc_set_mask, full=True)
+
+    def chunk(opt_states, feats, targets, idx, desc, step0: int = 0,
+              feats_context=None, desc_set_padded=None, desc_set_mask=None
+              ) -> ScanMetrics:
+        return run(opt_states, feats, targets, _plan(idx), desc, step0,
+                   feats_context, desc_set_padded, desc_set_mask,
+                   full=False)
+
+    return step, chunk
 
 
 def make_train_step_indexed(modules: AgentModules, top_k: int,
@@ -994,41 +1021,16 @@ def make_train_step_indexed(modules: AgentModules, top_k: int,
     whole batch's metrics; ``tp`` and ``graph`` are
     :func:`make_train_step`'s (the set and the descriptions are read where
     they lie)."""
-    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh, tp, graph)
-    make_batch = _indexed_batch(transform, context_fn)
-
-    def step(opt_states, feats, targets, idx, desc, step0: int,
-             feats_context=None, desc_set_padded=None, desc_set_mask=None
-             ) -> TrainMetrics:
-        if tr.graph:
-            return tr.run_graph(
-                opt_states, "indexed", 1, step0, {"idx": _plan(idx)[None]},
-                dict(feats=feats, targets=targets,
-                     feats_context=feats_context, desc=desc,
-                     desc_set_padded=desc_set_padded,
-                     desc_set_mask=desc_set_mask),
-                make_batch, full=True)
-        rows = tr.rows(len(idx))
-        idx = tr.tensor(idx[rows], torch.long)
-        data, ctx = gather_batch(feats, idx, feats_context, transform,
-                                 context_fn)
-        return tr.step(opt_states, data, targets[idx].long(), desc,
-                       step0, rows=rows, full=True, data_context=ctx,
-                       desc_set_padded=desc_set_padded,
-                       desc_set_mask=desc_set_mask)
-
-    return step
+    return make_indexed_train_steps(
+        modules, top_k, batch_denom, fast, seed=seed, uniforms=uniforms,
+        device=device, transform=transform, context_fn=context_fn,
+        mesh=mesh, tp=tp, graph=graph)[0]
 
 
 def _scan_row(m: TrainMetrics) -> Tuple[torch.Tensor, ...]:
     """A step's :class:`ScanMetrics` scalars (the rest of its metrics,
     the conversation record with them, is let go)."""
     return tuple(getattr(m, f) for f in ScanMetrics._fields)
-
-
-def _scan_metrics(rows: List[Tuple[torch.Tensor, ...]]) -> ScanMetrics:
-    return ScanMetrics(*(torch.stack(v) for v in zip(*rows)))
 
 
 def make_multistep_train_step(modules: AgentModules, top_k: int,
@@ -1049,38 +1051,20 @@ def make_multistep_train_step(modules: AgentModules, top_k: int,
     :func:`make_multistep_train_step_indexed`, the counterpart of JAX's
     ``keys (K,)``). The metrics stay on the device. With ``mesh`` each
     step trains on this rank's rows of ``data[i]``; ``fast``, ``device``,
-    ``tp`` and ``graph`` are :func:`make_train_step`'s: on the graph
-    route the stacks are copied into the graph's buffers once a chunk,
-    and each step is one replay."""
+    ``tp`` and ``graph`` are :func:`make_train_step`'s: the stacks are
+    copied into the body's buffers once a chunk, and captured, each step
+    is one replay."""
     tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
                   mesh, tp, graph)
 
     def chunk(opt_states, data, target, desc, step0: int = 0,
               data_context=None, desc_set_padded=None, desc_set_mask=None
               ) -> ScanMetrics:
-        if tr.graph:
-            stacks = {"data": tr.tensor(data),
-                      "target": tr.tensor(target, torch.long)}
-            if data_context is not None:
-                stacks["ctx"] = tr.tensor(data_context)
-            return tr.run_graph(
-                opt_states, "staged", data.shape[0], step0, stacks,
-                dict(desc=desc, desc_set_padded=desc_set_padded,
-                     desc_set_mask=desc_set_mask),
-                _staged_batch, full=False)
-        rows = tr.rows(data.shape[1])
-        data = tr.tensor(data[:, rows])
-        target = tr.tensor(target[:, rows], torch.long)
-        ctx = None if data_context is None else tr.tensor(
-            data_context[:, rows])
-        desc = tr.tensor(desc)
-        dsp = None if desc_set_padded is None else tr.tensor(desc_set_padded)
-        dsm = None if desc_set_mask is None else tr.tensor(desc_set_mask)
-        return _scan_metrics([_scan_row(tr.step(
-            opt_states, data[i], target[i], desc, int(step0) + i, rows=rows,
-            data_context=None if ctx is None else ctx[i],
-            desc_set_padded=dsp, desc_set_mask=dsm))
-            for i in range(data.shape[0])])
+        return _run_staged(
+            tr, opt_states, tr.tensor(data), tr.tensor(target, torch.long),
+            desc, step0,
+            None if data_context is None else tr.tensor(data_context),
+            desc_set_padded, desc_set_mask, full=False)
 
     return chunk
 
@@ -1106,39 +1090,13 @@ def make_multistep_train_step_indexed(modules: AgentModules, top_k: int,
     ``context_fn`` are :func:`make_train_step_indexed`'s. With ``mesh``
     each step trains on this rank's share of its row of ``idx``; the
     metrics are the whole batch's. ``tp`` and ``graph`` are
-    :func:`make_train_step`'s: on the graph route a chunk's plan (from
-    the host) and key reach the card in one copy, each step is one
-    replay, and the metrics are copied out once a chunk."""
-    tr = _Trainer(modules, top_k, batch_denom, fast, seed, uniforms, device,
-                  mesh, tp, graph)
-    make_batch = _indexed_batch(transform, context_fn)
-
-    def chunk(opt_states, feats, targets, idx, desc, step0: int = 0,
-              feats_context=None, desc_set_padded=None, desc_set_mask=None
-              ) -> ScanMetrics:
-        if tr.graph:
-            return tr.run_graph(
-                opt_states, "indexed", idx.shape[0], step0,
-                {"idx": _plan(idx)},
-                dict(feats=feats, targets=targets,
-                     feats_context=feats_context, desc=desc,
-                     desc_set_padded=desc_set_padded,
-                     desc_set_mask=desc_set_mask),
-                make_batch, full=False)
-        rows = tr.rows(idx.shape[1])
-        idx = tr.tensor(idx[:, rows], torch.long)
-        out = []
-        for i in range(idx.shape[0]):
-            data, ctx = gather_batch(feats, idx[i], feats_context,
-                                     transform, context_fn)
-            out.append(_scan_row(tr.step(
-                opt_states, data, targets[idx[i]].long(), desc,
-                int(step0) + i, rows=rows, data_context=ctx,
-                desc_set_padded=desc_set_padded,
-                desc_set_mask=desc_set_mask)))
-        return _scan_metrics(out)
-
-    return chunk
+    :func:`make_train_step`'s: a chunk's plan (from the host) and key
+    reach the device in one copy, captured each step is one replay, and
+    the metrics are copied out once a chunk."""
+    return make_indexed_train_steps(
+        modules, top_k, batch_denom, fast, seed=seed, uniforms=uniforms,
+        device=device, transform=transform, context_fn=context_fn,
+        mesh=mesh, tp=tp, graph=graph)[1]
 
 
 # ----------------------------------------------------------------- serving
@@ -1172,101 +1130,60 @@ def _kernel_exchange(cfg: GameConfig, params: Dict[str, torch.Tensor],
         n_steps=n_steps, attn_scores=None)
 
 
-# The float fields of a kernel-route record, packed behind one another
-# with the answer in one buffer of a graph's outputs (bs and br are the
-# same zeros).
-_PACKED = ("stop_masks", "stop_feats", "stop_probs", "sen_feats",
-           "sen_probs", "rec_feats", "rec_probs", "y", "bs")
+def _kernel_conversation(modules: AgentModules, data: torch.Tensor,
+                         desc: torch.Tensor,
+                         corrupt_mask: Optional[torch.Tensor], **_
+                         ) -> ExchangeOutputs:
+    """The kernel route's conversation: the weights packed from the
+    parameters as they are (:func:`kernel_params`), then
+    :func:`_kernel_exchange`. The attention inputs and uniforms, which no
+    config the kernel takes reads, are ignored."""
+    return _kernel_exchange(modules.cfg, kernel_params(modules), data, desc,
+                            corrupt_mask)
 
 
 class _EvalGraph:
-    """The eval conversation on the kernel route for one ``(batch,
-    classes, corrupt mask or none)``: static buffers for the data, the
-    descriptions and the mask, and a body that packs the weights
-    (:func:`kernel_params`, so every replay reads the parameters as they
-    are), launches the eval kernel, finalizes the stop masks and computes
-    the answer (:func:`answer_scores`). It runs eagerly once, then as a
-    captured CUDA graph (:class:`Captured`); its outputs come back as one
-    copied buffer, cut into the record's fields."""
+    """The eval conversation of one call shape: a static buffer for each
+    tensor the call gives (the data, maps under visual attention; the
+    descriptions; the corrupt mask; the ``fc`` context; the word sets; the
+    eval uniforms ``fz``/``fw`` that ``flipout_dev`` consumes) and a body
+    that runs ``conversation`` on them, chosen when the graph is built
+    (:func:`_kernel_conversation` or :func:`exchange`), and computes the
+    answer (:func:`answer_scores`). With ``capture`` it runs eagerly
+    once, then as a captured CUDA graph (:class:`Captured`) that reads the
+    parameters where they lie at every replay; else the body runs on
+    every call. Its float outputs, ``attn_scores`` included, come back as
+    one buffer (copied out of a replay), cut into the record's fields; a
+    field that is another's tensor (the kernel route's ``br``, its
+    ``bs``) is packed once and comes back as the same view."""
 
-    def __init__(self, modules: AgentModules, batch: int,
-                 desc: torch.Tensor, corrupt: bool):
-        cfg, dev = modules.cfg, desc.device
-        self.cfg, self.modules = cfg, modules
-        with torch.inference_mode(False):
-            self.data = torch.empty((batch, cfg.img_feat_dim),
-                                    dtype=torch.float32, device=dev)
-            self.desc = torch.empty_like(desc, dtype=torch.float32)
-            self.corrupt = (torch.empty(cfg.rec_w_dim, dtype=torch.float32,
-                                        device=dev) if corrupt else None)
-        T, W, D = cfg.max_exchange, cfg.rec_w_dim, desc.shape[0]
-        self.shapes = [(T + 1, batch, 1), (T, batch, 1), (T, batch, 1),
-                       (T, batch, W), (T, batch, W), (T, batch, W),
-                       (T, batch, W), (T, batch, D), (T, batch, 1),
-                       (batch, D)]
-        self.run = Captured(self._body, dev, warmup=1,
-                            capture=dev.type == "cuda")
-
-    @torch.no_grad()
-    def _body(self):
-        ex = _kernel_exchange(self.cfg, kernel_params(self.modules),
-                              self.data, self.desc, self.corrupt)
-        dist = answer_scores(self.cfg, ex)
-        return torch.cat([getattr(ex, k).reshape(-1) for k in _PACKED]
-                         + [dist.reshape(-1)]), ex.n_steps
-
-    def __call__(self, data, desc, corrupt_mask
-                 ) -> Tuple[ExchangeOutputs, torch.Tensor]:
-        self.data.copy_(data)
-        self.desc.copy_(desc)
-        if self.corrupt is not None:
-            self.corrupt.copy_(torch.as_tensor(
-                corrupt_mask, dtype=torch.float32).reshape(-1))
-        (flat, n_steps), replayed = self.run()
-        if replayed:
-            flat, n_steps = flat.clone(), n_steps.clone()
-        parts = torch.split(flat, [int(np.prod(s)) for s in self.shapes])
-        fields = {k: p.view(s) for k, p, s in zip(_PACKED, parts,
-                                                  self.shapes)}
-        ex = ExchangeOutputs(**fields, br=fields["bs"], n_steps=n_steps,
-                             attn_scores=None)
-        return ex, parts[-1].view(self.shapes[-1])
-
-
-class _PlainEvalGraph:
-    """The plain eval conversation (:func:`exchange`) for one call shape:
-    a static buffer for each tensor the call gives (the data, maps under
-    visual attention; the descriptions; the corrupt mask; the ``fc``
-    context; the word sets; the eval uniforms ``fz``/``fw`` that
-    ``flipout_dev`` consumes) and a body that runs the conversation on
-    the parameters where they lie and computes the answer
-    (:func:`answer_scores`). It runs eagerly once, then as a captured
-    CUDA graph (:class:`Captured`); its float outputs, ``attn_scores``
-    included, come back as one copied buffer, cut into the record's
-    fields."""
-
-    def __init__(self, modules: AgentModules,
+    def __init__(self, modules: AgentModules, conversation: Callable,
                  inputs: Dict[str, Optional[torch.Tensor]],
-                 uniforms: Dict[str, torch.Tensor]):
+                 uniforms: Dict[str, torch.Tensor], capture: bool):
         dev = inputs["data"].device
         self.cfg, self.modules = modules.cfg, modules
+        self.conversation = conversation
         with torch.inference_mode(False):
-            self.inputs = {k: None if v is None else torch.empty_like(v)
-                           for k, v in inputs.items()}
+            self.inputs = {k: None if v is None else torch.empty(
+                v.shape, dtype=v.dtype, device=dev)
+                for k, v in inputs.items()}
             self.u = {k: torch.empty_like(v) for k, v in uniforms.items()}
-        # (name, shape) of each packed output, in order; the body sets it.
-        self.fields: List[Tuple[str, torch.Size]] = []
-        self.run = Captured(self._body, dev, warmup=1,
-                            capture=dev.type == "cuda")
+        # (name, name of the field packed for it, shape) of each output,
+        # in order; the body sets it.
+        self.fields: List[Tuple[str, str, torch.Size]] = []
+        self.run = Captured(self._body, dev, warmup=1, capture=capture)
 
     @torch.no_grad()
     def _body(self):
-        ex = exchange(self.modules, **self.inputs, uniforms=self.u)
+        ex = self.conversation(self.modules, **self.inputs, uniforms=self.u)
         out = {k: v for k, v in ex._asdict().items()
                if k != "n_steps" and v is not None}
         out["answer"] = answer_scores(self.cfg, ex)
-        self.fields = [(k, v.shape) for k, v in out.items()]
-        return torch.cat([v.reshape(-1) for v in out.values()]), ex.n_steps
+        first: Dict[int, str] = {}
+        self.fields = [(k, first.setdefault(id(v), k), v.shape)
+                       for k, v in out.items()]
+        packed = [v.reshape(-1) for k, v in out.items() if first[id(v)] == k]
+        return torch.cat(packed), ex.n_steps
 
     def __call__(self, inputs, uniforms
                  ) -> Tuple[ExchangeOutputs, torch.Tensor]:
@@ -1278,8 +1195,11 @@ class _PlainEvalGraph:
         (flat, n_steps), replayed = self.run()
         if replayed:
             flat, n_steps = flat.clone(), n_steps.clone()
-        parts = torch.split(flat, [s.numel() for _, s in self.fields])
-        out = {k: p.view(s) for (k, s), p in zip(self.fields, parts)}
+        parts = iter(torch.split(flat, [s.numel() for k, src, s in
+                                        self.fields if src == k]))
+        out = {}
+        for k, src, s in self.fields:
+            out[k] = next(parts).view(s) if src == k else out[src]
         dist = out.pop("answer")
         ex = ExchangeOutputs(**{f: out.get(f) for f in ExchangeOutputs._fields
                                 if f != "n_steps"}, n_steps=n_steps)
@@ -1299,36 +1219,28 @@ def make_eval_exchange(modules: AgentModules, use_kernel: bool = True,
     (a config the kernel supports, at a batch and class count that a
     launch plan fits; asked on every call, since the batch varies) goes
     through :func:`fused_eval_exchange`: the CUDA kernel for CUDA tensors,
-    its plain version for CPU ones. On CUDA tensors (``graph`` None; True
-    or False to choose) each ``(batch, classes)`` runs as one captured
-    CUDA graph of the weight pack, the kernel, the stop masks and the
-    answer (:class:`_EvalGraph`), as the JAX package runs one compiled
-    program per call (game/train.py:545-580); the record comes back
-    copied out of the graph. Off the graph, the kernel-layout weights are
-    rebuilt only when a parameter is replaced or changed in place, or the
-    modules' ``generation`` advances (a graph-replayed trainer's updates
-    bump no version).
-
-    The calls the kernel refuses (attention, ``mou``, ``flipout_dev``
-    with flipout, sizes that no launch plan fits) run the plain
-    :func:`exchange`, with the attention inputs and, under
+    its plain version for CPU ones, on the weights packed from the
+    parameters at every call. The calls the kernel refuses (attention,
+    ``mou``, ``flipout_dev`` with flipout, sizes that no launch plan fits)
+    run the plain :func:`exchange`, with the attention inputs and, under
     ``flipout_dev``, the ``fz``/``fw`` uniforms
     (``ops/philox.py:philox_eval_uniforms``; other keys of the dict are
-    not read). On CUDA tensors (``graph`` as above) each call shape (the
-    shapes of the data, the descriptions, the mask, the context, the word
-    sets and the uniforms) runs as one captured CUDA graph of the
-    conversation and its answer (:class:`_PlainEvalGraph`), which reads
-    the parameters where they lie; the CPU, or ``graph=False``, runs it
-    eagerly. On either route a graph is built again when a parameter is
-    replaced (its ``data_ptr`` changes).
+    not read).
 
-    ``run.routes`` counts the calls by route: ``kernel_graph``,
-    ``plain_graph`` and ``eager`` (either conversation off the graph).
+    Either conversation and its answer run as one :class:`_EvalGraph` a
+    call shape (the route and the shapes of the data, the descriptions,
+    the mask, the context, the word sets and the uniforms), built again
+    when a parameter is replaced (its ``data_ptr`` changes). On CUDA
+    tensors (``graph`` None or True) it is captured, as the JAX package
+    runs one compiled program per call (game/train.py:545-580), and the
+    record comes back copied out of the graph; on the CPU, or with
+    ``graph=False``, its body runs as it is.
+
+    ``run.routes`` counts the calls: ``kernel_graph`` and ``plain_graph``
+    captured, ``eager`` (either conversation) not.
     """
     cfg = modules.cfg
-    packed = {"key": None, "params": None}
     graphs: Dict[tuple, Tuple[tuple, _EvalGraph]] = {}
-    plain_graphs: Dict[tuple, Tuple[tuple, _PlainEvalGraph]] = {}
     routes = {"kernel_graph": 0, "plain_graph": 0, "eager": 0}
 
     def run(data: torch.Tensor, desc: torch.Tensor,
@@ -1338,51 +1250,31 @@ def make_eval_exchange(modules: AgentModules, use_kernel: bool = True,
             desc_set_mask: Optional[torch.Tensor] = None,
             uniforms: Optional[Dict[str, torch.Tensor]] = None,
             answer: bool = False):
-        on_graph = (data.device.type == "cuda") if graph is None else graph
-        if not (use_kernel and eval_kernel_supports(cfg, data.shape[0],
-                                                    desc.shape[0])):
-            if not on_graph:
-                routes["eager"] += 1
-                ex = exchange(modules, data, desc, corrupt_mask=corrupt_mask,
-                              uniforms=uniforms, data_context=data_context,
-                              desc_set_padded=desc_set_padded,
-                              desc_set_mask=desc_set_mask)
-                return (ex, answer_scores(cfg, ex)) if answer else ex
-            inputs = {"data": data, "desc": desc,
-                      "corrupt_mask": corrupt_mask,
-                      "data_context": data_context,
-                      "desc_set_padded": desc_set_padded,
-                      "desc_set_mask": desc_set_mask}
-            u = {k: uniforms[k] for k in needed_uniforms(cfg, False,
-                                                         uniforms)}
-            shape = tuple((k, None if v is None else (v.shape, v.dtype))
-                          for k, v in {**inputs, **u}.items())
-            ptrs = tuple(p.data_ptr() for p in modules.parameters())
-            known = plain_graphs.get(shape)
-            if known is None or known[0] != ptrs:
-                known = plain_graphs[shape] = (ptrs, _PlainEvalGraph(
-                    modules, inputs, u))
-            routes["plain_graph"] += 1
-            ex, dist = known[1](inputs, u)
-            return (ex, dist) if answer else ex
-        if on_graph:
-            shape = (data.shape[0], desc.shape[0], corrupt_mask is not None)
-            ptrs = tuple(p.data_ptr() for p in modules.parameters())
-            known = graphs.get(shape)
-            if known is None or known[0] != ptrs:
-                known = graphs[shape] = (ptrs, _EvalGraph(
-                    modules, data.shape[0], desc, corrupt_mask is not None))
+        capture = data.device.type == "cuda" and graph is not False
+        kernel = use_kernel and eval_kernel_supports(cfg, data.shape[0],
+                                                     desc.shape[0])
+        inputs = {"data": data, "desc": desc, "corrupt_mask": corrupt_mask,
+                  "data_context": data_context,
+                  "desc_set_padded": desc_set_padded,
+                  "desc_set_mask": desc_set_mask}
+        u = {k: uniforms[k] for k in needed_uniforms(cfg, False, uniforms)}
+        shape = (kernel,) + tuple(
+            (k, None if v is None else (v.shape, v.dtype))
+            for k, v in {**inputs, **u}.items())
+        ptrs = tuple(p.data_ptr() for p in modules.parameters())
+        known = graphs.get(shape)
+        if known is None or known[0] != ptrs:
+            known = graphs[shape] = (ptrs, _EvalGraph(
+                modules, _kernel_conversation if kernel else exchange,
+                inputs, u, capture))
+        if not capture:
+            routes["eager"] += 1
+        elif kernel:
             routes["kernel_graph"] += 1
-            ex, dist = known[1](data, desc, corrupt_mask)
-            return (ex, dist) if answer else ex
-        routes["eager"] += 1
-        key = (modules.generation,) + tuple(
-            (p.data_ptr(), p._version) for p in modules.parameters())
-        if packed["key"] != key:
-            packed["key"], packed["params"] = key, kernel_params(modules)
-        ex = _kernel_exchange(cfg, packed["params"], data, desc,
-                              corrupt_mask)
-        return (ex, answer_scores(cfg, ex)) if answer else ex
+        else:
+            routes["plain_graph"] += 1
+        ex, dist = known[1](inputs, u)
+        return (ex, dist) if answer else ex
 
     run.routes = routes
     return run

@@ -38,20 +38,21 @@ wait (``TORCH_NCCL_BLOCKING_WAIT``) must stay off: its host-side wait
 inside a capture would fail it. Gloo's collectives run on the host and
 cannot be captured.
 
-On the CPU (``capture`` False) every call runs the body as it is, on the
-same static buffers: the tests' way to hold the body that a graph
-captures against the eager step.
+With ``capture`` False (the CPU; a card's uncaptured route: ranks of a
+gloo mesh, ``graph=False``) every call runs the body as it is, on the
+same static buffers: one body serves both routes, and on a card the
+uncaptured run is the tests' reference for the replays.
 
 The graphs of the port: each trainer's step or chunk
 (``game/train.py:_StepGraph``) and a population's
-(``parallel/population.py``); the eval conversation of each call shape,
-on the kernel route (``game/train.py:_EvalGraph``) and on the plain
-route that attention, ``mou`` and ``flipout_dev`` take
-(``_PlainEvalGraph``), and a population's dev batch
-(``_PopulationEvalGraph``). Besides these, the served image tower
-(``models/resnet.py:PixelTower``) runs as one graph a batch size: its
-body counts its runs and images through ``counters``, and the global
-precision flags it sets while it is captured stay in the graph.
+(``parallel/population.py``); the eval conversation of each call shape
+(``game/train.py:_EvalGraph``, whose body is the kernel route's or the
+plain conversation that attention, ``mou`` and ``flipout_dev`` take),
+and a population's dev batch (``_PopulationEvalGraph``). Besides these,
+the served image tower (``models/resnet.py:PixelTower``) runs as one
+graph a batch size: its body counts its runs and images through
+``counters``, and the global precision flags it sets while it is
+captured stay in the graph.
 """
 
 from __future__ import annotations

@@ -12,24 +12,25 @@ A CUDA graph needs a card, so here each piece runs uncaptured:
   ``make_multistep_train_step_indexed`` at K = 3 in float64 (~1e-9, as
   tests/test_torch_multistep.py holds the staged chunk), and bit for bit
   against the int count's update;
-* the body that a graph captures (``graph=True`` on the CPU runs it on
-  the same static buffers and device counter) equals today's eager chunk
-  bit for bit at K = 4, then a second chunk and a full-metrics step,
-  for RMSprop and Adam with the kernel sampler (its plain version), the
+* the step body that a graph captures (on the CPU it runs uncaptured,
+  on the same static buffers and device counter): a chunk of K = 4, a
+  second chunk and a full-metrics step equal the same seven updates
+  taken one at a time through the one-step factories bit for bit, for
+  RMSprop and Adam with the kernel sampler (its plain version), the
   plain sampler and the plain exchange;
 * ``step_route``: a CUDA device alone or on an NCCL mesh or grid gives
   "graph", the CPU and a gloo mesh or grid "eager", decided without a
   card; ``graph=True`` with a gloo mesh on a card is refused before the
   device is touched, and taken on the CPU; the driver logs
-  ``Step: eager`` (tests/test_torch_mesh_graph.py holds the body on a
-  mesh);
-* the eval conversation's packed weights follow a change that bumped no
-  version once the modules' ``generation`` advances, and its graph body
-  equals the eager conversation; the plain route's graph body (visual
-  attention with the ``fc`` context, description attention, ``mou``,
-  ``flipout_dev``) equals the eager :func:`exchange` bit for bit, is
-  built again when a parameter is replaced, and a dev sweep on it equals
-  the eager sweep;
+  ``Step: eager`` and takes its full steps and its chunks from one
+  trainer (tests/test_torch_mesh_graph.py holds the body on a mesh);
+* the eval conversation's body reads the weights as they are after an
+  update that bumped no version (as a graph replay's does), and equals
+  the kernel route's conversation called directly; the plain route's
+  body (visual attention with the ``fc`` context, description attention,
+  ``mou``, ``flipout_dev``) equals :func:`exchange` called directly bit
+  for bit, is built again when a parameter is replaced, and a dev sweep
+  on it equals the sweep over :func:`exchange` called directly;
 * a ``.pt`` of the tensor count, read back by JAX's
   ``load_reference_checkpoint`` and by the port, in place.
 """
@@ -58,8 +59,8 @@ from multimodalgame_tpu_torch.game.config import GameConfig
 from multimodalgame_tpu_torch.game.exchange import exchange
 from multimodalgame_tpu_torch.game.fast_eval import eval_dev_device
 from multimodalgame_tpu_torch.game.train import (
-    _flat_view, answer_scores, flat_order, init_opt_states,
-    make_eval_exchange,
+    ScanMetrics, _flat_view, _kernel_exchange, answer_scores, flat_order,
+    init_opt_states, make_eval_exchange,
     make_multistep_train_step, make_multistep_train_step_indexed,
     make_train_step, make_train_step_indexed, optimizer_update, step_route)
 from multimodalgame_tpu_torch.ops import cuda_exchange
@@ -274,28 +275,46 @@ def test_adam_tensor_count_matches_jax_indexed_chunk(preset, graph):
 
 # ------------------------------------------------------ the captured body
 
-def _run(optim, fast, graph, staged=False):
-    """Two chunks (K and 2 steps) and a full-metrics step on the same
-    agents, from the same seed; the metrics, weights and slots."""
+def _run(optim, fast, staged, one_at_a_time):
+    """Two chunks (K steps from step 5, 2 from step 9) and a full-metrics
+    step (step 11) on the same agents, from the same seed; with
+    ``one_at_a_time`` the chunks' updates each through the one-step
+    factory instead. The metrics, weights and slots."""
     feats, targets, desc, idx = (torch.from_numpy(a) if i < 3 else a
                                  for i, a in enumerate(_indexed_data(3)))
     cfg = GameConfig(**{**BASE, "optim_type": optim})
     mods = init_params(AgentModules(cfg), seed=1).double()
     opts = init_opt_states(cfg, mods)
-    kw = dict(fast=fast, seed=9, device="cpu", graph=graph)
+    kw = dict(fast=fast, seed=9, device="cpu")
     if staged:
-        chunk = make_multistep_train_step(mods, TOP_K, BATCH, **kw)
         plan = torch.from_numpy(idx)
-        first = chunk(opts, feats[plan], targets[plan], desc, 5)
-        second = chunk(opts, feats[plan[:2]], targets[plan[:2]], desc, 9)
-        full = make_train_step(mods, TOP_K, BATCH, **kw)(
-            opts, feats[plan[3]], targets[plan[3]], desc, 11)
+        chunk = make_multistep_train_step(mods, TOP_K, BATCH, **kw)
+        step = make_train_step(mods, TOP_K, BATCH, **kw)
+
+        def run_chunk(rows, s):
+            return chunk(opts, feats[plan[rows]], targets[plan[rows]], desc,
+                         s)
+
+        def run_step(row, s):
+            return step(opts, feats[plan[row]], targets[plan[row]], desc, s)
     else:
         chunk = make_multistep_train_step_indexed(mods, TOP_K, BATCH, **kw)
-        first = chunk(opts, feats, targets, idx, desc, 5)
-        second = chunk(opts, feats, targets, idx[:2], desc, 9)
-        full = make_train_step_indexed(mods, TOP_K, BATCH, **kw)(
-            opts, feats, targets, idx[3], desc, 11)
+        step = make_train_step_indexed(mods, TOP_K, BATCH, **kw)
+
+        def run_chunk(rows, s):
+            return chunk(opts, feats, targets, idx[rows], desc, s)
+
+        def run_step(row, s):
+            return step(opts, feats, targets, idx[row], desc, s)
+
+    def one_by_one(rows, s):
+        ms = [run_step(r, s + i) for i, r in enumerate(range(K)[rows])]
+        return ScanMetrics(*(torch.stack([getattr(m, f) for m in ms])
+                             for f in ScanMetrics._fields))
+    run = one_by_one if one_at_a_time else run_chunk
+    first = run(slice(0, K), 5)
+    second = run(slice(0, 2), 9)
+    full = run_step(3, 11)
     return dict(first=first, second=second, full=full, mods=mods, opts=opts)
 
 
@@ -305,30 +324,31 @@ def _run(optim, fast, graph, staged=False):
                               "plain_exchange"])
 @pytest.mark.parametrize("optim", ["RMSprop", "Adam"])
 def test_graph_body_equals_eager_chunk(optim, fast, staged):
-    eager = _run(optim, fast, graph=False, staged=staged)
-    body = _run(optim, fast, graph=True, staged=staged)
+    """The chunks' body against the same updates taken one at a time:
+    every step's scalars, the full step's metrics and record, the
+    weights, the slots and Adam's count, bit for bit."""
+    single = _run(optim, fast, staged, one_at_a_time=True)
+    body = _run(optim, fast, staged, one_at_a_time=False)
     for part in ("first", "second"):
-        for f in eager[part]._fields:
-            assert torch.equal(getattr(eager[part], f),
-                               getattr(body[part], f)), (part, f)
-    assert eager["first"].loss_rec.shape == (K,)
+        for f in single[part]._fields:
+            a, b = getattr(single[part], f), getattr(body[part], f)
+            assert torch.equal(a.to(b.dtype), b), (part, f)
+    assert body["first"].loss_rec.shape == (K,)
     for f in ("loss_rec", "loss_sen", "accuracy", "dist", "argmax"):
-        assert torch.equal(getattr(eager["full"], f),
+        assert torch.equal(getattr(single["full"], f),
                            getattr(body["full"], f)), f
-    assert torch.equal(eager["full"].exchange.sen_feats,
+    assert torch.equal(single["full"].exchange.sen_feats,
                        body["full"].exchange.sen_feats)
-    for (k, p), q in zip(eager["mods"].named_parameters(),
+    for (k, p), q in zip(single["mods"].named_parameters(),
                          body["mods"].parameters()):
         assert torch.equal(p, q), k
     for agent in AGENT_NAMES:
-        a, b = eager["opts"][agent], body["opts"][agent]
+        a, b = single["opts"][agent], body["opts"][agent]
         for slot in ("mu", "nu"):
             for x, y in zip(a.get(slot, []), b.get(slot, [])):
                 assert torch.equal(x, y), (agent, slot)
         if optim == "Adam":
             assert int(a["count"]) == int(b["count"]) == K + 3
-    # Graph-routed chunks advance the generation the eval cache keys on.
-    assert body["mods"].generation == 3
 
 
 # ------------------------------------------------------------------- route
@@ -376,6 +396,27 @@ def test_driver_logs_eager_route_on_the_cpu(synthetic_dataset, tmp_path):
     assert "Step: eager" in log and "Step: graph" not in log
 
 
+def test_run_fast_builds_one_trainer(synthetic_dataset, tmp_path,
+                                     monkeypatch):
+    """The driver's log-boundary steps and its chunks come from one
+    trainer, which holds one step body of each kind."""
+    from multimodalgame_tpu_torch.train import run
+    built = []
+
+    class Counted(game_train._Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    monkeypatch.setattr(game_train, "_Trainer", Counted)
+    flags = port_flags(small_argv(synthetic_dataset, tmp_path, "one"))
+    out = run(flags, max_steps=3, device="cpu")
+    assert out["step"] == 3
+    assert len(built) == 1
+    assert sorted(key[:2] for key in built[0]._graphs) == [
+        ("indexed", False), ("indexed", True)]
+
+
 # -------------------------------------------------------------------- eval
 
 def _eval_inputs(cfg, batch=7):
@@ -387,13 +428,14 @@ def _eval_inputs(cfg, batch=7):
 
 def test_eval_cache_follows_generation():
     """A change through the flat buffer bumps no parameter's version (as
-    a graph replay's update does not): the eval conversation sees it once
-    the modules' generation advances."""
+    a graph replay's update does not): the next eval conversation, on
+    the same body, reads the new weights, as the kernel route called
+    directly on them does."""
     cfg = GameConfig(**BASE)
     mods = init_params(AgentModules(cfg), seed=1)
     data, desc = _eval_inputs(cfg)
     opts = init_opt_states(cfg, mods)
-    # Lay the carry out flat with one eager step.
+    # Lay the carry out flat with one step.
     make_train_step(mods, TOP_K, BATCH, fast="kernel", device="cpu")(
         opts, data[:BATCH].double().numpy(), np.arange(BATCH) % NUM_CLASSES,
         desc, 0)
@@ -404,36 +446,38 @@ def test_eval_cache_follows_generation():
     with torch.no_grad():
         _flat_view(params, flat_order(params)).add_(0.5)
     assert [p._version for p in params] == versions
-    fresh = make_eval_exchange(mods)(data, desc)
-    assert not torch.equal(fresh.y, before.y)
-    # Without the generation the cache keeps (some of) the old weights.
-    assert not torch.equal(run(data, desc).y, fresh.y)
-    mods.generation += 1
     got = run(data, desc)
-    for a, b in zip(got, fresh):
-        assert a is None or torch.equal(a, b)
+    assert not torch.equal(got.y, before.y)
+    want = _kernel_exchange(cfg, kernel_params(mods), data, desc, None)
+    for f in want._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
+    assert run.routes == {"kernel_graph": 0, "plain_graph": 0, "eager": 2}
 
 
 @pytest.mark.parametrize("fixed", [False, True], ids=["adaptive", "fixed"])
 def test_eval_graph_body_equals_eager(fixed):
-    """The body an eval graph captures (uncaptured here, twice, with a
-    corrupt mask and without) against the eager kernel route, and the
-    answer against ``answer_scores`` of the eager record."""
-    from multimodalgame_tpu_torch.game.train import answer_scores
+    """The body an eval graph captures (uncaptured here, with a corrupt
+    mask and without, each shape twice) against the kernel route's
+    conversation called directly, and the answer against
+    ``answer_scores`` of that record."""
     cfg = GameConfig(**BASE, fixed_exchange=fixed)
     mods = init_params(AgentModules(cfg), seed=1)
     data, desc = _eval_inputs(cfg)
     mask = torch.zeros(cfg.rec_w_dim)
     mask[:3] = 1
-    eager, body = make_eval_exchange(mods), make_eval_exchange(mods,
-                                                               graph=True)
-    for corrupt in (None, mask, None):
-        want = eager(data, desc, corrupt)
+    body = make_eval_exchange(mods, graph=True)
+    for corrupt in (None, mask, None, mask):
+        want = _kernel_exchange(cfg, kernel_params(mods), data, desc,
+                                corrupt)
         got, dist = body(data, desc, corrupt, answer=True)
         for f in want._fields:
             a, b = getattr(want, f), getattr(got, f)
             assert (a is None and b is None) or torch.equal(a, b), f
         assert torch.equal(dist, answer_scores(cfg, want))
+        # The baselines' zeros come back packed once.
+        assert got.br is got.bs
+    assert body.routes == {"kernel_graph": 0, "plain_graph": 0, "eager": 4}
 
 
 # The calls the eval kernel refuses, at the tests' widths: the
@@ -488,30 +532,27 @@ def _plain_inputs(cfg, batch, seed=4):
 @pytest.mark.parametrize("variant", list(PLAIN))
 def test_plain_eval_graph_body_equals_eager(variant, batch):
     """The body a plain-route eval graph captures (uncaptured here; with
-    a corrupt mask and without, each shape twice) against the eager
-    :func:`exchange` bit for bit, ``attn_scores`` included, and the answer
-    against ``answer_scores``; the calls counted by route."""
+    a corrupt mask and without, each shape twice) against
+    :func:`exchange` called directly, bit for bit, ``attn_scores``
+    included, and the answer against ``answer_scores``; the calls counted
+    by route."""
     cfg, mods = _plain_case(variant)
     kw = _plain_inputs(cfg, batch)
     data, desc = kw.pop("data"), kw.pop("desc")
     mask = torch.zeros(cfg.rec_w_dim)
     mask[:3] = 1
-    eager = make_eval_exchange(mods, graph=False)
     body = make_eval_exchange(mods, graph=True)
     for corrupt in (None, mask, None, mask):
         with torch.no_grad():
             want = exchange(mods, data, desc, corrupt, **kw)
         got, dist = body(data, desc, corrupt, answer=True, **kw)
-        off = eager(data, desc, corrupt, **kw)
         for f in want._fields:
-            a, b, c = getattr(want, f), getattr(got, f), getattr(off, f)
-            assert (a is None and b is None and c is None) or (
-                torch.equal(a, b) and torch.equal(a, c)), f
+            a, b = getattr(want, f), getattr(got, f)
+            assert (a is None and b is None) or torch.equal(a, b), f
         assert torch.equal(dist, answer_scores(cfg, want))
     assert (want.attn_scores is not None) == cfg.visual_attn
     assert int(want.n_steps) > 1
-    assert body.routes == {"kernel_graph": 0, "plain_graph": 4, "eager": 0}
-    assert eager.routes == {"kernel_graph": 0, "plain_graph": 0, "eager": 4}
+    assert body.routes == {"kernel_graph": 0, "plain_graph": 0, "eager": 4}
 
 
 def test_plain_eval_graph_follows_the_parameters(monkeypatch):
@@ -521,12 +562,12 @@ def test_plain_eval_graph_follows_the_parameters(monkeypatch):
     ``flipout_dev`` are refused as the eager conversation refuses them."""
     built = []
 
-    class Counted(game_train._PlainEvalGraph):
+    class Counted(game_train._EvalGraph):
         def __init__(self, *args):
             built.append(1)
             super().__init__(*args)
 
-    monkeypatch.setattr(game_train, "_PlainEvalGraph", Counted)
+    monkeypatch.setattr(game_train, "_EvalGraph", Counted)
     cfg, mods = _plain_case("visual_attn_context")
     kw = _plain_inputs(cfg, 9)
     run = make_eval_exchange(mods, graph=True)
@@ -543,7 +584,7 @@ def test_plain_eval_graph_follows_the_parameters(monkeypatch):
     assert len(built) == 2
     for a, b in zip(again, before):
         assert a is None or torch.equal(a, b)
-    assert run.routes["plain_graph"] == 3
+    assert run.routes["eager"] == 3
     cfg, mods = _plain_case("flipout_dev")
     kw = _plain_inputs(cfg, 9)
     with pytest.raises(ValueError, match="needs the uniforms"):
@@ -553,8 +594,9 @@ def test_plain_eval_graph_follows_the_parameters(monkeypatch):
 def test_attention_dev_sweep_on_the_graph_body_equals_eager():
     """``eval_dev_device`` on the AdaptiveAttention preset's switches
     (maps, the fc context), batches of 100 and a ragged tail of 37: the
-    graph route's body gives the eager sweep's accuracy, statistics, true
-    labels and predictions, one graph call a batch."""
+    eval conversation's body gives the accuracy, statistics, true labels
+    and predictions of the sweep over :func:`exchange` called directly,
+    one body call a batch."""
     cfg, mods = _plain_case("visual_attn_context")
     rng = np.random.RandomState(6)
     n = 237
@@ -565,17 +607,18 @@ def test_attention_dev_sweep_on_the_graph_body_equals_eager():
         device="cpu")
     desc = torch.from_numpy(rng.randn(NUM_CLASSES, cfg.wv_dim).astype(
         np.float32))
-    got = {}
-    for graph in (False, True):
-        run = make_eval_exchange(mods, graph=graph)
-        got[graph] = eval_dev_device(mods, run, ds, 0, False, 100, TOP_K,
-                                     desc)
-        assert run.routes["plain_graph" if graph else "eager"] == 3
-    assert got[True][0] == got[False][0]
-    assert got[True][1] == got[False][1]
-    np.testing.assert_array_equal(got[True][2], got[False][2])
-    np.testing.assert_array_equal(got[True][3], got[False][3])
-    assert got[False][1]["conversation_lengths_mean"] > 1
+
+    def direct(data, desc, corrupt_mask=None, **kw):
+        return exchange(mods, data, desc, corrupt_mask, **kw)
+    run = make_eval_exchange(mods, graph=True)
+    got = eval_dev_device(mods, run, ds, 0, False, 100, TOP_K, desc)
+    want = eval_dev_device(mods, direct, ds, 0, False, 100, TOP_K, desc)
+    assert run.routes["eager"] == 3
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[3], want[3])
+    assert want[1]["conversation_lengths_mean"] > 1
 
 
 # -------------------------------------------------------------- checkpoint
