@@ -296,8 +296,22 @@ result line):
              eagerly beside it, for the Adaptive game (phase A in the
              train kernel, whose device time over the replayed step is
              ``phase_a_share``) and for the AdaptiveAttention game of
-             phase 8 (phase A on the plain conversation).
+             phase 8 (phase A on the plain conversation);
+23. tower — (run after phase 11) the served ResNet-34 tower's three
+             kernels (``csrc/tower_epilogue.cu``) at the pixel cell's
+             shapes (batch 100, 227 x 227: the crops, conv1's 114 x 114
+             planes, the stages' 57/29/15/8 planes) against their plain
+             versions, normalisation and the stem bit for bit, the block
+             epilogue within one unit in the last place with and without
+             each shortcut and the ReLU; the captured ``PixelTower``
+             replayed with the wrappers' launches counted from 0 (1, 1
+             and 32 a run, ``fused_runs`` equal to ``runs``), held against
+             the plain forward, its profile free of PyTorch elementwise
+             and pooling kernels; each kernel's ms, device ms, plain ms
+             and bytes bound, which join the ``kernels`` line.
 
+``python3 chip_smoke.py --tower`` runs only the probe, the build and
+phase 23, and prints its ``kernels`` line and the result line.
 ``python3 chip_smoke.py --mesh`` runs only the build, the serve and driver
 phases and phases 17-21 (no result line); ``--ckpt`` only the build and
 phases 7 and 7a; ``--ckpt-orbax`` only the build and phase 7b;
@@ -495,6 +509,13 @@ BIG_ARGV = ["-sender_out_dim", "128", "-rec_w_dim", "128", "-img_h_dim",
             "256", "-experiment_name", "big"]
 BIG_CLASSES, BIG_BATCH, BIG_TRAIN_PER_CLASS, BIG_STEPS = 1000, 256, 6, 20
 EXTRACT_IMAGES = 64
+# The tower phase: the pixel cell's requests (BENCHMARK.json,
+# resnet34_adaptive.serve_pixels), batch 100 of 227 x 227 crops served to
+# avgpool_512, replayed TOWER_REPLAYS times with the launches counted.
+TOWER_BATCH, TOWER_SIZE, TOWER_TAP, TOWER_REPLAYS = 100, 227, "avgpool_512", 3
+# The captured tower against the plain forward (each float32 within 1e-5
+# of float64 in the tests, so 2e-5 apart at most), norm-wise.
+TOWER_TOL = 2e-5
 WORDS = (3, 12)             # words in a class's set, least and most
 # Random weights stop every conversation after turn 0; this bias on the
 # stop unit makes them run 5-7 of the 10 turns, so the served answers
@@ -4398,6 +4419,203 @@ def times_only(out: str = None, other: str = None) -> int:
     return 0
 
 
+def tower_epilogues(batch: int, size: int):
+    """The tower's block epilogues in launch order, ``(shape, shortcut)``:
+    each block's first convolution without a shortcut, its second with
+    the block's input (``"input"``) or the downsample's output and bias
+    (``"downsample"``)."""
+    from multimodalgame_tpu_torch.models.resnet import STAGES
+    side = ((size - 1) // 2) // 2 + 1       # conv1 (7x7/2), the max pool
+    c_in, out = 64, []
+    for blocks, c, stride in STAGES:
+        for b in range(blocks):
+            s = stride if b == 0 else 1
+            side = (side - 1) // s + 1
+            down = b == 0 and (s != 1 or c_in != c)
+            out += [((batch, c, side, side), None),
+                    ((batch, c, side, side),
+                     "downsample" if down else "input")]
+            c_in = c
+    return out
+
+
+def float32_ulps(a, b) -> int:
+    """The largest distance between ``a`` and ``b`` in units in the last
+    place (float32 bit patterns on one ordered integer line)."""
+    import torch
+
+    def line(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((line(a) - line(b)).abs().max())
+
+
+def check_tower(device, smi) -> dict:
+    """Phase 23: the served ResNet-34 tower's three kernels
+    (``ops/cuda_tower.py``, ``csrc/tower_epilogue.cu``) at the pixel
+    cell's shapes, held against their plain versions: normalisation and
+    the stem bit for bit, the block epilogue within one unit in the last
+    place at each stage's planes, with and without a shortcut and the
+    downsample's bias, with and without the ReLU; then the captured tower
+    (``PixelTower``, random weights) replayed TOWER_REPLAYS times with the
+    wrappers' launches set to 0 first, which have to read 1, 1 and 32 a
+    run, ``fused_runs`` equal to ``runs``, its output within TOWER_TOL of
+    the plain forward, and a replay's profile free of PyTorch
+    elementwise and pooling kernels. Each kernel is timed at the cell's
+    shapes (the block epilogue as the 32 launches of a request, summed)
+    with its plain version and its bound, bytes over PEAK_BYTES."""
+    import torch
+    import torch.nn.functional as F
+    from multimodalgame_tpu_torch.models.resnet import (
+        PixelTower, random_params, resnet34_features)
+    from multimodalgame_tpu_torch.ops import cuda_tower as ct
+    B, S = TOWER_BATCH, TOWER_SIZE
+    gen = torch.Generator(device=device).manual_seed(24)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def fail(what):
+        raise SystemExit(f"tower: {what}")
+
+    px = torch.randint(0, 256, (B, 3, S, S), generator=gen,
+                       dtype=torch.uint8, device=device)
+    every = torch.arange(256, dtype=torch.uint8, device=device)
+    for x in (px, every):
+        if not torch.equal(ct.normalize_pixels(x),
+                           ct.normalize_pixels_reference(x)):
+            fail(f"normalize_pixels parts from its plain version at "
+                 f"{tuple(x.shape)}")
+    side = (S - 1) // 2 + 1
+    y = randn(B, 64, side, side)
+    y[:, :8] = torch.round(y[:, :8] * 2) / 2          # ties
+    bias = randn(64)
+    got = ct.stem(y, bias)
+    if not (torch.equal(got, ct.stem_reference(y, bias))
+            and torch.equal(got, F.max_pool2d(
+                torch.relu(y + bias.view(1, -1, 1, 1)), 3, 2, 1))):
+        fail(f"stem parts from its plain version at {tuple(y.shape)}")
+    log({"phase": "tower", "check": "normalize_and_stem",
+         "normalize_shape": list(px.shape), "stem_shape": list(y.shape),
+         "bit_equal": True})
+    launches = tower_epilogues(B, S)
+    worst = 0
+    for shape in sorted({shape for shape, _ in launches}, reverse=True):
+        for shortcut in (None, "input", "downsample"):
+            for relu in (True, False):
+                y, bias, rbias = randn(*shape), randn(shape[1]), \
+                    randn(shape[1])
+                r = None if shortcut is None else randn(*shape)
+                rb = rbias if shortcut == "downsample" else None
+                want = ct.block_epilogue_reference(y.clone(), bias, r, rb,
+                                                   relu)
+                got = ct.block_epilogue(y, bias, r, rb, relu)
+                ulps = float32_ulps(got, want)
+                worst = max(worst, ulps)
+                if got is not y or ulps > 1:
+                    fail(f"block_epilogue at {shape}, shortcut {shortcut}, "
+                         f"relu {relu}: {ulps} ulps")
+    log({"phase": "tower", "check": "block_epilogue",
+         "shapes": sorted({tuple(s) for s, _ in launches}, reverse=True),
+         "cases": 6 * len({s for s, _ in launches}), "max_ulps": worst})
+
+    params = random_params(0, device)
+    served = PixelTower(params, TOWER_TAP, device)
+    key = served.stage(px.cpu().numpy())
+    served(key)                                 # eager warm-up
+    served(key)                                 # capture, first replay
+    for f in ct.COUNTED:
+        f.launches = 0
+    before = (PixelTower.runs, PixelTower.fused_runs, PixelTower.replays)
+    for _ in range(TOWER_REPLAYS):
+        out = served(key)
+    torch.cuda.synchronize()
+    counts = {f.__name__: f.launches for f in ct.COUNTED}
+    runs, fused_runs, replays = (a - b for a, b in zip(
+        (PixelTower.runs, PixelTower.fused_runs, PixelTower.replays),
+        before))
+    per_run = {"normalize_pixels": 1, "stem": 1,
+               "block_epilogue": len(launches)}
+    if (counts != {k: TOWER_REPLAYS * n for k, n in per_run.items()}
+            or (runs, fused_runs, replays) != (TOWER_REPLAYS,) * 3):
+        fail(f"{TOWER_REPLAYS} replays counted launches {counts}, runs "
+             f"{runs}, fused_runs {fused_runs}, replays {replays}")
+    plain = resnet34_features(params, ct.normalize_pixels_reference(px),
+                              (TOWER_TAP,))[TOWER_TAP]
+    gap = float((out.double() - plain.double()).norm()
+                / plain.double().norm())
+    if not gap < TOWER_TOL:
+        fail(f"the replay parts from the plain forward by {gap}")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        served(key)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    plain_ops = [n for n in names
+                 if "elementwise_kernel" in n or "max_pool" in n]
+    if not names or plain_ops:
+        fail(f"a replay's profile: {len(names)} operations, PyTorch's "
+             f"elementwise or pooling among them: {plain_ops[:3]}")
+    replay_ms = event_median_ms(lambda: served(key))
+    log({"phase": "tower", "check": "replays", "batch": B, "size": S,
+         "tap": TOWER_TAP, "replays": TOWER_REPLAYS, "launches": counts,
+         "runs": runs, "fused_runs": fused_runs,
+         "gap_to_plain_forward": gap, "device_operations_a_replay":
+             len(names), "tower_kernels_a_replay": {
+                 k: sum(k in n for n in names) for k in (
+                     "tower_normalize", "tower_stem", "tower_epilogue")},
+         "replay_ms": replay_ms, "card": smi})
+
+    def timed(fn, plain_fn, nbytes) -> dict:
+        return {"ms": event_median_ms(fn), "device_ms": device_median_ms(fn),
+                "plain_ms": event_median_ms(plain_fn), "bytes": nbytes}
+
+    y, bias = randn(B, 64, side, side), randn(64)
+    pooled = ((side - 1) // 2 + 1) ** 2 * B * 64
+    times = {"normalize_pixels": timed(
+        lambda: ct.normalize_pixels(px),
+        lambda: ct.normalize_pixels_reference(px), px.numel() * 5),
+        "stem": timed(lambda: ct.stem(y, bias),
+                      lambda: ct.stem_reference(y, bias),
+                      4 * (y.numel() + pooled))}
+    total = dict.fromkeys(("ms", "device_ms", "plain_ms", "bytes"), 0)
+    for shape, shortcut in launches:
+        y, bias, rb = randn(*shape), randn(shape[1]), randn(shape[1])
+        r = None if shortcut is None else randn(*shape)
+        rb = rb if shortcut == "downsample" else None
+        row = timed(lambda: ct.block_epilogue(y, bias, r, rb),
+                    lambda: ct.block_epilogue_reference(y, bias, r, rb),
+                    4 * y.numel() * (2 + (r is not None)))
+        total = {k: total[k] + row[k] for k in total}
+    times["block_epilogue"] = total
+    kernel = {"normalize_pixels": "tower_normalize", "stem": "tower_stem",
+              "block_epilogue": "tower_epilogue"}
+    rows = []
+    for name, t in times.items():
+        bound_ms = 1e3 * t["bytes"] / PEAK_BYTES
+        rows.append({
+            "name": kernel[name], "route": "cuda",
+            "source": "multimodalgame_tpu_torch/csrc/tower_epilogue.cu",
+            "wrapper": f"multimodalgame_tpu_torch/ops/cuda_tower.py:{name}",
+            "replaces": "none: XLA fuses these passes into the "
+                        "convolutions",
+            "launches": counts[name], "launches_per_run": per_run[name],
+            "batch": B, "size": S,
+            "max_ulps": worst if name == "block_epilogue" else 0,
+            **t, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / t["device_ms"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "card": smi})
+        log({"phase": "timing", "kernel": kernel[name],
+             **{k: v for k, v in rows[-1].items()
+                if k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "bytes")}, "card": smi})
+    return {"rows": rows, "replay_ms": replay_ms,
+            "device_operations_a_replay": len(names)}
+
+
 def run_new_paths(workdir, smi) -> dict:
     """bfloat16, CIFAR and the population's paths."""
     return {"bf16": drive_bf16("cuda", workdir, smi),
@@ -4433,6 +4651,14 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mesh-cpu"]:
         return mesh_step_cpu()
+    if sys.argv[1:] == ["--tower"]:
+        smi = probe()
+        build()
+        log({"kernels": check_tower("cuda", smi)["rows"]})
+        log({"ok": True, "device": {"platform": "gpu",
+                                    "kind": torch.cuda.get_device_name(0),
+                                    "count": torch.cuda.device_count()}})
+        return 0
     if sys.argv[1:] == ["--graph"]:
         # Only the build, the train kernel's checks (its device-key mode
         # among them) and the graph phase; no result line.
@@ -4500,6 +4726,7 @@ def main() -> int:
     worst = check_kernels("cuda")
     worst_train = check_train_kernels("cuda")
     cifar_kernels = check_cifar_kernels("cuda", smi)
+    tower = check_tower("cuda", smi)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as workdir:
         served = serve_requests("cuda", workdir)
@@ -4680,7 +4907,7 @@ def main() -> int:
         "card": smi,
         **kernel_registers(train=True),
         **layout,
-    }]})
+    }] + tower["rows"]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -13,8 +13,10 @@ state_dict: a pretrained file or :func:`random_state_dict`), NCHW as
 torch computes it, with inference-mode batch norm folded into a scale
 and a shift. Every name of the reference's layer table can be asked for.
 The convolutions are PyTorch's (cuDNN on a card): the JAX package
-computes them outside any Pallas kernel, so no hand-written kernel is
-involved.
+computes them outside any Pallas kernel. This plain forward
+(:func:`resnet34_features`) is what the dataset build
+(``package_data.py``) runs, and the tests' reference for the served one
+below.
 
 **Precision.** The forward computes in float32: on a card it turns
 TF32 off for its convolutions and products (PyTorch lets cuDNN
@@ -27,18 +29,28 @@ captured, and its replays touch no flag.
 **Serving.** :class:`PixelTower` puts the network in front of a game
 (``serve.py:Predictor(tower=...)``): uint8 pixels in, ToTensor +
 Normalize(.5, .5) on the device, the forward to the tap the game reads,
-one captured CUDA graph a batch size on a card.
+one captured CUDA graph a batch size on a card. For every tap from
+``bn1`` on, the tower folds each batch norm into the convolution before
+it once, when it is built (:func:`fold_batch_norms`: the weights scaled,
+the shift a bias), and runs the folded forward: each convolution
+(cuDNN, no bias) followed by one pass of ``ops/cuda_tower.py``, a
+hand-written kernel on a card (the bias, the shortcut and the ReLU; for
+conv1 the max pool too) and its plain version elsewhere. The ``conv1``
+tap reads the value before bn1's scale, which folding moves into the
+weights, and keeps this module's plain forward.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multimodalgame_tpu_torch.ops import cuda_tower
+from multimodalgame_tpu_torch.ops.cuda_tower import normalize_pixels
 from multimodalgame_tpu_torch.utils.cuda_graph import Captured
 
 # torchvision resnet34's stages: (blocks, channels, first stride).
@@ -50,6 +62,9 @@ LAYER_NAMES = (("conv1", "bn1", "relu", "maxpool")
                + tuple(f"layer{i}" for i in range(1, 5))
                + tuple(f"layer4_{b}_relu" for b in range(STAGES[3][0]))
                + ("layer4_2", "avgpool", "avgpool_512", "fc"))
+# The taps the folded forward never holds: conv1's output before its
+# batch norm's scale, which folding moves into the weights.
+PLAIN_TAPS = ("conv1",)
 
 
 # ---------------------------------------------------------------- params
@@ -268,11 +283,97 @@ def resnet34_features(params: Dict, x: torch.Tensor,
         return _collect(params, x, want)
 
 
-def normalize_pixels(pixels: torch.Tensor) -> torch.Tensor:
-    """uint8 pixels ``(B, 3, H, W)`` as the reference's ToTensor +
-    Normalize(.5, .5) leave them (utils/package_data.py:171-178):
-    ``(x / 255 - 0.5) / 0.5``, float32."""
-    return pixels.float().div_(255).sub_(0.5).div_(0.5)
+# -------------------------------------------------------- folded forward
+
+def fold_batch_norms(params: Dict, device: Union[str, torch.device]
+                     ) -> Dict:
+    """:func:`params_from_torch_state`'s parameters with each batch norm
+    folded into the convolution before it, on ``device``, in float32:
+    ``{"weight": W * scale, "bias": shift}`` (the scale per output
+    channel, the bias ``(C,)``) for ``conv1`` and each block's ``conv1``,
+    ``conv2`` and ``down`` (the downsample); ``fc`` as it is."""
+    def fold(weight, bn):
+        scale = bn["scale"].to(device).reshape(-1, 1, 1, 1)
+        return {"weight": weight.to(device) * scale,
+                "bias": bn["shift"].to(device).reshape(-1).contiguous()}
+
+    folded: Dict = {"conv1": fold(params["conv1"], params["bn1"]),
+                    "fc": params_to(params["fc"], device)}
+    for i in range(1, len(STAGES) + 1):
+        layer = []
+        for blk in params[f"layer{i}"]:
+            f = {"conv1": fold(blk["conv1"], blk["bn1"]),
+                 "conv2": fold(blk["conv2"], blk["bn2"])}
+            if "down_conv" in blk:
+                f["down"] = fold(blk["down_conv"], blk["down_bn"])
+            layer.append(f)
+        folded[f"layer{i}"] = layer
+    return folded
+
+
+def folded_forward(params: Dict, x: torch.Tensor, want: Iterable[str]
+                   ) -> Dict[str, torch.Tensor]:
+    """The requested taps (names of :data:`LAYER_NAMES` but
+    :data:`PLAIN_TAPS`) on :func:`fold_batch_norms`' parameters, the
+    forward stopped at the deepest of them, as :func:`_collect` does on
+    the plain ones: each convolution without a bias, then one pass of
+    ``ops/cuda_tower.py`` (a kernel on a card, its plain version
+    elsewhere): conv1's output to the max pool in one, each block
+    convolution's bias, shortcut and ReLU in place in one. ``bn1`` and
+    ``relu`` are conv1's pass without and with the ReLU; ``layer4_2`` is
+    the last block's pass without its ReLU. A tap asked for beside deeper
+    ones is computed out of place, so the passes a single tap needs are
+    the only ones it runs."""
+    want = set(want)
+    unknown = (want - set(LAYER_NAMES)) | (want & set(PLAIN_TAPS))
+    if unknown:
+        raise KeyError(f"the folded forward has no taps {sorted(unknown)}")
+    out: Dict[str, torch.Tensor] = {}
+
+    def done(name: str, value: torch.Tensor) -> bool:
+        if name in want:
+            out[name] = value
+        return len(out) == len(want)
+
+    y = _conv(x, params["conv1"]["weight"], 2)
+    bias = params["conv1"]["bias"]
+    for name, relu in (("bn1", False), ("relu", True)):
+        if name in want:
+            z = y if len(out) + 1 == len(want) else y.clone()
+            if done(name, cuda_tower.block_epilogue(z, bias, relu=relu)):
+                return out
+    x = cuda_tower.stem(y, bias)
+    if done("maxpool", x):
+        return out
+    for i, (blocks, _, stride) in enumerate(STAGES, start=1):
+        for b, blk in enumerate(params[f"layer{i}"]):
+            s = stride if b == 0 else 1
+            h = cuda_tower.block_epilogue(
+                _conv(x, blk["conv1"]["weight"], s), blk["conv1"]["bias"])
+            shortcut, shortcut_bias = x, None
+            if "down" in blk:
+                shortcut = _conv(x, blk["down"]["weight"], s, 0)
+                shortcut_bias = blk["down"]["bias"]
+            pre = i == 4 and b == blocks - 1 and "layer4_2" in want
+            x = cuda_tower.block_epilogue(
+                _conv(h, blk["conv2"]["weight"], 1), blk["conv2"]["bias"],
+                shortcut, shortcut_bias, relu=not pre)
+            if pre:
+                if done("layer4_2", x):
+                    return out
+                x = torch.relu(x)
+            if i == 4 and done(f"layer4_{b}_relu", x):
+                return out
+        if done(f"layer{i}", x):
+            return out
+    x = x.mean(dim=(2, 3), keepdim=True)   # adaptive average pool
+    if done("avgpool", x):
+        return out
+    x = x.reshape(x.shape[0], -1)
+    if done("avgpool_512", x):
+        return out
+    done("fc", x @ params["fc"]["weight"].t() + params["fc"]["bias"])
+    return out
 
 
 class PixelTower:
@@ -281,27 +382,41 @@ class PixelTower:
     to one tap of the layer table, nothing past it. The network is fully
     convolutional up to its pooling, so the crop size is the request's.
 
+    The route follows the tap: from ``bn1`` on, the tower keeps only
+    :func:`fold_batch_norms`' parameters, folded once when it is built,
+    and runs :func:`folded_forward` (on a card, each convolution followed
+    by one kernel, whose library is built here); the ``conv1`` tap keeps
+    the parameters as given and the plain forward.
+
     Each request shape ``(B, S, S)`` has a static uint8 input buffer and a
     body that normalises it and runs the forward (:class:`Captured`): on a
     card (``graph`` None; True or False to choose) it runs eagerly once,
     then as one captured CUDA graph, TF32 turned off once, while the body
     is captured; elsewhere the same body runs on every call. A replay's
     outputs are the graph's static tensors, overwritten by the next
-    replay of that shape. The class counts the process's forward runs and
-    images (advanced at each replay through ``Captured``'s ``counters``)
-    and the runs that were graph replays."""
+    replay of that shape. The class counts the process's forward runs,
+    the images and the runs on the folded route (``fused_runs``), each
+    advanced at each replay through ``Captured``'s ``counters`` as the
+    kernels' ``launches`` are, and the runs that were graph replays."""
 
     runs = 0
     images = 0
+    fused_runs = 0
     replays = 0
 
     def __init__(self, params: Dict, tap: str,
                  device: Union[str, torch.device],
                  graph: Optional[bool] = None):
         self.device = torch.device(device)
-        self.params = params_to(params, self.device)
         self.tap = tap
         self.want = _check_request((tap,))
+        self.fused = tap not in PLAIN_TAPS
+        if self.fused:
+            self.params = fold_batch_norms(params, self.device)
+            if self.device.type == "cuda":
+                cuda_tower.library()
+        else:
+            self.params = params_to(params, self.device)
         self.capture = (self.device.type == "cuda") if graph is None \
             else bool(graph)
         self._runs: Dict[tuple, tuple] = {}
@@ -318,7 +433,10 @@ class PixelTower:
             run = Captured(lambda: self._body(buf), self.device, warmup=1,
                            capture=self.capture,
                            counters=((PixelTower, "runs"),
-                                     (PixelTower, "images")))
+                                     (PixelTower, "images"),
+                                     (PixelTower, "fused_runs"))
+                           + tuple((f, "launches")
+                                   for f in cuda_tower.COUNTED))
             self._runs[key] = (buf, run)
         self._runs[key][0].copy_(torch.from_numpy(
             np.ascontiguousarray(pixels)))
@@ -328,9 +446,11 @@ class PixelTower:
     def _body(self, buf: torch.Tensor) -> torch.Tensor:
         PixelTower.runs += 1
         PixelTower.images += buf.shape[0]
+        PixelTower.fused_runs += int(self.fused)
+        forward = folded_forward if self.fused else _collect
         with float32_precision():
-            return _collect(self.params, normalize_pixels(buf),
-                            self.want)[self.tap]
+            return forward(self.params, normalize_pixels(buf),
+                           self.want)[self.tap]
 
     def __call__(self, key: tuple) -> torch.Tensor:
         """The tap of the batch last staged under ``key``."""

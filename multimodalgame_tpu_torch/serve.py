@@ -27,9 +27,11 @@ From pixels (``Predictor(..., tower=params)``): ResNet-34
 utils/package_data.py:81-131) in front of the game. A request is then
 uint8 crops ``(B, 3, S, S)``, already scaled and centre-cropped (227 x
 227, utils/package_data.py:171-178); on the device they are normalised
-and run to the tap the game's ``img_feat`` names, one captured CUDA graph
-a request shape on a card, whose output the eval conversation reads on the
-device. The tower is replicated on each device like the modules.
+and run to the tap the game's ``img_feat`` names (its batch norms folded
+into its convolutions, each convolution followed by one hand-written
+kernel on a card), one captured CUDA graph a request shape on a card,
+whose output the eval conversation reads on the device. The tower is
+replicated on each device like the modules.
 Attention with ``attn_extra_context`` (an ``fc`` context beside the
 maps) is served from features only.
 

@@ -50,7 +50,8 @@ The graphs of the port: each trainer's step or chunk
 plain conversation that attention, ``mou`` and ``flipout_dev`` take),
 and a population's dev batch (``_PopulationEvalGraph``). Besides these,
 the served image tower (``models/resnet.py:PixelTower``) runs as one
-graph a batch size: its body counts its runs and images through
+graph a batch size: its body counts its runs, images and folded-route
+runs, and its kernels' launches (``ops/cuda_tower.py``), through
 ``counters``, and the global precision flags it sets while it is
 captured stay in the graph.
 """

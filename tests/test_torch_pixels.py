@@ -9,6 +9,7 @@ on 35x35 images), on the CPU."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from gamebench import program, run, weights
@@ -18,10 +19,14 @@ from gamebench.reference import resnet as ref
 from gamebench.reference.game import eval_answers
 from gamebench.trace import Trace, Tracer, traced
 from multimodalgame_tpu_torch.game.config import GameConfig
-from multimodalgame_tpu_torch.models.resnet import (PixelTower,
+from multimodalgame_tpu_torch.models.resnet import (LAYER_NAMES, PLAIN_TAPS,
+                                                    PixelTower,
+                                                    fold_batch_norms,
+                                                    folded_forward,
                                                     normalize_pixels,
                                                     params_from_torch_state,
                                                     resnet34_features)
+from multimodalgame_tpu_torch.ops import cuda_tower
 from multimodalgame_tpu_torch.serve import Predictor
 
 SMALL = 35
@@ -254,3 +259,187 @@ def test_tower_split_over_devices(game, sd):
     np.testing.assert_array_equal(split["prediction"], one["prediction"])
     np.testing.assert_allclose(split["log_probs"], one["log_probs"],
                                rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------- the folded forward
+
+FOLDED_TAPS = tuple(t for t in LAYER_NAMES if t not in PLAIN_TAPS)
+# Each float32 forward against the same network in float64: folding
+# moves the rounding, not its size (both read up to ~8e-6 here), so the
+# two float32 forwards lie up to the sum of their errors apart.
+FOLD_TOL = 1e-5
+
+
+def norm_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want).norm() / want.norm())
+
+
+def float64(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.double()
+    if isinstance(tree, dict):
+        return {k: float64(v) for k, v in tree.items()}
+    return [float64(v) for v in tree]
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("size", [SMALL, SMALL + 8, 227])
+def test_folded_and_plain_forwards_match_float64(params, size, batch):
+    """The folded forward with the plain epilogues and
+    ``resnet34_features`` at every tap from ``bn1`` on, each within
+    FOLD_TOL of the network computed in float64 (folded in float64 too;
+    the plain forward's agreement shows the folding's algebra). Each
+    forward runs once and gives every tap."""
+    x = normalize_pixels(pixels(size, batch))
+    taps = set(FOLDED_TAPS)
+    plain = resnet34_features(params, x, FOLDED_TAPS)
+    got = folded_forward(fold_batch_norms(params, "cpu"), x, taps)
+    want = folded_forward(fold_batch_norms(float64(params), "cpu"),
+                          x.double(), taps)
+    assert set(got) == set(want) == taps
+    for tap in FOLDED_TAPS:
+        assert got[tap].dtype == torch.float32, tap
+        assert got[tap].shape == want[tap].shape, tap
+        assert norm_gap(got[tap], want[tap]) < FOLD_TOL, tap
+        assert norm_gap(plain[tap], want[tap]) < FOLD_TOL, tap
+    # layer4_2 is the sum before the last ReLU, layer4_2_relu after it.
+    assert (got["layer4_2"] < 0).any()
+    assert torch.equal(torch.relu(got["layer4_2"]), got["layer4_2_relu"])
+
+
+def test_each_tap_alone_is_the_taps_together_bit_for_bit(params):
+    """A tap asked for alone runs the passes in place (``layer4_2``'s
+    last pass without its ReLU) and stops there; beside deeper taps it is
+    computed out of place. Both give the same bits, and the deeper taps
+    do not overwrite the shallower."""
+    folded = fold_batch_norms(params, "cpu")
+    x = normalize_pixels(pixels(SMALL, 2))
+    together = folded_forward(folded, x, FOLDED_TAPS)
+    for tap in FOLDED_TAPS:
+        alone = folded_forward(folded, x, (tap,))
+        assert set(alone) == {tap}
+        assert torch.equal(alone[tap], together[tap]), tap
+    assert not torch.equal(together["bn1"], together["relu"])
+
+
+def test_stem_is_the_pool_of_the_relu_bit_for_bit():
+    """relu(max(window) + b) against max_pool(relu(y + b)), on values
+    with ties, negatives and biases that move some windows across 0."""
+    gen = torch.Generator().manual_seed(3)
+    y = torch.randint(-6, 7, (3, 8, 19, 20), generator=gen).float() / 4
+    y[0, 0] = 0.5                                   # a plane of ties
+    y[1, 1] = -torch.rand(19, 20, generator=gen)    # all negative
+    bias = torch.randn(8, generator=gen)
+    bias[1] = 0.25
+    want = F.max_pool2d(torch.relu(y + bias.view(1, -1, 1, 1)), 3, 2, 1)
+    got = cuda_tower.stem(y, bias)
+    assert got.shape == (3, 8, 10, 10)
+    assert torch.equal(got, want)
+    assert torch.equal(cuda_tower.stem_reference(y, bias), want)
+
+
+def test_block_epilogue_is_in_place_in_the_plain_order():
+    gen = torch.Generator().manual_seed(4)
+    y, r = (torch.randn(2, 4, 5, 5, generator=gen) for _ in range(2))
+    b, rb = (torch.randn(4, generator=gen) for _ in range(2))
+    for residual, residual_bias, relu in ((None, None, True),
+                                          (r, None, True), (r, rb, False)):
+        out = y.clone()
+        want = y + b.view(1, -1, 1, 1)
+        if residual is not None:
+            want = want + (r if residual_bias is None
+                           else r + rb.view(1, -1, 1, 1))
+        if relu:
+            want = torch.relu(want)
+        got = cuda_tower.block_epilogue(out, b, residual, residual_bias,
+                                        relu)
+        assert got is out and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tap", PLAIN_TAPS)
+def test_pre_batch_norm_taps_keep_the_plain_forward(params, tap):
+    tower = PixelTower(params, tap, "cpu")
+    assert not tower.fused and "bn1" in tower.params
+    px = pixels(SMALL, 2)
+    before = PixelTower.fused_runs
+    got = tower(tower.stage(px.numpy()))
+    want = resnet34_features(params, normalize_pixels(px), (tap,))[tap]
+    assert torch.equal(got, want)
+    assert PixelTower.fused_runs == before
+    with pytest.raises(KeyError, match=tap):
+        folded_forward(fold_batch_norms(params, "cpu"),
+                       normalize_pixels(px), (tap, "fc"))
+
+
+def test_bn1_is_served_on_the_folded_route(params):
+    """bn1 is conv1 on the folded weights plus the folded bias: the
+    tower serves it on the folded route, within FOLD_TOL of the network
+    in float64, as the plain forward's scale-and-shift is."""
+    tower = PixelTower(params, "bn1", "cpu")
+    assert tower.fused and "bn1" not in tower.params
+    px = pixels(SMALL, 2)
+    before = PixelTower.fused_runs
+    got = tower(tower.stage(px.numpy()))
+    assert PixelTower.fused_runs == before + 1
+    x = normalize_pixels(px)
+    assert torch.equal(got, folded_forward(tower.params, x, ("bn1",))["bn1"])
+    want = folded_forward(fold_batch_norms(float64(params), "cpu"),
+                          x.double(), ("bn1",))["bn1"]
+    plain = resnet34_features(params, x, ("bn1",))["bn1"]
+    assert (got < 0).any()
+    assert norm_gap(got, want) < FOLD_TOL
+    assert norm_gap(plain, want) < FOLD_TOL
+
+
+def test_fused_runs_count_the_folded_route(params):
+    fused = PixelTower(params, "avgpool_512", "cpu")
+    plain = PixelTower(params, "conv1", "cpu")
+    px = pixels(SMALL, 2).numpy()
+    launches = [f.launches for f in cuda_tower.COUNTED]
+    runs, fused_runs = PixelTower.runs, PixelTower.fused_runs
+    for _ in range(3):
+        fused(fused.stage(px))
+    assert (PixelTower.runs - runs, PixelTower.fused_runs - fused_runs) \
+        == (3, 3)
+    plain(plain.stage(px))
+    assert (PixelTower.runs - runs, PixelTower.fused_runs - fused_runs) \
+        == (4, 3)
+    # The CPU runs the plain epilogues: no kernel is launched.
+    assert [f.launches for f in cuda_tower.COUNTED] == launches
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+
+
+def test_folded_parameters_replace_the_unfolded_ones(params):
+    """The tower keeps one set of parameters: each convolution's folded
+    weight and its bias, and ``fc``; no batch norm and no unfolded
+    weight."""
+    tower = PixelTower(params, "avgpool_512", "cpu")
+    held = dict(_leaves(tower.params))
+    assert all(path[-1] in ("weight", "bias") for path in held)
+    convs = [w for path, w in _leaves(params)
+             if path[-1] in ("conv1", "conv2", "down_conv")]
+    assert len(convs) == 36
+    assert sum(x.numel() for x in held.values()) == (
+        sum(w.numel() + w.shape[0] for w in convs)
+        + params["fc"]["weight"].numel() + params["fc"]["bias"].numel())
+    given = {x.data_ptr() for _, x in _leaves(params) if x.dim() == 4}
+    assert not given & {x.data_ptr() for x in held.values()
+                        if x.dim() == 4}
+    block = tower.params["layer2"][0]
+    assert set(block) == {"conv1", "conv2", "down"}
+    assert torch.equal(block["down"]["weight"],
+                       params["layer2"][0]["down_conv"]
+                       * params["layer2"][0]["down_bn"]["scale"].reshape(
+                           -1, 1, 1, 1))
+    assert torch.equal(block["down"]["bias"],
+                       params["layer2"][0]["down_bn"]["shift"].reshape(-1))
