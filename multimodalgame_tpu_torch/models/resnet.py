@@ -51,7 +51,7 @@ import torch.nn.functional as F
 
 from multimodalgame_tpu_torch.ops import cuda_tower
 from multimodalgame_tpu_torch.ops.cuda_tower import normalize_pixels
-from multimodalgame_tpu_torch.utils.cuda_graph import Captured
+from multimodalgame_tpu_torch.utils.cuda_graph import StagedGraphs
 
 # torchvision resnet34's stages: (blocks, channels, first stride).
 STAGES = [(3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2)]
@@ -389,7 +389,8 @@ class PixelTower:
     the parameters as given and the plain forward.
 
     Each request shape ``(B, S, S)`` has a static uint8 input buffer and a
-    body that normalises it and runs the forward (:class:`Captured`): on a
+    body that normalises it and runs the forward (``utils/cuda_graph.py:
+    StagedGraphs``, one :class:`Captured` a shape): on a
     card (``graph`` None; True or False to choose) it runs eagerly once,
     then as one captured CUDA graph, TF32 turned off once, while the body
     is captured; elsewhere the same body runs on every call. A replay's
@@ -417,30 +418,32 @@ class PixelTower:
                 cuda_tower.library()
         else:
             self.params = params_to(params, self.device)
-        self.capture = (self.device.type == "cuda") if graph is None \
+        capture = (self.device.type == "cuda") if graph is None \
             else bool(graph)
-        self._runs: Dict[tuple, tuple] = {}
+        self._runs = StagedGraphs(
+            lambda buf: lambda: self._body(buf), self.device, capture,
+            counters=((PixelTower, "runs"), (PixelTower, "images"),
+                      (PixelTower, "fused_runs"))
+            + tuple((f, "launches") for f in cuda_tower.COUNTED),
+            replays=(PixelTower, "replays"))
+
+    @staticmethod
+    def check(x: np.ndarray) -> None:
+        """``ValueError`` unless ``x`` is uint8 ``(B, 3, S, S)``."""
+        if x.dtype != np.uint8 or x.ndim != 4 or not x.shape[0] \
+                or x.shape[1] != 3 or not x.shape[2] \
+                or x.shape[2] != x.shape[3]:
+            raise ValueError(
+                "a Predictor with ResNet-34's tower serves uint8 pixels "
+                "(B, 3, S, S), square crops scaled and centre-cropped (227 "
+                f"x 227 as the reference makes them); got {x.dtype} "
+                f"{tuple(x.shape)}")
 
     def stage(self, pixels: np.ndarray) -> tuple:
         """Copy a batch of uint8 pixels ``(B, 3, S, S)`` into its shape's
         input buffer on the device; returns the key :meth:`__call__`
         takes."""
-        key = (pixels.shape[0],) + tuple(pixels.shape[2:])
-        if key not in self._runs:
-            with torch.inference_mode(False):
-                buf = torch.empty(pixels.shape, dtype=torch.uint8,
-                                  device=self.device)
-            run = Captured(lambda: self._body(buf), self.device, warmup=1,
-                           capture=self.capture,
-                           counters=((PixelTower, "runs"),
-                                     (PixelTower, "images"),
-                                     (PixelTower, "fused_runs"))
-                           + tuple((f, "launches")
-                                   for f in cuda_tower.COUNTED))
-            self._runs[key] = (buf, run)
-        self._runs[key][0].copy_(torch.from_numpy(
-            np.ascontiguousarray(pixels)))
-        return key
+        return self._runs.stage(pixels)
 
     @torch.no_grad()
     def _body(self, buf: torch.Tensor) -> torch.Tensor:
@@ -454,6 +457,4 @@ class PixelTower:
 
     def __call__(self, key: tuple) -> torch.Tensor:
         """The tap of the batch last staged under ``key``."""
-        out, replayed = self._runs[key][1]()
-        PixelTower.replays += int(replayed)
-        return out
+        return self._runs.run(key)

@@ -30,8 +30,14 @@ uint8 crops ``(B, 3, S, S)``, already scaled and centre-cropped (227 x
 and run to the tap the game's ``img_feat`` names (its batch norms folded
 into its convolutions, each convolution followed by one hand-written
 kernel on a card), one captured CUDA graph a request shape on a card,
-whose output the eval conversation reads on the device. The tower is
-replicated on each device like the modules.
+whose output the eval conversation reads on the device. Or
+(``tower={"arch": "qwen2_5_vl_vision", "config": ..., "state": ...}``)
+Qwen2.5-VL's vision tower (``models/qwen_vision.py:VisionTower``): photos
+``(B, 3, H, W)`` at their own aspect, each side a multiple of 28 as the
+processor's ``smart_resize`` leaves it, in bfloat16 to the mean of the
+merger's tokens, whose width must be the game's ``img_feat_dim``; one
+captured CUDA graph a request shape on a card. The tower is replicated
+on each device like the modules.
 Attention with ``attn_extra_context`` (an ``fc`` context beside the
 maps) is served from features only.
 
@@ -45,7 +51,7 @@ from __future__ import annotations
 import copy
 import json
 import sys
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,9 +64,11 @@ from multimodalgame_tpu_torch.game.exchange import (description_inputs,
                                                     turns_run)
 from multimodalgame_tpu_torch.game.train import (answer_scores,
                                                  make_eval_exchange)
+from multimodalgame_tpu_torch.models import qwen_vision
 from multimodalgame_tpu_torch.models.resnet import PixelTower
 from multimodalgame_tpu_torch.ops.philox import philox_eval_uniforms
 from multimodalgame_tpu_torch.utils.checkpoint import load_agents
+from multimodalgame_tpu_torch.utils.cuda_graph import clone_tree
 from multimodalgame_tpu_torch.utils.device import resolve_device
 from multimodalgame_tpu_torch.utils.profiling import span
 
@@ -84,9 +92,12 @@ class Predictor:
 
     ``tower``: ResNet-34's parameters
     (``models/resnet.py:params_from_torch_state`` of a torchvision
-    state dict, or ``load_pretrained(path)``); :meth:`predict` then takes
-    uint8 pixels ``(B, 3, S, S)`` and runs the tower first, as one more
-    captured graph a request shape on a card (``graph=False``: eagerly).
+    state dict, or ``load_pretrained(path)``), or Qwen2.5-VL's vision
+    tower as ``{"arch": "qwen2_5_vl_vision", "config": <vision_config>,
+    "state": <state dict in the visual.* layout>}``; :meth:`predict` then
+    takes uint8 pixels (``(B, 3, S, S)``, or ``(B, 3, H, W)`` with H and W
+    multiples of 28) and runs the tower first, as one more captured graph
+    a request shape on a card (``graph=False``: eagerly).
     """
 
     def __init__(self, cfg: GameConfig, modules: AgentModules,
@@ -121,7 +132,7 @@ class Predictor:
         self._desc = self._descs["desc"].contiguous()
         # The tower, one a distinct device; none serves features.
         self._towers = {} if tower is None else {
-            dev: PixelTower(tower, cfg.img_feat, dev, graph=graph)
+            dev: build_tower(tower, cfg, dev, graph)
             for dev in self._replicas}
 
     @classmethod
@@ -146,8 +157,10 @@ class Predictor:
         """Run conversations for a feature batch ``(B, feat)`` (``(B,
         feat, H, W)`` maps under visual attention, with their context
         ``(B, attn_context_dim)`` under ``attn_extra_context``); with a
-        tower, for uint8 pixels ``(B, 3, S, S)``. Input
-        of another kind raises ``ValueError``.
+        tower, for uint8 pixels: ResNet-34 takes square crops ``(B, 3, S,
+        S)``, the vision tower ``(B, 3, H, W)`` with H and W multiples of
+        28. Input of another kind raises ``ValueError``, naming what this
+        Predictor takes.
 
         Returns a dict with ``prediction`` (B,), ``log_probs`` (B, D),
         ``conversation_length`` (B,), ``sender_messages`` /
@@ -166,7 +179,7 @@ class Predictor:
                 features = self._pixels(features)
             elif getattr(features, "dtype", None) == np.uint8:
                 raise ValueError("uint8 pixels need a Predictor built with "
-                                 "tower=<ResNet-34 parameters>; this one "
+                                 "tower=<a tower's parameters>; this one "
                                  "serves float features (B, feat)")
             else:
                 features = np.asarray(features, np.float32)
@@ -202,6 +215,16 @@ class Predictor:
                     "n_steps": n,
                 }
 
+    @torch.inference_mode()
+    def tower_outputs(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The vision tower's merged tokens and pooled features for uint8
+        ``images`` on the first device, as :meth:`predict` computes them
+        for a batch it runs whole there (on a card, a replay of the same
+        graph): copies."""
+        x = self._pixels(images)
+        tower = self._towers[self.device]
+        return clone_tree(tower.outputs(tower.stage(x)))
+
     def _block(self, features: np.ndarray,
                data_context: Optional[np.ndarray], lo: int, hi: int,
                dev: torch.device):
@@ -231,16 +254,28 @@ class Predictor:
 
     def _pixels(self, images) -> np.ndarray:
         """``images`` as the tower's input, or ``ValueError`` naming what
-        it takes."""
+        this Predictor's tower takes."""
         x = np.asarray(images)
-        if x.dtype != np.uint8 or x.ndim != 4 or not x.shape[0] \
-                or x.shape[1] != 3 or not x.shape[2] \
-                or x.shape[2] != x.shape[3]:
-            raise ValueError(
-                "a Predictor with a tower serves uint8 pixels (B, 3, S, S), "
-                "square crops scaled and centre-cropped (227 x 227 as the "
-                f"reference makes them); got {x.dtype} {tuple(x.shape)}")
+        self._towers[self.device].check(x)
         return x
+
+
+def build_tower(tower: Dict, cfg: GameConfig, device: torch.device,
+                graph: Optional[bool]):
+    """The served tower on ``device``: Qwen2.5-VL's vision tower for a
+    dict whose ``arch`` names it (``ValueError`` unless its width is the
+    game's ``img_feat_dim``), else ResNet-34 to the game's tap."""
+    if tower.get("arch") == qwen_vision.ARCH:
+        width = int(tower["config"]["out_hidden_size"])
+        if width != cfg.img_feat_dim:
+            raise ValueError(
+                f"the vision tower's features are {width} wide; the game "
+                f"reads img_feat_dim = {cfg.img_feat_dim}")
+        return qwen_vision.VisionTower(
+            qwen_vision.params_from_state(tower["state"], tower["config"],
+                                          device),
+            tower["config"], device, graph=graph)
+    return PixelTower(tower, cfg.img_feat, device, graph=graph)
 
 
 def refuse_mesh_model(flags: Flags) -> None:

@@ -49,9 +49,10 @@ The graphs of the port: each trainer's step or chunk
 (``game/train.py:_EvalGraph``, whose body is the kernel route's or the
 plain conversation that attention, ``mou`` and ``flipout_dev`` take),
 and a population's dev batch (``_PopulationEvalGraph``). Besides these,
-the served image tower (``models/resnet.py:PixelTower``) runs as one
-graph a batch size: its body counts its runs, images and folded-route
-runs, and its kernels' launches (``ops/cuda_tower.py``), through
+each served image tower (``models/resnet.py:PixelTower``,
+``models/qwen_vision.py:VisionTower``) runs as one graph a request
+shape, staged by :class:`StagedGraphs`: its body counts its runs and
+images (and its kernels' launches or attention calls) through
 ``counters``, and the global precision flags it sets while it is
 captured stay in the graph.
 """
@@ -61,6 +62,7 @@ from __future__ import annotations
 import gc
 from typing import Any, Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from multimodalgame_tpu_torch.ops.cuda_exchange import (add_launches,
@@ -167,3 +169,46 @@ class Captured:
             setattr(obj, name, n)
         self.graph = graph
         Captured.captures += 1
+
+
+class StagedGraphs(dict):
+    """A served tower's request shapes: for each ``(B, H, W)``, a static
+    uint8 input buffer on ``device`` and a :class:`Captured` body over it
+    (``warmup`` 1), made at the shape's first :meth:`stage` by
+    ``make_body(buf)``, which returns the body (a function of no
+    arguments). ``counters`` go to each :class:`Captured`; ``replays``,
+    an ``(object, attribute)`` pair, counts the calls that were graph
+    replays."""
+
+    def __init__(self, make_body: Callable[[torch.Tensor],
+                                           Callable[[], Any]],
+                 device: torch.device, capture: bool,
+                 counters: Sequence[Tuple[Any, str]],
+                 replays: Tuple[Any, str]):
+        super().__init__()
+        self.make_body = make_body
+        self.device = torch.device(device)
+        self.capture = capture
+        self.counters = tuple(counters)
+        self.replays = replays
+
+    def stage(self, pixels: np.ndarray) -> tuple:
+        """Copy a batch of uint8 pixels ``(B, C, H, W)`` into its shape's
+        buffer; returns the key :meth:`run` takes."""
+        key = (pixels.shape[0],) + tuple(pixels.shape[2:])
+        if key not in self:
+            with torch.inference_mode(False):
+                buf = torch.empty(pixels.shape, dtype=torch.uint8,
+                                  device=self.device)
+            self[key] = (buf, Captured(self.make_body(buf), self.device,
+                                       warmup=1, capture=self.capture,
+                                       counters=self.counters))
+        self[key][0].copy_(torch.from_numpy(np.ascontiguousarray(pixels)))
+        return key
+
+    def run(self, key: tuple):
+        """The body's outputs for the batch last staged under ``key``."""
+        out, replayed = self[key][1]()
+        obj, name = self.replays
+        setattr(obj, name, getattr(obj, name) + int(replayed))
+        return out
