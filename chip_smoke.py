@@ -310,8 +310,24 @@ result line):
              and pooling kernels; each kernel's ms, device ms, plain ms
              and bytes bound, which join the ``kernels`` line.
 
+24. vision — (run after phase 23) the vision tower's rotary kernel
+             (``csrc/vision_rotary.cu``) at the photo cell's shapes (batch
+             100 of 364 x 504 photos, 16 heads of 80) against its plain
+             version in bfloat16 and float32, windowed and full, bit for
+             bit (it rounds as PyTorch's passes do); its ms, device ms, plain
+             ms and bytes bound; then the captured ``VisionTower`` (the
+             cell's seeded weights) on the kernel and, for comparison, on
+             the plain version in the kernel's place: each replayed with
+             the launches counted (32 rotations a run, each one kernel on
+             the kernel route), its device operations and rotary kernels
+             in one profiled replay, its replay ms, and its ``token_gap``
+             and ``feature_gap`` against the reference tower on 4 images
+             within the cell's limits, the two routes' tokens equal; the
+             row joins the ``kernels`` line.
+
 ``python3 chip_smoke.py --tower`` runs only the probe, the build and
-phase 23, and prints its ``kernels`` line and the result line.
+phase 23, and ``--vision`` only the probe, the build and phase 24; each
+prints its ``kernels`` line and the result line.
 ``python3 chip_smoke.py --mesh`` runs only the build, the serve and driver
 phases and phases 17-21 (no result line); ``--ckpt`` only the build and
 phases 7 and 7a; ``--ckpt-orbax`` only the build and phase 7b;
@@ -516,6 +532,13 @@ TOWER_BATCH, TOWER_SIZE, TOWER_TAP, TOWER_REPLAYS = 100, 227, "avgpool_512", 3
 # The captured tower against the plain forward (each float32 within 1e-5
 # of float64 in the tests, so 2e-5 apart at most), norm-wise.
 TOWER_TOL = 2e-5
+# The vision phase: the photo cell's requests (BENCHMARK.json,
+# qwen2_5_vl_vit_adaptive.serve_photos), batch 100 of 364 x 504 photos,
+# the captured tower replayed VISION_REPLAYS times with the launches
+# counted, and the cell's limits of `correct` on the tower
+# (gamebench/limits/).
+VISION_BATCH, VISION_HW, VISION_REPLAYS = 100, (364, 504), 3
+VISION_FEATURE_GAP, VISION_TOKEN_GAP = 0.007, 0.06
 WORDS = (3, 12)             # words in a class's set, least and most
 # Random weights stop every conversation after turn 0; this bias on the
 # stop unit makes them run 5-7 of the 10 turns, so the served answers
@@ -4616,6 +4639,152 @@ def check_tower(device, smi) -> dict:
             "device_operations_a_replay": len(names)}
 
 
+def check_vision(device, smi) -> dict:
+    """Phase 24: the vision tower's rotary kernel (``ops/cuda_vision.py``,
+    ``csrc/vision_rotary.cu``) at the photo cell's shapes against its
+    plain version, in both dtypes and both layouts, and timed beside its
+    bound (bytes over PEAK_BYTES: the product read once, q, k and v
+    written once); then the captured ``VisionTower`` on the kernel and on
+    the plain version in its place, each profiled for one replay, timed
+    and held against the reference tower."""
+    import torch
+    from unittest import mock
+    from gamebench.entries.serve_photos import tower_state
+    from gamebench.entries.serve_pixels import make_pixels
+    from gamebench.reference import qwen_vision as ref
+    from multimodalgame_tpu_torch.models.qwen_vision import (
+        QWEN2_5_VL_7B, Layout, VisionTower, params_from_state)
+    from multimodalgame_tpu_torch.ops import cuda_vision as cv
+    vcfg = {**QWEN2_5_VL_7B, "initializer_range": 0.02}
+    B, (H, W) = VISION_BATCH, VISION_HW
+    C, heads = vcfg["hidden_size"], vcfg["num_heads"]
+    lay = Layout(vcfg, H, W, device)
+    gen = torch.Generator(device=device).manual_seed(26)
+
+    def fail(what):
+        raise SystemExit(f"vision: {what}")
+
+    checks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.randn((B, lay.tokens, 3 * C), generator=gen,
+                          device=device).to(dtype)
+        for full in (False, True):
+            dest = lay.full_dest if full else lay.window_dest
+            got = cv.rotary_qkv(qkv, lay.cos, lay.sin, dest, heads)
+            torch.cuda.synchronize()
+            want = cv.rotary_qkv_reference(qkv, lay.cos, lay.sin, dest,
+                                           heads)
+            row = {"dtype": str(dtype).split(".")[-1], "full": full,
+                   "elements_apart": {n: int((g != w).sum()) for n, g, w in
+                                      zip("qkv", got, want)}}
+            checks.append(row)
+            if any(row["elements_apart"].values()):
+                fail(f"rotary_qkv parts from its plain version: {row}")
+    log({"phase": "vision", "check": "rotary_qkv", "batch": B,
+         "size": [H, W], "cases": checks})
+
+    qkv = torch.randn((B, lay.tokens, 3 * C), generator=gen,
+                      device=device).to(torch.bfloat16)
+    dest = lay.window_dest
+    nbytes = 2 * qkv.numel() * qkv.element_size()
+    timed = {"ms": event_median_ms(
+        lambda: cv.rotary_qkv(qkv, lay.cos, lay.sin, dest, heads)),
+        "device_ms": device_median_ms(
+        lambda: cv.rotary_qkv(qkv, lay.cos, lay.sin, dest, heads)),
+        "plain_ms": event_median_ms(
+        lambda: cv.rotary_qkv_reference(qkv, lay.cos, lay.sin, dest,
+                                        heads)),
+        "bytes": nbytes}
+    del qkv
+
+    sd = tower_state(vcfg, 11, device)
+    params = params_from_state(sd, vcfg, device)
+    px = make_pixels({"num_classes": 30, "image_shape": [3, H, W],
+                      "dev_per_class": 4}, "dev", 11, device)[:B]
+    want = ref.forward(ref.state(sd, device), vcfg, px[:4])
+    pixels = px.cpu().numpy()
+    names = ("runs", "replays", "rotary_launches",
+             "window_attention_launches", "full_attention_launches")
+
+    def plain_rotary(*args):
+        return cv.rotary_qkv_reference(*args)
+    plain_rotary.launches = 0
+
+    def route(tower) -> dict:
+        key = tower.stage(pixels)
+        tower.outputs(key)                      # eager warm-up
+        tower.outputs(key)                      # capture, first replay
+        before = [getattr(VisionTower, k) for k in names] \
+            + [cv.rotary_qkv.launches]
+        for _ in range(VISION_REPLAYS):
+            tokens, feats = tower.outputs(key)
+        torch.cuda.synchronize()
+        counts = dict(zip(names + ("kernel_launches",), (
+            a - b for a, b in zip([getattr(VisionTower, k) for k in names]
+                                  + [cv.rotary_qkv.launches], before))))
+        gaps = {"token_gap": float(ref.relative_gaps(
+            tokens[:4].flatten(0, 1), want["tokens"].flatten(0, 1)).max()),
+            "feature_gap": float(ref.relative_gaps(
+                feats[:4], want["features"]).max())}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            tower.outputs(key)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        return {"counts": counts, **gaps,
+                "device_operations_a_replay": len(ops),
+                "rotary_kernels_a_replay": sum("vit_rotary_qkv" in n
+                                               for n in ops),
+                "addcmul_a_replay": sum("addcmul" in n for n in ops),
+                "replay_ms": event_median_ms(lambda: tower.outputs(key)),
+                "tokens": tokens[:4].clone()}
+
+    kernel = route(VisionTower(params, vcfg, device))
+    with mock.patch.object(cv, "rotary_qkv", plain_rotary):
+        plain = route(VisionTower(params, vcfg, device))
+    routes = {"kernel": kernel, "plain": plain}
+    if not torch.equal(kernel.pop("tokens"), plain.pop("tokens")):
+        fail("the kernel route's tokens part from the plain route's")
+    per_run = {"runs": VISION_REPLAYS, "replays": VISION_REPLAYS,
+               "rotary_launches": 32 * VISION_REPLAYS,
+               "window_attention_launches": 112 * VISION_REPLAYS,
+               "full_attention_launches": 4 * VISION_REPLAYS}
+    for name, r in routes.items():
+        want_counts = dict(per_run, kernel_launches=(
+            32 * VISION_REPLAYS if name == "kernel" else 0))
+        if (r["counts"] != want_counts
+                or not r["token_gap"] < VISION_TOKEN_GAP
+                or not r["feature_gap"] < VISION_FEATURE_GAP
+                or r["rotary_kernels_a_replay"] != (
+                    32 if name == "kernel" else 0)
+                or (name == "kernel" and r["addcmul_a_replay"])):
+            fail(f"the {name} route's replays: {r}")
+    log({"phase": "vision", "check": "replays", "batch": B, "size": [H, W],
+         "routes": routes, "tokens_equal_across_routes": True,
+         "device_operations_removed": (
+             plain["device_operations_a_replay"]
+             - kernel["device_operations_a_replay"]), "card": smi})
+    bound_ms = 1e3 * nbytes / PEAK_BYTES
+    row = {"name": "vit_rotary_qkv", "route": "cuda",
+           "source": "multimodalgame_tpu_torch/csrc/vision_rotary.cu",
+           "wrapper": "multimodalgame_tpu_torch/ops/cuda_vision.py:"
+                      "rotary_qkv",
+           "replaces": "none: the JAX package has no vision tower",
+           "launches": kernel["counts"]["kernel_launches"],
+           "launches_per_run": 32, "batch": B, "size": [H, W],
+           "bit_equal": True,
+           **timed, "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_share": bound_ms / timed["device_ms"],
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes this function",
+           "card": smi}
+    log({"phase": "timing", "kernel": "vit_rotary_qkv",
+         **{k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "bytes")}, "card": smi})
+    return {"rows": [row], "routes": routes}
+
+
 def run_new_paths(workdir, smi) -> dict:
     """bfloat16, CIFAR and the population's paths."""
     return {"bf16": drive_bf16("cuda", workdir, smi),
@@ -4651,10 +4820,11 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mesh-cpu"]:
         return mesh_step_cpu()
-    if sys.argv[1:] == ["--tower"]:
+    if sys.argv[1:] in (["--tower"], ["--vision"]):
         smi = probe()
         build()
-        log({"kernels": check_tower("cuda", smi)["rows"]})
+        check = check_tower if sys.argv[1] == "--tower" else check_vision
+        log({"kernels": check("cuda", smi)["rows"]})
         log({"ok": True, "device": {"platform": "gpu",
                                     "kind": torch.cuda.get_device_name(0),
                                     "count": torch.cuda.device_count()}})
@@ -4727,6 +4897,7 @@ def main() -> int:
     worst_train = check_train_kernels("cuda")
     cifar_kernels = check_cifar_kernels("cuda", smi)
     tower = check_tower("cuda", smi)
+    vision = check_vision("cuda", smi)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as workdir:
         served = serve_requests("cuda", workdir)
@@ -4907,7 +5078,7 @@ def main() -> int:
         "card": smi,
         **kernel_registers(train=True),
         **layout,
-    }] + tower["rows"]})
+    }] + tower["rows"] + vision["rows"]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

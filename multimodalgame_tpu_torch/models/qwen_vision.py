@@ -30,11 +30,14 @@ multiple of ``patch_size * spatial_merge_size``, 28), all of one shape:
   one product of their stacked weights, the intermediate width padded
   with zeros from 3,420 to 3,424 so that down's operand rows align to 16
   bytes, which the card's fast bfloat16 products need), RMSNorm's statistics in
-  float32 at eps 1e-6, the rotation of q and k in float32. Attention is
+  float32 at eps 1e-6, the rotation of q and k in float32 and rounded
+  once (``ops/cuda_vision.py:rotary_qkv``: on a card one kernel, which
+  also writes q, k and v where attention reads them). Attention is
   ``scaled_dot_product_attention``: over each whole image (one call) in
   the blocks of ``fullatt_block_indexes``, and inside the windows in the
-  others, one call a window size (the windows of a size batched), so the
-  calls a layer do not grow with the batch;
+  others, one call a window size (the windows of a size batched, each
+  size's q, k and v one contiguous block), so the calls a layer do not
+  grow with the batch;
 * the merger (RMSNorm, each merge unit's four tokens side by side
   through Linear, GELU, Linear to ``out_hidden_size``), the window
   order undone, and the mean of each image's merged tokens in float32:
@@ -48,9 +51,10 @@ its graph); ``dtype=torch.float32`` runs the same forward in float32.
 Each request shape has a static uint8 buffer and one captured CUDA graph
 on a card (``utils/cuda_graph.py:StagedGraphs``), eager elsewhere or
 with ``graph=False``; nothing in the body waits on the host. The class
-counts the process's runs, images, tokens, graph replays and attention
-calls (windowed and full), advanced at each replay through
-``Captured``'s ``counters``.
+counts the process's runs, images, tokens, graph replays, attention
+calls (windowed and full) and rotations (one a block, either route),
+advanced at each replay through ``Captured``'s ``counters`` with the
+rotary kernel's ``launches``.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multimodalgame_tpu_torch.ops import cuda_vision
 from multimodalgame_tpu_torch.utils.cuda_graph import StagedGraphs
 from multimodalgame_tpu_torch.utils.profiling import span
 
@@ -150,8 +155,10 @@ class Layout:
     """A request shape's window layout, built once: ``order`` (the merge
     units in windows, windows grouped by size, largest first), its
     inverse, ``groups`` (``(first token, windows, tokens a window)`` of
-    each size) and the rotary ``cos`` and ``sin`` ``(N, 1, 1, head_dim)``,
-    float32, in that order."""
+    each size), the rotary ``cos`` and ``sin`` ``(N, 1, 1, head_dim)``,
+    float32, in that order, and where the rotation writes each token
+    (``window_dest`` and ``full_dest``, int32 ``(N, 2)``: the ``(start,
+    length)`` of its group, or ``(0, N)``)."""
 
     def __init__(self, cfg: dict, h: int, w: int, device):
         P, m = cfg["patch_size"], cfg["spatial_merge_size"]
@@ -168,6 +175,11 @@ class Layout:
             start += n * size * unit
         self.order = torch.tensor(order, device=device)
         self.inverse = torch.argsort(self.order)
+        self.window_dest = torch.tensor(
+            [(start, n * s) for start, n, s in self.groups
+             for _ in range(n * s)], dtype=torch.int32, device=device)
+        self.full_dest = torch.tensor([(0, self.tokens)] * self.tokens,
+                                      dtype=torch.int32, device=device)
         angles = rotary_angles(cfg, gh, gw)
         angles = angles.reshape(-1, unit, angles.shape[-1])[order]
         emb = torch.cat((angles, angles), -1).reshape(self.tokens, 1, 1,
@@ -221,18 +233,6 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return F.rms_norm(x, weight.shape, weight, RMS_EPS)
 
 
-def _rotate(qk: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-            ) -> torch.Tensor:
-    """The rotation of q and k together (``qk``: ``(B, N, 2, heads, d)``)
-    in float32, back in ``qk``'s dtype: ``x * cos + rotate_half(x) *
-    sin``, ``rotate_half`` taken as two multiply-adds on the halves."""
-    half = qk.shape[-1] // 2
-    out = qk * cos      # float32, as cos is
-    out[..., :half].addcmul_(qk[..., half:], sin[..., :half], value=-1)
-    out[..., half:].addcmul_(qk[..., :half], sin[..., half:])
-    return out.to(qk.dtype)
-
-
 class VisionTower:
     """The tower on ``device`` from ``params`` (:func:`params_from_state`'s)
     and its ``cfg``; :meth:`stage` then :meth:`__call__` serve a request,
@@ -244,6 +244,7 @@ class VisionTower:
     replays = 0
     window_attention_launches = 0
     full_attention_launches = 0
+    rotary_launches = 0
 
     def __init__(self, params: Dict, cfg: dict,
                  device: Union[str, torch.device],
@@ -254,13 +255,16 @@ class VisionTower:
         self.full = set(cfg["fullatt_block_indexes"])
         self.mean = torch.tensor(CLIP_MEAN, device=self.device)[:, None, None]
         self.std = torch.tensor(CLIP_STD, device=self.device)[:, None, None]
+        if self.device.type == "cuda":
+            cuda_vision.library()
         capture = (self.device.type == "cuda") if graph is None \
             else bool(graph)
         self._runs = StagedGraphs(
             self._make_body, self.device, capture,
             counters=tuple((VisionTower, k) for k in (
                 "runs", "images", "tokens", "window_attention_launches",
-                "full_attention_launches")),
+                "full_attention_launches", "rotary_launches"))
+            + ((cuda_vision.rotary_qkv, "launches"),),
             replays=(VisionTower, "replays"))
 
     def check(self, x: np.ndarray) -> None:
@@ -347,14 +351,14 @@ class VisionTower:
         B, N, C = x.shape
         heads = self.cfg["num_heads"]
         d = C // heads
-        qkv = F.linear(x, blk["qkv_w"], blk["qkv_b"]).reshape(B, N, 3,
-                                                              heads, d)
-        q, k = _rotate(qkv[:, :, :2], layout.cos, layout.sin).unbind(2)
-        v = qkv[:, :, 2]
+        VisionTower.rotary_launches += 1
+        q, k, v = cuda_vision.rotary_qkv(
+            F.linear(x, blk["qkv_w"], blk["qkv_b"]), layout.cos, layout.sin,
+            layout.full_dest if full else layout.window_dest, heads)
         if full:
             VisionTower.full_attention_launches += 1
             o = F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+                *(t.view(B, N, heads, d).transpose(1, 2) for t in (q, k, v)))
             o = o.transpose(1, 2).reshape(B, N, C)
         else:
             parts = []
@@ -362,7 +366,7 @@ class VisionTower:
                 VisionTower.window_attention_launches += 1
 
                 def cut(t):
-                    return t[:, start:start + n * s].reshape(
+                    return t[B * start:B * (start + n * s)].view(
                         B * n, s, heads, d).transpose(1, 2)
                 o = F.scaled_dot_product_attention(cut(q), cut(k), cut(v))
                 parts.append(o.transpose(1, 2).reshape(B, n * s, C))

@@ -20,6 +20,7 @@ from multimodalgame_tpu_torch.models import qwen_vision as qv
 from multimodalgame_tpu_torch.models.qwen_vision import (ARCH, QWEN2_5_VL_7B,
                                                          Layout, VisionTower,
                                                          params_from_state)
+from multimodalgame_tpu_torch.ops import cuda_vision
 from multimodalgame_tpu_torch.serve import Predictor
 
 # Hidden 64, 4 heads, 8 blocks with full attention at 3 and 7.
@@ -116,6 +117,123 @@ def test_window_layout_at_364_by_504():
     angles = ref.rotary(cfg, 26, 36).reshape(234, 4, -1)[lay.order]
     assert torch.equal(lay.cos[:, 0, 0, :40].reshape(234, 4, -1),
                        angles.cos())
+
+
+def rotate_then_cut(qkv, layout, heads, full):
+    """The tower's rotation and windows as they were before the rotary
+    kernel: the float32 rotation of q and k by PyTorch's passes, then
+    each window group of q, k and v cut out and copied, or the whole
+    images in a full block; the attention inputs ``(B * n, heads, s,
+    d)``, a list per group (one for a full block)."""
+    B, N, width = qkv.shape
+    d = width // 3 // heads
+    qkv = qkv.reshape(B, N, 3, heads, d)
+    qk, cos, sin = qkv[:, :, :2], layout.cos, layout.sin
+    half = d // 2
+    out = qk * cos
+    out[..., :half].addcmul_(qk[..., half:], sin[..., :half], value=-1)
+    out[..., half:].addcmul_(qk[..., :half], sin[..., half:])
+    q, k = out.to(qk.dtype).unbind(2)
+    v = qkv[:, :, 2]
+    if full:
+        return [tuple(t.transpose(1, 2) for t in (q, k, v))]
+    return [tuple(t[:, start:start + n * s].reshape(B * n, s, heads, d)
+                  .transpose(1, 2) for t in (q, k, v))
+            for start, n, s in layout.groups]
+
+
+def the_kernels_views(q, k, v, layout, B, full):
+    """The attention inputs the tower takes from :func:`rotary_qkv`'s q, k
+    and v, as :func:`rotate_then_cut` lists them."""
+    N = layout.tokens
+    if full:
+        return [tuple(t.view(B, N, *t.shape[1:]).transpose(1, 2)
+                      for t in (q, k, v))]
+    return [tuple(t[B * start:B * (start + n * s)].view(
+        B * n, s, *t.shape[1:]).transpose(1, 2) for t in (q, k, v))
+        for start, n, s in layout.groups]
+
+
+# (H, W): 4 window groups at the photo cell's shape; 2 at a small one.
+ROTARY_IMAGES = {(364, 504): 4, (84, 140): 2}
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", sorted(ROTARY_IMAGES))
+def test_plain_rotary_is_rotate_then_cut(hw, dtype, full):
+    """The rotary kernel's plain version, and the wrapper on the CPU, at
+    the published widths: q, k and v bit for bit what the rotation and the
+    windows' cuts gave, seen through the tower's views."""
+    cfg = QWEN2_5_VL_7B
+    lay = Layout(cfg, *hw, "cpu")
+    assert len(lay.groups) == ROTARY_IMAGES[hw]
+    C, heads, B = cfg["hidden_size"], cfg["num_heads"], 2
+    qkv = torch.randn((B, lay.tokens, 3 * C),
+                      generator=torch.Generator().manual_seed(26)).to(
+        getattr(torch, dtype))
+    dest = lay.full_dest if full else lay.window_dest
+    want = rotate_then_cut(qkv, lay, heads, full)
+    plain = cuda_vision.rotary_qkv_reference(qkv, lay.cos, lay.sin, dest,
+                                             heads)
+    got = cuda_vision.rotary_qkv(qkv, lay.cos, lay.sin, dest, heads)
+    for outs in (plain, got):
+        assert all(t.shape == (B * lay.tokens, heads, C // heads)
+                   and t.dtype == qkv.dtype for t in outs)
+        views = the_kernels_views(*outs, lay, B, full)
+        assert len(views) == len(want)
+        for g, w in zip(views, want):
+            for a, b in zip(g, w):
+                assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hw", sorted(ROTARY_IMAGES))
+def test_destination_maps_are_permutations(hw):
+    """Each map puts the ``B * N`` tokens of a batch on ``B * N`` distinct
+    rows; the windowed map lays each group's windows out as ``(B, n,
+    s)``, one block after the last."""
+    lay = Layout(QWEN2_5_VL_7B, *hw, "cpu")
+    N = lay.tokens
+    for B in (1, 3):
+        for dest in (lay.window_dest, lay.full_dest):
+            assert dest.shape == (N, 2) and dest.dtype == torch.int32
+            rows = cuda_vision.destination_rows(dest, B)
+            assert torch.equal(rows.flatten().sort().values,
+                               torch.arange(B * N))
+        assert torch.equal(cuda_vision.destination_rows(lay.full_dest, B),
+                           torch.arange(B * N).view(B, N))
+        rows = cuda_vision.destination_rows(lay.window_dest, B)
+        for start, n, s in lay.groups:
+            block = torch.arange(B * start, B * (start + n * s))
+            assert torch.equal(rows[:, start:start + n * s].flatten(),
+                               block)
+
+
+@pytest.mark.parametrize("case", ["dtype", "device", "qkv_shape",
+                                  "table_shape", "dest_dtype",
+                                  "not_contiguous"])
+def test_rotary_refusals(case):
+    lay = Layout(SMALL, 84, 140, "cpu")
+    heads, N = SMALL["num_heads"], lay.tokens
+    qkv = torch.zeros((2, N, 3 * SMALL["hidden_size"]))
+    cos, sin, dest = lay.cos, lay.sin, lay.window_dest
+    match = {"dtype": "dtype", "device": "on meta", "qkv_shape": "shape",
+             "table_shape": "shape", "dest_dtype": "dtype",
+             "not_contiguous": "not contiguous"}[case]
+    if case == "dtype":
+        qkv = qkv.half()
+    elif case == "device":
+        sin = torch.empty(sin.shape, device="meta")
+    elif case == "qkv_shape":
+        qkv = qkv[:, :, :-heads]
+    elif case == "table_shape":
+        cos = cos[:-1]
+    elif case == "dest_dtype":
+        dest = dest.long()
+    else:
+        qkv = qkv.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match=match):
+        cuda_vision.rotary_qkv(qkv, cos, sin, dest, heads)
 
 
 @pytest.mark.parametrize("image", sorted(IMAGES))
@@ -262,7 +380,8 @@ def test_spans_and_counters(game, sd):
     pred = predictor(game, sd)
     px = photos(84, 140, 4).numpy()
     names = ("runs", "images", "tokens", "replays",
-             "window_attention_launches", "full_attention_launches")
+             "window_attention_launches", "full_attention_launches",
+             "rotary_launches")
     before = {k: getattr(VisionTower, k) for k in names}
     tracer = Tracer(on_card=False)
     with traced(tracer):
@@ -282,10 +401,11 @@ def test_spans_and_counters(game, sd):
         assert c <= a and b <= d
     got = {k: getattr(VisionTower, k) - before[k] for k in names}
     # Two requests of 4 photos of 60 patches; 6 windowed blocks of two
-    # window sizes and 2 full blocks a run; no replay on the CPU.
+    # window sizes and 2 full blocks a run, one rotation each; no replay
+    # on the CPU.
     assert got == {"runs": 2, "images": 8, "tokens": 480, "replays": 0,
                    "window_attention_launches": 24,
-                   "full_attention_launches": 4}
+                   "full_attention_launches": 4, "rotary_launches": 16}
 
 
 def test_each_request_shape_has_its_graph(game, sd):
